@@ -1,0 +1,67 @@
+"""Carry state and tables from NumPy into the port's tensors.
+
+The JAX package's objects, fetched to the host as NumPy arrays (camera rigs,
+per-frame slots, sampling tables), become the port's objects here, so two
+runs can start from the same rig and the same previous-frame state.
+Descriptor words arrive as uint32 and are kept as int32 tensors holding the
+same bit patterns.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from stereo_orb_slam_torch.frontend.odometer import FrameSlots
+from stereo_orb_slam_torch.geometry.camera import Pinhole, StereoRig
+
+_PINHOLE_FIELDS = Pinhole._fields
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _tensor(x, device):
+    return torch.as_tensor(np.array(x, np.float32), device=device)
+
+
+def pinhole_from_numpy(cam, device="cuda") -> Pinhole:
+    """A Pinhole from a mapping or NamedTuple of NumPy values with the
+    fields fx, fy, cx, cy, dist, pose, projection."""
+    return Pinhole(**{f: _tensor(_get(cam, f), device) for f in _PINHOLE_FIELDS})
+
+
+def rig_from_numpy(rig, device="cuda") -> StereoRig:
+    """A StereoRig from a mapping or NamedTuple with left, right (see
+    pinhole_from_numpy), rectified and baseline."""
+    return StereoRig(
+        left=pinhole_from_numpy(_get(rig, "left"), device),
+        right=pinhole_from_numpy(_get(rig, "right"), device),
+        rectified=bool(_get(rig, "rectified")),
+        baseline=_tensor(_get(rig, "baseline"), device),
+    )
+
+
+def desc_to_tensor(desc_u32, device="cuda") -> torch.Tensor:
+    """[N, 8] uint32 descriptor words -> int32 tensor of the same bits."""
+    words = np.ascontiguousarray(np.asarray(desc_u32, np.uint32)).view(np.int32)
+    return torch.from_numpy(words.copy()).to(device)
+
+
+def slots_from_numpy(slots, device="cuda") -> FrameSlots:
+    """FrameSlots from a mapping or NamedTuple of NumPy arrays (kp_l, kp_r,
+    desc as uint32, pts, valid)."""
+    return FrameSlots(
+        kp_l=_tensor(_get(slots, "kp_l"), device),
+        kp_r=_tensor(_get(slots, "kp_r"), device),
+        desc=desc_to_tensor(_get(slots, "desc"), device),
+        pts=_tensor(_get(slots, "pts"), device),
+        valid=torch.as_tensor(np.array(_get(slots, "valid"), bool), device=device),
+    )
+
+
+def table_from_numpy(table, device="cuda") -> torch.Tensor:
+    """A sampling table given as any float array of bf16 values -> a bf16
+    tensor (exact: the values are representable)."""
+    return torch.as_tensor(np.asarray(table, np.float32), device=device).to(torch.bfloat16)

@@ -1,0 +1,475 @@
+"""Per-frame stereo visual odometry front end.
+
+PyTorch counterpart of the JAX package's `frontend/odometer.py` (the
+reference `VisualOdometer`, ref `src/visual_odometer.h:16-96`,
+`src/visual_odometer.cpp:105-221`). The per-frame compute (corners on both
+images, ORB descriptors, stereo matching, triangulation and depth gating,
+temporal matching, batched RANSAC) runs on the tensors' device; the host
+then does the map bookkeeping on the small per-frame results.
+
+Per-frame state lives in slot-aligned arrays of capacity `num_features`
+with validity masks: slot i of every array refers to left corner i.
+
+Behaviour kept from the JAX package (and the reference):
+- fewer than `min_stereo_matches` stereo matches: the frame is not
+  recorded (ref :117-121);
+- RANSAC failure: the frame is recorded with identity relative pose, all
+  its points become new landmarks, and the previous frame is kept for the
+  next temporal match (ref :206-217);
+- each slot's own descriptor is kept (the reference's wrong-index append at
+  :407 is fixed).
+
+The minimal-set sampler of frame i is `sampler_for_frame(i)`, by default a
+Gumbel sampler on a generator seeded from (seed, i), so `track_batch` and K
+`track` calls see the same draws.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
+from stereo_orb_slam_torch.frontend import ransac
+from stereo_orb_slam_torch.geometry import camera as cam_mod
+from stereo_orb_slam_torch.ops import detect, match, orb
+from stereo_orb_slam_torch.worldmap import WorldMap
+
+
+class FrameSlots(NamedTuple):
+    """Slot-aligned per-frame state. Slot = left-corner index."""
+
+    kp_l: torch.Tensor   # [N,2]
+    kp_r: torch.Tensor   # [N,2]
+    desc: torch.Tensor   # [N,8] int32 words (uint32 bit patterns)
+    pts: torch.Tensor    # [N,3] camera-frame 3D points
+    valid: torch.Tensor  # [N] bool
+
+
+class StepResult(NamedTuple):
+    slots: FrameSlots
+    transform: torch.Tensor       # [4,4] rel pose: X_prev = T @ X_curr
+    prev_idx: torch.Tensor        # [N] temporal match into prev slots
+    tracked: torch.Tensor         # [N] temporal match passed RANSAC inliers
+    ransac_success: torch.Tensor  # bool
+    num_stereo: torch.Tensor      # int32
+    num_temporal: torch.Tensor    # int32
+    num_inliers: torch.Tensor     # int32
+
+
+def empty_slots(n: int, device="cuda") -> FrameSlots:
+    return FrameSlots(
+        kp_l=torch.zeros((n, 2), dtype=torch.float32, device=device),
+        kp_r=torch.zeros((n, 2), dtype=torch.float32, device=device),
+        desc=torch.zeros((n, 8), dtype=torch.int32, device=device),
+        pts=torch.zeros((n, 3), dtype=torch.float32, device=device),
+        valid=torch.zeros((n,), dtype=torch.bool, device=device),
+    )
+
+
+def detect_and_describe(img, fe: FrontendConfig, steer=None):
+    """Corners + ORB descriptors for one image."""
+    xy, _, v = detect.detect_corners(
+        img, num_features=fe.num_features, quality_level=fe.quality_level,
+        block_size=fe.block_size, min_distance=fe.min_distance,
+        subpix=fe.subpix,
+    )
+    if steer is None:
+        steer = orb.steer_table(fe.oriented, img.device)
+    d, _ = orb.compute_descriptors(
+        img, xy, v, smoothing_ksize=fe.smoothing_ksize,
+        orientation_radius=fe.orientation_radius, steer=steer,
+    )
+    return xy, v, d
+
+
+def associate(
+    xy_l, v_l, d_l, xy_r, v_r, d_r,
+    prev: FrameSlots, prev_usable, sampler: ransac.Sampler,
+    rig: cam_mod.StereoRig, max_distance,
+    fe: FrontendConfig, rc: RansacConfig,
+    rectified: Optional[bool] = None,
+) -> StepResult:
+    """Stereo match + triangulate + temporal match + RANSAC."""
+    n = fe.num_features
+    # Stereo matching: left query -> right train (ref :262-289).
+    r_idx, s_ok, _ = match.match_descriptors(
+        d_l, d_r, v_l, v_r,
+        max_distance=fe.match_max_distance, ratio=fe.match_ratio,
+    )
+    kp_r = xy_r[r_idx.long()]
+
+    # A non-rectified rig's pixels are undistorted once, here, so slots,
+    # map observations and RANSAC all see ideal pinhole coordinates.
+    if rectified is False:
+        xy_l = cam_mod.undistort_points(rig.left, xy_l)
+        kp_r = cam_mod.undistort_points(rig.right, kp_r)
+
+    pts, tri_ok = cam_mod.triangulate_ideal(
+        rig, xy_l, kp_r, rectified=(True if rectified is None else rectified),
+    )
+    depth_ok = torch.abs(pts[:, 2]) < max_distance
+    slot_valid = v_l & s_ok & tri_ok & depth_ok
+    pts = torch.where(slot_valid[:, None], pts, 0.0)
+
+    slots = FrameSlots(kp_l=xy_l, kp_r=kp_r, desc=d_l, pts=pts, valid=slot_valid)
+    num_stereo = torch.sum(slot_valid.to(torch.int32))
+
+    # Temporal matching curr -> prev (ref :316-333; MatchPoints :64-91).
+    prev_valid = prev.valid & prev_usable
+    prev_idx, t_ok, _ = match.match_descriptors(
+        slots.desc, prev.desc, slot_valid, prev_valid,
+        max_distance=fe.match_max_distance, ratio=fe.match_ratio,
+    )
+    num_temporal = torch.sum(t_ok.to(torch.int32))
+
+    # Batched RANSAC pose (ref :158-177).
+    pi = prev_idx.long()
+    obs_curr = torch.cat([slots.kp_l, slots.kp_r], dim=-1)
+    obs_prev_all = torch.cat([prev.kp_l, prev.kp_r], dim=-1)
+    res = ransac.solve(
+        sampler,
+        slots.pts,
+        prev.pts[pi],
+        obs_curr,
+        obs_prev_all[pi],
+        t_ok,
+        torch.ones(n, dtype=torch.float32, device=xy_l.device),
+        rig.left.projection,
+        rig.right.projection,
+        inlier_threshold_px=rc.inlier_threshold_px,
+        min_pairs=rc.min_pairs,
+        min_inliers=rc.min_inliers,
+        final_model_fitting=rc.final_model_fitting,
+    )
+    return StepResult(
+        slots=slots,
+        transform=res.transform,
+        prev_idx=prev_idx,
+        tracked=res.inlier_mask & t_ok,
+        ransac_success=res.success,
+        num_stereo=num_stereo,
+        num_temporal=num_temporal,
+        num_inliers=res.num_inliers,
+    )
+
+
+def frontend_step(img_l, img_r, prev: FrameSlots, prev_usable, sampler,
+                  rig: cam_mod.StereoRig, max_distance, fe: FrontendConfig,
+                  rc: RansacConfig, rectified=None, steer=None) -> StepResult:
+    """The full per-frame front end, Track() (ref visual_odometer.cpp:105-221).
+    Images may be uint8 or float32 tensors on the rig's device."""
+    img_l = img_l.to(torch.float32)
+    img_r = img_r.to(torch.float32)
+    xy_l, v_l, d_l = detect_and_describe(img_l, fe, steer)
+    xy_r, v_r, d_r = detect_and_describe(img_r, fe, steer)
+    return associate(xy_l, v_l, d_l, xy_r, v_r, d_r, prev, prev_usable, sampler,
+                     rig, max_distance, fe, rc, rectified)
+
+
+def frontend_chain(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, samplers,
+                   rig, max_distance, fe: FrontendConfig, rc: RansacConfig,
+                   rectified=None, steer=None):
+    """K dependent frame steps, with the host's record/swap state machine
+    kept on the device (no host sync between frames):
+
+      record = num_stereo >= min_stereo_matches
+      swap   = record & (first_frame | ransac_success)
+
+    Returns ((prev, initialized) after the K frames, the K StepResults
+    stacked on a leading axis).
+    """
+    initialized = torch.as_tensor(prev_initialized, device=prev.valid.device)
+    results = []
+    for img_l, img_r, sampler in zip(imgs_l, imgs_r, samplers):
+        res = frontend_step(img_l, img_r, prev, initialized, sampler, rig,
+                            max_distance, fe, rc, rectified, steer)
+        record = res.num_stereo >= fe.min_stereo_matches
+        swap = record & (~initialized | res.ransac_success)
+        prev = FrameSlots(*(torch.where(swap, new, old)
+                            for new, old in zip(res.slots, prev)))
+        # Any frame, recorded or not, marks the odometer initialized.
+        initialized = torch.ones_like(initialized)
+        results.append(res)
+    stacked = StepResult(
+        slots=FrameSlots(*(torch.stack(f) for f in zip(*(r.slots for r in results)))),
+        **{name: torch.stack([getattr(r, name) for r in results])
+           for name in StepResult._fields[1:]},
+    )
+    return (prev, initialized), stacked
+
+
+def _to_host(res: StepResult) -> StepResult:
+    """NumPy copy of a (possibly stacked) StepResult; descriptor words come
+    back as uint32."""
+    slots = FrameSlots(*(t.cpu().numpy() for t in res.slots))
+    slots = slots._replace(desc=slots.desc.view(np.uint32))
+    return StepResult(slots, *(t.cpu().numpy() for t in res[1:]))
+
+
+def _frame_seed(seed: int, frame: int) -> int:
+    return (seed * 0x9E3779B1 + frame) % (1 << 63)
+
+
+class VisualOdometer:
+    """Host-side orchestration: device front end + world-map bookkeeping.
+
+    Runs on the rig's device. `sampler_for_frame(i)` gives frame i's RANSAC
+    sampler (valid -> [K,3]); the default draws Gumbel top-3 from a
+    generator seeded from (seed, i).
+    """
+
+    def __init__(
+        self,
+        world: WorldMap,
+        rig: cam_mod.StereoRig,
+        fe: Optional[FrontendConfig] = None,
+        rc: Optional[RansacConfig] = None,
+        seed: int = 0,
+        sampler_for_frame: Optional[Callable[[int], ransac.Sampler]] = None,
+    ):
+        self.world = world
+        self.rig = rig
+        self.device = rig.device
+        self.fe = fe or FrontendConfig()
+        self.rc = rc or RansacConfig()
+        self.seed = seed
+        self.sampler_for_frame = sampler_for_frame or self._gumbel_for_frame
+        self._frame_counter = 0
+        self.max_distance = rig.max_sensible_distance()
+        self.rectified = bool(rig.rectified)
+        # Host copies of the rectified intrinsics: the host map recomputes
+        # its points from the keypoints through the NumPy mirror.
+        self._tri_np = None
+        if self.rectified:
+            vals = torch.stack([rig.left.fx, rig.left.cx, rig.left.cy,
+                                rig.right.cx, rig.baseline]).cpu().numpy()
+            self._tri_np = tuple(np.float32(v) for v in vals)
+        self.steer = orb.steer_table(self.fe.oriented, self.device)
+        self.prev = empty_slots(self.fe.num_features, self.device)
+        self.prev_global_idx = np.full(self.fe.num_features, -1, np.int64)
+        self.initialized = False
+        self.success = True
+        self.frame_recorded = False
+        self.last_result = None        # StepResult of the last track()
+        self.last_batch = None         # host StepResult of the last track_batch()
+        self.last_batch_recorded = []
+
+    def _gumbel_for_frame(self, frame: int) -> ransac.Sampler:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(_frame_seed(self.seed, frame))
+        return ransac.gumbel_sampler(gen, self.rc.num_hypotheses)
+
+    def _upload(self, img):
+        return torch.as_tensor(img).to(self.device)
+
+    def track(self, img_l, img_r) -> np.ndarray:
+        """Process one stereo pair (uint8 or float32 arrays or tensors);
+        returns the 4x4 relative transform."""
+        sampler = self.sampler_for_frame(self._frame_counter)
+        self._frame_counter += 1
+        res = frontend_step(
+            self._upload(img_l), self._upload(img_r), self.prev,
+            torch.tensor(self.initialized, device=self.device), sampler,
+            self.rig, self.max_distance, self.fe, self.rc, self.rectified,
+            self.steer,
+        )
+        return self._ingest(res)
+
+    def track_batch(self, imgs_l, imgs_r) -> list:
+        """Process K stereo pairs: the K frame steps run back to back on the
+        device with the swap/record state kept there, then one readback,
+        then the host replays the map bookkeeping of K `track` calls."""
+        k = len(imgs_l)
+        samplers = [self.sampler_for_frame(self._frame_counter + j) for j in range(k)]
+        self._frame_counter += k
+        (prev, _), stacked = frontend_chain(
+            self._upload(imgs_l), self._upload(imgs_r), self.prev,
+            self.initialized, samplers, self.rig, self.max_distance, self.fe,
+            self.rc, self.rectified, self.steer,
+        )
+        self.last_batch = _to_host(stacked)
+        out = self._ingest_batch(self.last_batch, k)
+        self.prev = prev
+        return out
+
+    def _host_points(self, slots: FrameSlots) -> np.ndarray:
+        """Camera-frame points of host slots ([..., N] leading dims)."""
+        if not self.rectified:
+            return slots.pts
+        pts = cam_mod.triangulate_rectified_np(*self._tri_np, slots.kp_l, slots.kp_r)
+        pts[~slots.valid] = 0.0
+        return pts
+
+    def _ingest_batch(self, b: StepResult, k: int) -> list:
+        """Replay of K sequential `_ingest` calls on host results with a
+        leading K axis: the scalar state machine runs per frame, the slot
+        work as NumPy batch operations. World state is bitwise that of the
+        per-frame path."""
+        fe = self.fe
+        world = self.world
+        n = fe.num_features
+        valid_b = b.slots.valid
+        tracked_b = b.tracked
+        prev_idx_b = b.prev_idx
+        pts_b = self._host_points(b.slots)
+        desc_b = b.slots.desc
+        uv4_b = np.concatenate([b.slots.kp_l, b.slots.kp_r], axis=2).astype(np.float32)
+
+        recorded = b.num_stereo >= fe.min_stereo_matches
+        # Pass 1: the scalar state machine and the output transforms.
+        out, rec_flags, succ_all, rec_info, rels = [], [], [], [], []
+        init = self.initialized
+        for j in range(k):
+            if not recorded[j]:
+                out.append(np.eye(4, dtype=np.float32))
+                rec_flags.append(False)
+                succ_all.append(False)
+                init = True
+                continue
+            first = not init
+            succ = True if first else bool(b.ransac_success[j])
+            trans = np.eye(4, dtype=np.float32) if first else b.transform[j]
+            out.append(trans)
+            rec_flags.append(True)
+            succ_all.append(succ)
+            rec_info.append((j, first, succ))
+            rels.append(trans)
+            init = True
+        self.initialized = init
+        self.last_batch_recorded = rec_flags
+        self.frame_recorded = rec_flags[-1]
+        self.success = succ_all[-1]
+        if not rec_info:
+            return out
+
+        fids = world.add_frames(np.stack(rels))
+        Gs = world.pose_global[fids]
+
+        # Pass 2: landmark ids per recorded frame; sequential only through
+        # the chain of previous-frame ids.
+        prev_gids = self.prev_global_idx
+        base = world.num_points
+        gids_rows, newmask_rows, pw_chunks, ff_chunks = [], [], [], []
+        for r, (j, first, succ) in enumerate(rec_info):
+            valid = valid_b[j]
+            tracked = (np.zeros_like(valid) if first or not succ
+                       else tracked_b[j] & valid)
+            gids = np.full(n, -1, np.int64)
+            if tracked.any():
+                inherited = prev_gids[prev_idx_b[j][tracked]]
+                ok = inherited >= 0
+                t_idx = np.where(tracked)[0]
+                gids[t_idx[ok]] = inherited[ok]
+                tracked = np.zeros_like(tracked)
+                tracked[t_idx[ok]] = True
+            new_mask = valid & ~tracked
+            n_new = int(np.count_nonzero(new_mask))
+            if n_new:
+                pl = pts_b[j][new_mask]
+                ph = np.concatenate([pl, np.ones((len(pl), 1), np.float32)], 1)
+                pw_chunks.append((Gs[r] @ ph.T).T[:, :3])
+                ff_chunks.append(np.full(n_new, fids[r], np.int32))
+                gids[new_mask] = np.arange(base, base + n_new, dtype=np.int64)
+                base += n_new
+            gids_rows.append(gids)
+            newmask_rows.append(new_mask)
+            if first or succ:
+                prev_gids = gids
+        self.prev_global_idx = prev_gids
+
+        # Pass 3: bulk world writes.
+        if pw_chunks:
+            world.add_points_multi(np.concatenate(pw_chunks), np.concatenate(ff_chunks))
+        jsel = [j for j, _, _ in rec_info]
+        gids_mat = np.stack(gids_rows)
+        newmask_mat = np.stack(newmask_rows)
+        obs_mask_mat = valid_b[jsel] & (gids_mat >= 0)
+        uv4_mat = uv4_b[jsel]
+        world.add_observations_multi(
+            np.repeat(fids, obs_mask_mat.sum(axis=1)),
+            gids_mat[obs_mask_mat].astype(np.int32),
+            uv4_mat[obs_mask_mat],
+        )
+        # New points net one observation: created at 1, bumped by their own
+        # creation observation, compensated here as in the per-frame path.
+        world.point_obs_count[gids_mat[newmask_mat].astype(np.int64)] -= 1
+        world.set_frame_features_batch(
+            int(fids[0]), desc_b[jsel], uv4_mat, gids_mat.astype(np.int32), obs_mask_mat,
+        )
+        return out
+
+    def _ingest(self, res: StepResult) -> np.ndarray:
+        """Host bookkeeping for one device StepResult."""
+        self.last_result = res
+        host = _to_host(res)
+        if int(host.num_stereo) < self.fe.min_stereo_matches:
+            # Reference early return: the frame is not recorded (:117-121).
+            self.success = False
+            self.frame_recorded = False
+            self.initialized = True
+            return np.eye(4, dtype=np.float32)
+        self.frame_recorded = True
+
+        if not self.initialized:
+            trans = np.eye(4, dtype=np.float32)
+            self.success = True
+            self._update_map(trans, host, first=True)
+            self._swap(res)
+            self.initialized = True
+            return trans
+
+        self.success = bool(host.ransac_success)
+        trans = host.transform
+        self._update_map(trans, host, first=False)
+        if self.success:
+            self._swap(res)
+        # else: keep the previous frame (ref :214-217)
+        return trans
+
+    def _swap(self, res: StepResult):
+        self.prev = res.slots
+        self.prev_global_idx = self._curr_global_idx
+
+    def _update_map(self, trans: np.ndarray, res: StepResult, first: bool):
+        """Map bookkeeping on host results, mirroring Update() (ref :335-444)."""
+        world = self.world
+        slots = res.slots
+        valid = slots.valid
+        pts_local = self._host_points(slots)
+
+        fid = world.add_frame(trans)
+        G = world.pose_global[fid]
+
+        tracked = res.tracked & valid if not first else np.zeros_like(valid)
+        if not first and not self.success:
+            tracked[:] = False  # failed RANSAC: everything becomes new
+        gids = np.full(len(valid), -1, np.int64)
+        # Tracked slots inherit the matched prev slot's landmark id.
+        if tracked.any():
+            inherited = self.prev_global_idx[res.prev_idx[tracked]]
+            ok = inherited >= 0
+            t_idx = np.where(tracked)[0]
+            gids[t_idx[ok]] = inherited[ok]
+            tracked = np.zeros_like(tracked)
+            tracked[t_idx[ok]] = True
+
+        # New landmarks: valid slots not tracked, moved to the world frame by
+        # the new frame's global pose (ref :386-388).
+        new_mask = valid & ~tracked
+        if new_mask.any():
+            pl = pts_local[new_mask]
+            ph = np.concatenate([pl, np.ones((len(pl), 1), np.float32)], 1)
+            pw = (G @ ph.T).T[:, :3]
+            gids[new_mask] = world.add_points(pw, fid)
+
+        uv4 = np.concatenate([slots.kp_l, slots.kp_r], axis=1).astype(np.float32)
+        obs_mask = valid & (gids >= 0)
+        world.add_observations(fid, gids[obs_mask].astype(np.int32), uv4[obs_mask])
+        # New points start at 1 in add_points and add_observations counts
+        # them again: take the double count back.
+        world.point_obs_count[gids[new_mask].astype(np.int64)] -= 1
+        world.set_frame_features(fid, slots.desc, uv4, gids.astype(np.int32), obs_mask)
+        self._curr_global_idx = gids

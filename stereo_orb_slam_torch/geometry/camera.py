@@ -1,0 +1,192 @@
+"""Camera models: pinhole projection, distortion, stereo triangulation.
+
+PyTorch counterpart of the JAX package's `geometry/camera.py` (ref
+`src/camera_model.h:13-84`, `src/camera_model.cpp`). Camera parameters are
+float32 tensors on one device, held in NamedTuples. The rectified path is
+the closed-form disparity -> depth of ref `src/camera_model.cpp:155-228`,
+with a validity mask in place of the reference's dropped points; the general
+path is the DLT of ref `src/camera_model.cpp:123-152` through a batched SVD.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from stereo_orb_slam_torch.geometry import se3
+
+
+def _f32(x, device):
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+class Pinhole(NamedTuple):
+    """One pinhole camera. All fields are float32 tensors on one device."""
+
+    fx: torch.Tensor
+    fy: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    dist: torch.Tensor        # [5] = (k1, k2, p1, p2, k3)
+    pose: torch.Tensor        # [4,4] camera-to-rig transform
+    projection: torch.Tensor  # [3,4] = K @ [I|0] @ pose^-1
+
+    @staticmethod
+    def create(fx, fy, cx, cy, dist=None, pose=None, device="cuda") -> "Pinhole":
+        dist = np.zeros(5, np.float32) if dist is None else np.asarray(dist, np.float32)
+        pose = np.eye(4, dtype=np.float32) if pose is None else np.asarray(pose, np.float32)
+        K34 = np.array(
+            [[fx, 0.0, cx, 0.0], [0.0, fy, cy, 0.0], [0.0, 0.0, 1.0, 0.0]], np.float32
+        )
+        proj = K34 @ np.linalg.inv(pose)
+        return Pinhole(
+            fx=_f32(fx, device), fy=_f32(fy, device),
+            cx=_f32(cx, device), cy=_f32(cy, device),
+            dist=_f32(dist, device), pose=_f32(pose, device),
+            projection=_f32(proj, device),
+        )
+
+    @property
+    def K(self):
+        z = torch.zeros_like(self.fx)
+        o = torch.ones_like(self.fx)
+        return torch.stack(
+            [
+                torch.stack([self.fx, z, self.cx], -1),
+                torch.stack([z, self.fy, self.cy], -1),
+                torch.stack([z, z, o], -1),
+            ],
+            -2,
+        )
+
+
+class StereoRig(NamedTuple):
+    """A stereo pair; `rectified` (a Python bool) selects the closed-form
+    triangulation path. `baseline` is a scalar tensor: the x-offset of the
+    right camera in the left frame (the reference reads y at
+    camera_model.cpp:175; x is used everywhere here, as in the JAX package)."""
+
+    left: Pinhole
+    right: Pinhole
+    rectified: bool
+    baseline: torch.Tensor
+
+    @staticmethod
+    def create(left: Pinhole, right: Pinhole, rectified: bool,
+               baseline: float = None) -> "StereoRig":
+        if baseline is None:
+            pose_lr = se3.inverse(left.pose) @ right.pose
+            b = torch.abs(pose_lr[0, 3])
+        else:
+            b = _f32(abs(float(baseline)), left.fx.device)
+        return StereoRig(left=left, right=right, rectified=bool(rectified), baseline=b)
+
+    @property
+    def device(self) -> torch.device:
+        return self.left.fx.device
+
+    def max_sensible_distance(self):
+        """fx * baseline: depth beyond which disparity < 1 px
+        (ref `src/camera_model.cpp:111-121`)."""
+        return self.left.fx * self.baseline
+
+
+def project(P, pts):
+    """Project [..., N, 3] points through a [3,4] projection. -> [..., N, 2]."""
+    ph = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+    uvw = ph @ P.T
+    w = uvw[..., 2:3]
+    safe_w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
+    return uvw[..., :2] / safe_w
+
+
+def undistort_points(cam: Pinhole, uv, iterations: int = 8):
+    """Distorted pixel coords -> undistorted pixel coords
+    (ref `src/camera_model.cpp:72-90`): fixed-point inversion of the
+    distortion in normalized coordinates, then back through K."""
+    x0 = (uv[..., 0] - cam.cx) / cam.fx
+    y0 = (uv[..., 1] - cam.cy) / cam.fy
+    k1, k2, p1, p2, k3 = (cam.dist[i] for i in range(5))
+    x, y = x0, y0
+    for _ in range(iterations):
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x, y = (x0 - dx) / radial, (y0 - dy) / radial
+    return torch.stack([cam.fx * x + cam.cx, cam.fy * y + cam.cy], dim=-1)
+
+
+def triangulate_dlt(P1, P2, uv1, uv2):
+    """Batched DLT triangulation (cv::triangulatePoints,
+    ref `src/camera_model.cpp:123-152`). [N,2]x2 -> [N,3].
+
+    The null vector is the right singular vector of the smallest singular
+    value; its sign is arbitrary and cancels when dehomogenising.
+    """
+    def rows(P, uv):
+        r1 = uv[..., 0:1] * P[2] - P[0]
+        r2 = uv[..., 1:2] * P[2] - P[1]
+        return torch.stack([r1, r2], dim=-2)  # [N,2,4]
+
+    A = torch.cat([rows(P1, uv1), rows(P2, uv2)], dim=-2)  # [N,4,4]
+    _, _, vt = torch.linalg.svd(A)
+    Xh = vt[..., -1, :]
+    w = Xh[..., 3:4]
+    safe_w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
+    return Xh[..., :3] / safe_w
+
+
+def triangulate_rectified(rig: StereoRig, uv_l, uv_r, max_depth: float = 100.0):
+    """Closed-form rectified triangulation with validity mask
+    (ref `src/camera_model.cpp:195-228`, 0 < z < max_depth gate)."""
+    fx = rig.left.fx
+    cx = rig.left.cx
+    cy = rig.left.cy
+    u = uv_l[..., 0]
+    v = uv_l[..., 1]
+    d = uv_l[..., 0] - uv_r[..., 0]
+    # z = fx * b / (d - (cx - cx_r)): accounts for differing principal points.
+    dd = d - (cx - rig.right.cx)
+    safe_dd = torch.where(torch.abs(dd) < 1e-6, 1e-6, dd)
+    z = fx * rig.baseline / safe_dd
+    x = (u - cx) * z / fx
+    y = (v - cy) * z / fx  # the rectified model assumes fx == fy
+    pts = torch.stack([x, y, z], dim=-1)
+    valid = (z > 0.0) & (z < max_depth)
+    return pts, valid
+
+
+def triangulate_ideal(rig: StereoRig, uv_l, uv_r, max_depth: float = 100.0,
+                      rectified: bool = True):
+    """Triangulate already-undistorted (ideal pinhole) pixel observations:
+    closed-form disparity when rectified, else DLT without re-undistorting."""
+    if rectified:
+        return triangulate_rectified(rig, uv_l, uv_r, max_depth)
+    pts = triangulate_dlt(rig.left.projection, rig.right.projection, uv_l, uv_r)
+    local = se3.transform_points(se3.inverse(rig.left.pose), pts)
+    valid = (local[..., 2] > 0.0) & (local[..., 2] < max_depth)
+    return pts, valid
+
+
+def triangulate_rectified_np(fx, cx, cy, cx_r, baseline, uv_l, uv_r):
+    """Host (NumPy) mirror of triangulate_rectified's values, in the same
+    float32 operation order with scalar intrinsics. The host map recomputes
+    its points with it, so the per-frame and batched paths write identical
+    landmarks."""
+    fx = np.float32(fx)
+    cx = np.float32(cx)
+    cy = np.float32(cy)
+    cx_r = np.float32(cx_r)
+    b = np.float32(baseline)
+    u = uv_l[..., 0]
+    v = uv_l[..., 1]
+    d = uv_l[..., 0] - uv_r[..., 0]
+    dd = d - (cx - cx_r)
+    safe_dd = np.where(np.abs(dd) < np.float32(1e-6), np.float32(1e-6), dd)
+    z = fx * b / safe_dd
+    x = (u - cx) * z / fx
+    y = (v - cy) * z / fx
+    return np.stack([x, y, z], axis=-1)
