@@ -1,22 +1,32 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile PATH]
 
 Phases, each of which fails the run when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
      no CUDA device means exit 1 with no result;
-  2. build: both CUDA kernels of stereo_orb_slam_torch/csrc, compiled by
-     nvcc for sm_90a in parallel;
-  3. each kernel against its plain PyTorch version at the main path's
-     shapes (hamming_top2 at N = M = 1024 with masked columns, an all-invalid
-     train and planted ties; the patch cut at N = 1024 on a 406 x 1271
-     image), bit for bit, with CUDA-event timings; then the CUDA path against
+  2. build: the three CUDA kernels of stereo_orb_slam_torch/csrc, compiled
+     by nvcc for sm_90a in parallel;
+  3. the launch floor (a one-element in-place add), then each kernel
+     against its plain PyTorch version at the main path's shapes, with
+     CUDA-event timings: hamming_top2 with one query set against two train
+     sets of 1024 (one launch; masked columns, an all-invalid train, planted
+     ties) and against one, bit for bit; the patch cut at N = 1024 on a
+     406 x 1271 image, bit for bit; the fused upright describe
+     (orb_describe) at N = 1024 on that image with a quarter of the corners
+     invalid, at most 1e-4 of the bits differing; then the CUDA path against
      the CPU path on one full-size frame (corners and descriptors);
   4. the main path at full width: 60 synthetic KITTI-sized stereo frames
      (376 x 1241, KITTI 00-02 intrinsics) through
      `stereo_orb_slam_torch.apps.visual_odometry.main` on the card with the
-     default configs (1024 features, 128 RANSAC hypotheses). It needs
-     ATE < 0.01 m and exactly 2 launches of each kernel per frame.
+     default configs (1024 features, upright descriptors, 128 RANSAC
+     hypotheses). It needs ATE < 0.01 m and exactly 1 hamming_top2, 2
+     orb_describe and 0 extract_patches launches per frame;
+  5. the oriented describe, the patch cut's path: 10 of those frames through
+     `VisualOdometer` with `FrontendConfig(oriented=True)`; finite poses and
+     exactly 2 extract_patches and 1 hamming_top2 launches per frame (ATE
+     printed);
+  6. with --profile PATH: a torch.profiler breakdown of 20 main-path frames.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -36,7 +46,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 INT8_TENSOR_OPS_PER_S = 1.979e15
+F32_OPS_PER_S = 67e12        # float32 outside the tensor cores
 N_FRAMES = 60
+ORIENTED_FRAMES = 10
 KITTI = dict(fx=718.856, cx=607.19, cy=185.22, baseline=0.537, h=376, w=1241)
 
 
@@ -130,44 +142,72 @@ def _hamming_case(rng, kind, n=1024, m=1024):
     return q, t, vt
 
 
+def _check_equal(name, got, want):
+    """Bit-for-bit equality of result tuples; returns the max abs error (0)."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{name} differs from its plain version")
+        err = max(err, float((g.double() - w.double()).abs().max()))
+    return err
+
+
+def _record(name, source, replaces, path, **numbers):
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=None,
+                path=path, **numbers)
+
+
 def phase_kernels(rng):
-    """Each kernel against its plain version, bit for bit, and timed."""
+    """Each kernel against its plain version and timed; the launch floor."""
     import torch
 
     from stereo_orb_slam_torch import convert
     from stereo_orb_slam_torch.ops import orb
-    from stereo_orb_slam_torch.ops.kernels import hamming, patches
+    from stereo_orb_slam_torch.ops.kernels import describe, hamming, patches
 
     dev = torch.device("cuda")
     records = []
 
-    # hamming_top2 at the matching stages' shape.
+    # The least device time of any launch: a one-element in-place add.
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_device(lambda: one.add_(1.0))
+    log(f"launch floor: {floor_ms * 1e3:.2f} us device (one-element in-place add)")
+
+    # hamming_top2 at the matching stages' shape: one query set against the
+    # right image's and the previous frame's train sets, one launch.
     err = 0.0
     for kind in ("masked", "all_invalid", "ties"):
-        q, t, vt = _hamming_case(rng, kind)
-        args = (convert.desc_to_tensor(q, dev), convert.desc_to_tensor(t, dev),
-                torch.as_tensor(vt, device=dev))
-        got = hamming.hamming_top2(*args)
-        want = hamming.hamming_top2_plain(*args)
+        q, ta, va = _hamming_case(rng, kind)
+        _, tb, vb = _hamming_case(rng, kind)
+        qd, tad, tbd = (convert.desc_to_tensor(x, dev) for x in (q, ta, tb))
+        vad, vbd = torch.as_tensor(va, device=dev), torch.as_tensor(vb, device=dev)
+        pair = hamming.hamming_top2_pair(qd, tad, vad, tbd, vbd)
+        single = hamming.hamming_top2(qd, tbd, vbd)
+        plain = (hamming.hamming_top2_plain(qd, tad, vad),
+                 hamming.hamming_top2_plain(qd, tbd, vbd))
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            if not torch.equal(g, w):
-                raise AssertionError(f"hamming_top2 differs from its plain version ({kind})")
-            err = max(err, float((g.double() - w.double()).abs().max()))
-    ms = time_device(lambda: hamming.hamming_top2(*args))
-    call_ms = time_call(lambda: hamming.hamming_top2(*args))
-    plain_ms = time_device(lambda: hamming.hamming_top2_plain(*args))
+        err = max(err, _check_equal(f"hamming_top2_pair ({kind}, set a)", pair[0], plain[0]),
+                  _check_equal(f"hamming_top2_pair ({kind}, set b)", pair[1], plain[1]),
+                  _check_equal(f"hamming_top2 ({kind})", single, plain[1]))
+    args = (qd, tad, vad, tbd, vbd)
+    ms = time_device(lambda: hamming.hamming_top2_pair(*args))
+    single_ms = time_device(lambda: hamming.hamming_top2(qd, tad, vad))
+    call_ms = time_call(lambda: hamming.hamming_top2_pair(*args))
+    plain_ms = time_device(lambda: (hamming.hamming_top2_plain(qd, tad, vad),
+                                    hamming.hamming_top2_plain(qd, tbd, vbd)))
     n, m = 1024, 1024
-    bytes_ = n * 32 + m * 32 + m + n * 12
-    ops = 2 * n * m * 256  # the +-1 product of depth 256, at the int8 tensor rate
+    bytes_ = n * 32 + 2 * (m * 32 + m + n * 12)
+    ops = 2 * 2 * n * m * 256  # two sets, the +-1 product of depth 256, int8 rate
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / INT8_TENSOR_OPS_PER_S * 1e3
-    records.append(dict(
-        name="hamming_top2", route="cuda",
-        source="stereo_orb_slam_torch/csrc/hamming_top2.cu",
-        replaces="stereo_orb_slam_tpu/ops/pallas/hamming.py:74",
-        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes > t_ops else "operations",
-        library_ms=None, match=True, call_ms=call_ms, shape=f"N={n} M={m}"))
+    records.append(_record(
+        "hamming_top2", "stereo_orb_slam_torch/csrc/hamming_top2.cu",
+        "stereo_orb_slam_tpu/ops/pallas/hamming.py:74", "main",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes > t_ops else "operations", library_ms=None,
+        match=True, call_ms=call_ms, single_set_ms=single_ms,
+        shape=f"N={n}, two train sets of M={m} (one launch)"))
 
     # The patch cut at the describer's shape: 1024 corners, KITTI image padded.
     H, W = KITTI["h"] + 2 * orb.PATCH_R, KITTI["w"] + 2 * orb.PATCH_R
@@ -177,31 +217,65 @@ def phase_kernels(rng):
     got = patches.extract_patches(img, ys, xs, orb.PATCH)
     want = patches.extract_patches_plain(img, ys, xs, orb.PATCH)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("extract_patches differs from its plain version")
-    err = float((got.float() - want.float()).abs().max())
+    err = _check_equal("extract_patches", (got,), (want,))
+    # The library call gathers the same windows: starts clamped as the kernel
+    # clamps them (a start of 375 in 406 rows is cut at 374).
     ar = torch.arange(orb.PATCH, device=dev)
-    rows = (ys.long()[:, None] + ar)[:, :, None]
-    cols = (xs.long()[:, None] + ar)[:, None, :]
+    rows = (ys.long().clamp(max=H - orb.PATCH)[:, None] + ar)[:, :, None]
+    cols = (xs.long().clamp(max=W - orb.PATCH)[:, None] + ar)[:, None, :]
     ms = time_device(lambda: patches.extract_patches(img, ys, xs, orb.PATCH))
     call_ms = time_call(lambda: patches.extract_patches(img, ys, xs, orb.PATCH))
     plain_ms = time_device(lambda: patches.extract_patches_plain(img, ys, xs, orb.PATCH))
     library_ms = time_device(lambda: img[rows, cols])
     bytes_ = H * W * 4 + 2 * 1024 * 4 + 1024 * orb.PATCH * orb.PATCH * 2
-    records.append(dict(
-        name="extract_patches", route="cuda",
-        source="stereo_orb_slam_torch/csrc/extract_patches.cu",
-        replaces="stereo_orb_slam_tpu/ops/pallas/patches.py:63",
-        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    records.append(_record(
+        "extract_patches", "stereo_orb_slam_torch/csrc/extract_patches.cu",
+        "stereo_orb_slam_tpu/ops/pallas/patches.py:63", "oriented",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=library_ms, match=True, call_ms=call_ms, shape=f"N=1024 img={H}x{W}",
         library_call="one advanced-index gather img[rows, cols] (float32 out)"))
+
+    # The fused upright describe at the same shape, a quarter of the corners
+    # invalid, fractional positions (some exactly at .5, rounded half to even).
+    # Tolerance: the kernel adds each sample's <= 4 exact products in
+    # ascending pixel index, cuBLAS in its own order, so a near-tied pair can
+    # flip; at most 1e-4 of the bits may differ (0 expected).
+    xy = np.stack([rng.uniform(0, KITTI["w"] - 1, 1024),
+                   rng.uniform(0, KITTI["h"] - 1, 1024)], 1).astype(np.float32)
+    xy[::7] = np.floor(xy[::7]) + 0.5
+    xy = torch.from_numpy(xy).to(dev)
+    valid = torch.from_numpy(rng.random(1024) >= 0.25).to(dev)
+    table = orb.steer_table(False, dev)
+    got = describe.orb_describe(img, xy, valid, table)
+    want = describe.orb_describe_plain(img, xy, valid, table)
+    torch.cuda.synchronize()
+    diff = (orb.unpack_bits(got) - orb.unpack_bits(want)).abs()
+    flips, bits = int(diff.sum()), got.shape[0] * orb.N_TESTS
+    log(f"orb_describe: {flips} of {bits} bits differ from the plain version")
+    if got.shape != want.shape or flips > bits * 1e-4:
+        raise AssertionError(f"orb_describe differs from its plain version in {flips} bits")
+    ms = time_device(lambda: describe.orb_describe(img, xy, valid, table))
+    call_ms = time_call(lambda: describe.orb_describe(img, xy, valid, table))
+    plain_ms = time_device(lambda: describe.orb_describe_plain(img, xy, valid, table))
+    bytes_ = H * W * 4 + 1024 * (8 + 1) + 1024 * 32
+    fmas = 1024 * 2 * orb.N_TESTS * describe.TAPS
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, 2 * fmas / F32_OPS_PER_S * 1e3
+    records.append(_record(
+        "orb_describe", "stereo_orb_slam_torch/csrc/orb_describe.cu",
+        "stereo_orb_slam_tpu/ops/pallas/patches.py:63", "main",
+        max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes > t_ops else "operations",
+        library_ms=None, match=flips == 0, bits_differing=flips, call_ms=call_ms,
+        shape=f"N=1024 (256 invalid) img={H}x{W}",
+        replaces_note="the patch cut on the upright path, fused with its caller's "
+                      "bf16 cast, sampling product, compare and bit packing"))
     for r in records:
         log(f"kernel {r['name']}: match {r['match']}, device {r['ms'] * 1e3:.2f} us "
             f"(bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}), per call "
             f"{r['call_ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
             f"library {r['library_ms']}")
-    return records
+    return records, floor_ms
 
 
 def _render_sequence(root, n):
@@ -274,19 +348,38 @@ def phase_cuda_vs_cpu(seq):
         raise AssertionError("the card and the CPU disagree beyond the stated bounds")
 
 
+def _reset_launches():
+    from stereo_orb_slam_torch.ops.kernels import describe, hamming, patches
+
+    for mod in (hamming, patches, describe):
+        mod.LAUNCHES = 0
+
+
+def _read_launches():
+    from stereo_orb_slam_torch.ops.kernels import describe, hamming, patches
+
+    return {"hamming_top2": hamming.LAUNCHES, "extract_patches": patches.LAUNCHES,
+            "orb_describe": describe.LAUNCHES}
+
+
+def _check_launches(path, launches, per_frame, frames):
+    for name, k in per_frame.items():
+        if launches[name] != k * frames:
+            raise AssertionError(f"{path}: {name} launched {launches[name]} times for "
+                                 f"{frames} frames, not {k} per frame")
+
+
 def phase_main_path(seq, gt, out_dir):
     import torch
 
     from stereo_orb_slam_torch.apps import visual_odometry
-    from stereo_orb_slam_torch.ops.kernels import hamming, patches
 
-    hamming.LAUNCHES = 0
-    patches.LAUNCHES = 0
+    _reset_launches()
     summary = visual_odometry.main([
         "--dataset", "kitti", "--folder", seq, "--camera", os.path.join(seq, "calib.txt"),
         "--output_dir", out_dir, "--gt", gt, "--device", "cuda",
     ])
-    launches = {"hamming_top2": hamming.LAUNCHES, "extract_patches": patches.LAUNCHES}
+    launches = _read_launches()
     torch.cuda.synchronize()
     world = summary["world"]
     n = summary["frames"]
@@ -298,10 +391,41 @@ def phase_main_path(seq, gt, out_dir):
         raise AssertionError("poses are not finite [frames, 4, 4]")
     if not summary["ate_m"] < 0.01:
         raise AssertionError(f"ATE {summary['ate_m']} m is not below 0.01 m")
-    for name, count in launches.items():
-        if count != 2 * n:
-            raise AssertionError(f"{name} launched {count} times for {n} frames, not 2 per frame")
+    _check_launches("main path", launches,
+                    {"hamming_top2": 1, "orb_describe": 2, "extract_patches": 0}, n)
     return summary, launches
+
+
+def phase_oriented(seq, gt, frames=ORIENTED_FRAMES):
+    """The oriented describe (`FrontendConfig(oriented=True)`): the patch cut
+    kernel's own path. `frames` frames through `VisualOdometer.track`."""
+    import torch
+
+    from stereo_orb_slam_torch.config import FrontendConfig
+    from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.utils import evaluate
+    from stereo_orb_slam_torch.worldmap import WorldMap
+
+    pairs = datasets.load_dataset("kitti", seq)[:frames]
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    world = WorldMap()
+    vo = VisualOdometer(world, calib.load_camera(os.path.join(seq, "calib.txt")),
+                        fe=FrontendConfig(oriented=True))
+    _reset_launches()
+    for il, ir in imgs:
+        vo.track(il, ir)
+    launches = _read_launches()
+    torch.cuda.synchronize()
+    poses = world.pose_global[: world.num_frames]
+    if not (np.isfinite(poses).all() and poses.shape == (frames, 4, 4)):
+        raise AssertionError("oriented path: poses are not finite [frames, 4, 4]")
+    ate = evaluate.ate_rmse(poses, evaluate.load_kitti_gt(gt)[:frames])
+    log(f"oriented path: {frames} frames, ATE {ate:.5f} m, {world.num_points} points, "
+        f"launches {launches}")
+    _check_launches("oriented path", launches,
+                    {"hamming_top2": 1, "orb_describe": 0, "extract_patches": 2}, frames)
+    return launches
 
 
 def phase_profile(seq, path, frames=20, warm=5):
@@ -336,9 +460,9 @@ def phase_profile(seq, path, frames=20, warm=5):
         "device_busy_ms_per_frame": busy_ms / frames,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_launches_per_frame": sum(e.count for e in kernels) / frames,
-        "top_kernels": [{"name": e.key[:120], "count_per_frame": e.count / frames,
-                         "device_us_per_frame": e.self_device_time_total / frames}
-                        for e in top[:25]],
+        "kernels": [{"name": e.key[:120], "count_per_frame": e.count / frames,
+                     "device_us_per_frame": e.self_device_time_total / frames}
+                    for e in top],
     }
     with open(path, "w") as f:
         json.dump(report, f, indent=1)
@@ -361,17 +485,20 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     phase_build()
-    records = phase_kernels(rng)
+    records, floor_ms = phase_kernels(rng)
     with tempfile.TemporaryDirectory() as tmp:
         seq, gt = _render_sequence(tmp, N_FRAMES)
         phase_cuda_vs_cpu(seq)
         summary, launches = phase_main_path(seq, gt, os.path.join(tmp, "vo_out"))
+        oriented = phase_oriented(seq, gt)
         if args.profile:
             phase_profile(seq, args.profile)
+    paths = {"main": launches, "oriented": oriented}
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = paths[r["path"]][r["name"]]
     log(json.dumps({"main_path": {k: summary[k] for k in ("frames", "fps", "median_ms",
-                                                          "ate_m")}}))
+                                                          "ate_m")},
+                    "launch_floor_ms": floor_ms}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

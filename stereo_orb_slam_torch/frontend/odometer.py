@@ -92,12 +92,20 @@ def associate(
     fe: FrontendConfig, rc: RansacConfig,
     rectified: Optional[bool] = None,
 ) -> StepResult:
-    """Stereo match + triangulate + temporal match + RANSAC."""
+    """Stereo match + triangulate + temporal match + RANSAC.
+
+    Both matching stages take the left descriptors as queries, so one
+    top-2 search runs against the right image's and the previous frame's
+    descriptors together; each result is then gated with its own query
+    validity (left-corner validity for stereo, the slot validity that
+    stereo produces for temporal)."""
     n = fe.num_features
+    prev_valid = prev.valid & prev_usable
+    stereo_top2, temporal_top2 = match.hamming_top2_pair(
+        d_l, d_r, v_r, prev.desc, prev_valid)
     # Stereo matching: left query -> right train (ref :262-289).
-    r_idx, s_ok, _ = match.match_descriptors(
-        d_l, d_r, v_l, v_r,
-        max_distance=fe.match_max_distance, ratio=fe.match_ratio,
+    r_idx, s_ok, _ = match.gate_matches(
+        stereo_top2, v_l, max_distance=fe.match_max_distance, ratio=fe.match_ratio,
     )
     kp_r = xy_r[r_idx.long()]
 
@@ -117,11 +125,11 @@ def associate(
     slots = FrameSlots(kp_l=xy_l, kp_r=kp_r, desc=d_l, pts=pts, valid=slot_valid)
     num_stereo = torch.sum(slot_valid.to(torch.int32))
 
-    # Temporal matching curr -> prev (ref :316-333; MatchPoints :64-91).
-    prev_valid = prev.valid & prev_usable
-    prev_idx, t_ok, _ = match.match_descriptors(
-        slots.desc, prev.desc, slot_valid, prev_valid,
-        max_distance=fe.match_max_distance, ratio=fe.match_ratio,
+    # Temporal matching curr -> prev (ref :316-333; MatchPoints :64-91);
+    # the slots' descriptors are d_l.
+    prev_idx, t_ok, _ = match.gate_matches(
+        temporal_top2, slot_valid, max_distance=fe.match_max_distance,
+        ratio=fe.match_ratio,
     )
     num_temporal = torch.sum(t_ok.to(torch.int32))
 

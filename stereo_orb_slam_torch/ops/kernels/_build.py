@@ -25,10 +25,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("hamming_top2", "extract_patches")
+KERNEL_SOURCES = ("hamming_top2", "extract_patches", "orb_describe")
 
 _lock = threading.Lock()
 _libs: dict = {}
+_functions: dict = {}
 
 
 def _nvcc() -> str:
@@ -88,3 +89,15 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(library_path(name)))
                 _libs[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """`symbol` of the library of `csrc/<name>.cu`, returning a C int, with
+    its `argtypes` and `restype` set once, at first use, and not per call."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
+    return fn

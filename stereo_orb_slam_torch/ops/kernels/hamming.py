@@ -7,9 +7,12 @@ takes +-1 bf16 sign matrices, this one takes the packed words themselves:
 descriptors are int32 [N, 8] tensors holding the uint32 bit patterns
 (bit j of word w = test 32w + j).
 
-`hamming_top2` takes the plain version (`hamming_matrix` + `knn2`) for
-tensors on the CPU and launches the kernel for tensors on a CUDA device; it
-raises for anything else. `LAUNCHES` counts kernel launches.
+`hamming_top2` matches one query set against one train set,
+`hamming_top2_pair` against two (a frame's stereo and temporal train sets
+share the left descriptors as queries), both in one kernel launch. They
+take the plain version (`hamming_matrix` + `knn2`) for tensors on the CPU
+and launch the kernel for tensors on a CUDA device; they raise for anything
+else. `LAUNCHES` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -57,28 +60,59 @@ def hamming_top2_plain(desc_q, desc_t, valid_t):
     return knn2(hamming_matrix(desc_q, desc_t, valid_t=valid_t))
 
 
-def _launch(desc_q, desc_t, valid_t):
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,                   # q, n, sets
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,                # set 0
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,                # set 1
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outputs, stream
+)
+
+
+def _launch(desc_q, sets):
+    """One kernel launch for the (desc_t, valid_t) pairs of `sets` (1 or 2)
+    against desc_q; returns one (d1, idx1, d2) triple per set."""
     global LAUNCHES
-    n, m = desc_q.shape[0], desc_t.shape[0]
+    n, s = desc_q.shape[0], len(sets)
     dev = desc_q.device
-    d1 = torch.empty(n, dtype=torch.float32, device=dev)
-    i1 = torch.empty(n, dtype=torch.int32, device=dev)
-    d2 = torch.empty(n, dtype=torch.float32, device=dev)
-    if n == 0:
-        return d1, i1, d2
-    lib = _build.load(_NAME)
-    fn = lib.hamming_top2_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(desc_q.data_ptr(), desc_t.data_ptr(), valid_t.data_ptr(), n, m,
-             d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"hamming_top2 kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return d1, i1, d2
+    d1 = torch.empty((s, n), dtype=torch.float32, device=dev)
+    i1 = torch.empty((s, n), dtype=torch.int32, device=dev)
+    d2 = torch.empty((s, n), dtype=torch.float32, device=dev)
+    if n > 0:
+        (t0, v0), (t1, v1) = sets[0], sets[-1]
+        fn = _build.function(_NAME, "hamming_top2_launch", _ARGTYPES)
+        err = fn(desc_q.data_ptr(), n, s, t0.data_ptr(), v0.data_ptr(), t0.shape[0],
+                 t1.data_ptr(), v1.data_ptr(), t1.shape[0], d1.data_ptr(), i1.data_ptr(),
+                 d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"hamming_top2 kernel launch failed: cudaError {err}")
+        LAUNCHES += 1
+    return list(zip(d1.unbind(), i1.unbind(), d2.unbind()))
+
+
+def _check_desc(name, d):
+    if d.dim() != 2 or d.shape[1] != 8 or d.dtype != torch.int32:
+        raise ValueError(f"{name} must be an int32 [rows, 8] tensor, got "
+                         f"{d.dtype} {tuple(d.shape)}")
+
+
+def _top2(desc_q, sets):
+    """Checks, then the plain version (CPU tensors) or one launch (CUDA)."""
+    _check_desc("desc_q", desc_q)
+    for desc_t, valid_t in sets:
+        _check_desc("desc_t", desc_t)
+        if valid_t.shape != (desc_t.shape[0],) or valid_t.dtype != torch.bool:
+            raise ValueError("valid_t must be a bool [M] tensor")
+        if desc_t.shape[0] < 2:
+            raise ValueError("the train set needs at least two rows")
+    tensors = [desc_q] + [x for pair in sets for x in pair]
+    devices = {x.device for x in tensors}
+    if {d.type for d in devices} == {"cpu"}:
+        return [hamming_top2_plain(desc_q, desc_t, valid_t) for desc_t, valid_t in sets]
+    if len(devices) != 1 or desc_q.device.type != "cuda":
+        raise ValueError(f"tensors on mixed or unsupported devices: {devices}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("descriptors and validity masks must be contiguous")
+    return _launch(desc_q, sets)
 
 
 def hamming_top2(desc_q, desc_t, valid_t):
@@ -92,19 +126,12 @@ def hamming_top2(desc_q, desc_t, valid_t):
     Returns (d1 [N] float32, idx1 [N] int32, d2 [N] float32). Query-row
     validity is not applied here: the caller masks d1.
     """
-    for name, d in (("desc_q", desc_q), ("desc_t", desc_t)):
-        if d.dim() != 2 or d.shape[1] != 8 or d.dtype != torch.int32:
-            raise ValueError(f"{name} must be an int32 [rows, 8] tensor, got "
-                             f"{d.dtype} {tuple(d.shape)}")
-    if valid_t.shape != (desc_t.shape[0],) or valid_t.dtype != torch.bool:
-        raise ValueError("valid_t must be a bool [M] tensor")
-    if desc_t.shape[0] < 2:
-        raise ValueError("the train set needs at least two rows")
-    devices = {desc_q.device, desc_t.device, valid_t.device}
-    if {d.type for d in devices} == {"cpu"}:
-        return hamming_top2_plain(desc_q, desc_t, valid_t)
-    if len(devices) != 1 or desc_q.device.type != "cuda":
-        raise ValueError(f"tensors on mixed or unsupported devices: {devices}")
-    if not (desc_q.is_contiguous() and desc_t.is_contiguous() and valid_t.is_contiguous()):
-        raise ValueError("desc_q, desc_t and valid_t must be contiguous")
-    return _launch(desc_q, desc_t, valid_t)
+    return _top2(desc_q, [(desc_t, valid_t)])[0]
+
+
+def hamming_top2_pair(desc_q, desc_a, valid_a, desc_b, valid_b):
+    """`hamming_top2` of one query set against two train sets, in one
+    kernel launch on the card: returns ((d1, idx1, d2) against set a,
+    (d1, idx1, d2) against set b). The plain version is two
+    `hamming_top2_plain` calls."""
+    return tuple(_top2(desc_q, [(desc_a, valid_a), (desc_b, valid_b)]))

@@ -37,6 +37,11 @@ def extract_patches_plain(img, ys, xs, patch: int):
     return img[rows, cols].to(torch.bfloat16)
 
 
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p)
+
+
 def _launch(img, ys, xs, patch: int):
     global LAUNCHES
     n = ys.shape[0]
@@ -44,12 +49,7 @@ def _launch(img, ys, xs, patch: int):
     out = torch.empty((n, patch, patch), dtype=torch.bfloat16, device=img.device)
     if n == 0:
         return out
-    lib = _build.load(_NAME)
-    fn = lib.extract_patches_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function(_NAME, "extract_patches_launch", _ARGTYPES)
     stream = torch.cuda.current_stream(img.device).cuda_stream
     err = fn(img.data_ptr(), H, W, ys.data_ptr(), xs.data_ptr(), n, patch,
              out.data_ptr(), stream)

@@ -6,12 +6,15 @@ cv::ORB::compute on the detected corners, ref
 
 - the image is smoothed with the separable binomial filter and padded by
   PATCH_R with edge replication,
-- a 32 x 32 bf16 patch is cut around every corner (`kernels/patches.py`,
-  a CUDA kernel on the card),
-- the 256 binary tests are read through the same precomputed bilinear
-  sampling tables, built from the same seeded NumPy pattern, as one
-  [N, P^2] @ [P^2, 512] product (upright, the default) or 30 per-bin
-  products (`oriented=True`),
+- upright (the default): `kernels/describe.py::orb_describe` cuts a
+  32 x 32 bf16 window around every corner, reads the 256 binary tests
+  through the precomputed bilinear sampling table (built from the same
+  seeded NumPy pattern) and packs the bits. On the card that is one CUDA
+  kernel; on the CPU its plain version: the patch cut, one
+  [N, P^2] @ [P^2, 512] product, the compare and `pack_bits`,
+- oriented (`oriented=True`): the patch cut (`kernels/patches.py`, a CUDA
+  kernel on the card), the intensity-centroid angle and 30 per-bin
+  products with the steered tables,
 - bits are packed into 8 words per descriptor (bit j of word w = test
   32w + j). torch's uint32 cannot shift, so the words are int32 tensors
   holding the uint32 bit patterns; `.view(np.uint32)` converts at the
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from stereo_orb_slam_torch.ops.detect import _shift_x, _shift_y
+from stereo_orb_slam_torch.ops.kernels import describe as describe_kernel
 from stereo_orb_slam_torch.ops.kernels import patches as patch_kernel
 
 N_TESTS = 256
@@ -132,16 +136,20 @@ def pad_edge(img, r: int = PATCH_R):
     return torch.nn.functional.pad(img[None, None], (r, r, r, r), mode="replicate")[0, 0]
 
 
+def window_starts(xy):
+    """(ys, xs) int32 top-left corners, in the image padded by PATCH_R, of
+    the windows centred on the corners xy (original image frame): the
+    coordinates rounded half to even, as `jnp.round` rounds."""
+    return torch.round(xy[:, 1]).to(torch.int32), torch.round(xy[:, 0]).to(torch.int32)
+
+
 def extract_patches(smoothed_padded, xy):
     """[N, PATCH, PATCH] bf16 patches at the rounded corner positions.
 
     `smoothed_padded` is the float32 smoothed image padded by PATCH_R; xy
-    are coordinates in the original image frame. Rounding is half to even,
-    as `jnp.round` rounds.
+    are coordinates in the original image frame.
     """
-    xi = torch.round(xy[:, 0]).to(torch.int32)
-    yi = torch.round(xy[:, 1]).to(torch.int32)
-    return patch_kernel.extract_patches(smoothed_padded, yi, xi, PATCH)
+    return patch_kernel.extract_patches(smoothed_padded, *window_starts(xy), PATCH)
 
 
 def pack_bits(bits):
@@ -172,7 +180,8 @@ def compute_descriptors(img, xy, valid, smoothing_ksize: int = 7,
       img:   [H, W] float32 grayscale.
       xy:    [N, 2] float32 corner coords (x, y).
       valid: [N] bool.
-      steer: the sampling table of `steer_table` (upright when None).
+      steer: the sampling table of `steer_table` (upright when None); a
+        one-bin table takes the fused upright describe.
 
     Returns:
       desc:  [N, 8] int32 packed 256-bit descriptors (0 where invalid).
@@ -182,29 +191,28 @@ def compute_descriptors(img, xy, valid, smoothing_ksize: int = 7,
         steer = steer_table(False, img.device)
     n = xy.shape[0]
     padded = pad_edge(smooth_image(img, smoothing_ksize))
-    flat16 = extract_patches(padded, xy).reshape(n, PATCH * PATCH)
-
     k_bins = steer.shape[0]
     if k_bins == 1:
         theta = torch.zeros(n, dtype=torch.float32, device=img.device)
-        vals = flat16.float() @ steer[0].float()
-    else:
-        # Orientation from intensity-centroid moments over a disc; the
-        # moment weights are small integers, exact in bf16.
-        mom_k = _disc_masks(orientation_radius, img.device)
-        moments = flat16.float() @ mom_k
-        theta = torch.atan2(moments[:, 1], moments[:, 0])
-        # Soft bin interpolation between the two adjacent steered tables.
-        bin_f = theta * (k_bins / (2.0 * np.pi))
-        k0f = torch.floor(bin_f)
-        frac = bin_f - k0f
-        k0 = torch.remainder(k0f.to(torch.int32), k_bins)
-        k1 = torch.remainder(k0 + 1, k_bins)
-        vals = torch.zeros((n, 2 * N_TESTS), dtype=torch.float32, device=img.device)
-        for k in range(k_bins):
-            wk = (torch.where(k0 == k, 1.0 - frac, 0.0)
-                  + torch.where(k1 == k, frac, 0.0)).to(torch.bfloat16)
-            vals = vals + (flat16 * wk[:, None]).float() @ steer[k].float()
+        return describe_kernel.orb_describe(padded, xy, valid, steer), theta
+
+    flat16 = extract_patches(padded, xy).reshape(n, PATCH * PATCH)
+    # Orientation from intensity-centroid moments over a disc; the moment
+    # weights are small integers, exact in bf16.
+    mom_k = _disc_masks(orientation_radius, img.device)
+    moments = flat16.float() @ mom_k
+    theta = torch.atan2(moments[:, 1], moments[:, 0])
+    # Soft bin interpolation between the two adjacent steered tables.
+    bin_f = theta * (k_bins / (2.0 * np.pi))
+    k0f = torch.floor(bin_f)
+    frac = bin_f - k0f
+    k0 = torch.remainder(k0f.to(torch.int32), k_bins)
+    k1 = torch.remainder(k0 + 1, k_bins)
+    vals = torch.zeros((n, 2 * N_TESTS), dtype=torch.float32, device=img.device)
+    for k in range(k_bins):
+        wk = (torch.where(k0 == k, 1.0 - frac, 0.0)
+              + torch.where(k1 == k, frac, 0.0)).to(torch.bfloat16)
+        vals = vals + (flat16 * wk[:, None]).float() @ steer[k].float()
 
     bits = vals[:, :N_TESTS] < vals[:, N_TESTS:]
     desc = pack_bits(bits)

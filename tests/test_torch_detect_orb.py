@@ -13,7 +13,12 @@ Tolerances:
 - the patch cut: bit for bit (a copy and a round-to-nearest-even cast).
 - descriptors: packed words identical on these frames (exact bf16 products,
   float32 sums in another order, no near-tie flips a bit here).
-- sampling tables: bit for bit.
+- sampling tables: bit for bit, and the compact tap table of the fused
+  upright describe, scattered back to dense, bit for bit too.
+- the fused describe's arithmetic, modelled here in its order (each
+  sample's <= 4 exact bf16 products added in float32 in ascending pixel
+  index, from 0): packed words identical to the plain chain (the dense
+  float32 product) on these frames and on random images.
 The kernel-against-plain comparison is in test_torch_kernels.py.
 """
 
@@ -30,7 +35,7 @@ from stereo_orb_slam_tpu.ops import detect as rdet, orb as rorb  # noqa: E402
 from stereo_orb_slam_tpu.ops.pallas.patches import extract_patches_pallas  # noqa: E402
 from stereo_orb_slam_torch import convert  # noqa: E402
 from stereo_orb_slam_torch.ops import detect as pdet, orb as porb  # noqa: E402
-from stereo_orb_slam_torch.ops.kernels import patches as pk  # noqa: E402
+from stereo_orb_slam_torch.ops.kernels import describe as dk, patches as pk  # noqa: E402
 
 torch.set_num_threads(1)
 N_FEAT = 256
@@ -140,3 +145,63 @@ def test_descriptors_match_reference(frames, oriented):
                                                steer=porb.steer_table(oriented, "cpu"))
     np.testing.assert_array_equal(d_port.numpy().view(np.uint32), np.asarray(d_ref))
     np.testing.assert_allclose(th_port.numpy(), np.asarray(th_ref), atol=1e-4)
+
+
+def test_compact_taps_scatter_back_to_the_upright_table():
+    table = porb.steer_table(False, "cpu")
+    idx, w = dk.tap_table(table)
+    assert idx.dtype == torch.int16 and w.dtype == torch.float32
+    assert idx.shape == w.shape == (2 * porb.N_TESTS, dk.TAPS)
+    assert idx.is_contiguous() and w.is_contiguous()  # the kernel reads row-major
+    dense = torch.zeros(porb.PATCH * porb.PATCH, 2 * porb.N_TESTS)
+    cols = torch.arange(2 * porb.N_TESTS)[:, None].expand(-1, dk.TAPS)
+    dense.index_put_((idx.long(), cols), w, accumulate=True)
+    assert torch.equal(dense.to(torch.bfloat16), table[0])
+    assert torch.equal(dense, table[0].float())
+    # Nonzero taps first, in ascending pixel index; padding at weight 0.
+    nz = w != 0
+    assert torch.all(nz[:, :-1] | ~nz[:, 1:])
+    assert torch.all((idx[:, 1:] > idx[:, :-1]) | ~nz[:, 1:])
+    assert int(nz.sum(1).min()) >= 1
+
+
+def _tap_sum_model(padded, xy, valid):
+    """The fused kernel's arithmetic in its order: bf16 window values times
+    the tap weights (exact in float32), added from 0 in ascending pixel
+    index, one rounding per add (what fmaf gives for an exact product)."""
+    n = xy.shape[0]
+    idx, w = dk.tap_table(porb.steer_table(False, "cpu"))
+    xi = torch.round(xy[:, 0]).to(torch.int32)
+    yi = torch.round(xy[:, 1]).to(torch.int32)
+    flat = pk.extract_patches_plain(padded, yi, xi, porb.PATCH).reshape(n, -1).float()
+    acc = torch.zeros(n, 2 * porb.N_TESTS)
+    for k in range(dk.TAPS):
+        acc = acc + flat[:, idx[:, k].long()] * w[:, k]
+    bits = acc[:, :porb.N_TESTS] < acc[:, porb.N_TESTS:]
+    return torch.where(valid[:, None], porb.pack_bits(bits), 0)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_tap_sum_model_matches_plain_chain_on_frames(frames, k):
+    img = _t(frames[k])
+    xy, _, v = pdet.detect_corners(img, num_features=N_FEAT)
+    padded = porb.pad_edge(porb.smooth_image(img))
+    want = dk.orb_describe_plain(padded, xy, v, porb.steer_table(False, "cpu"))
+    assert torch.equal(_tap_sum_model(padded, xy, v), want)
+    # compute_descriptors takes the same plain chain for CPU tensors.
+    d, theta = porb.compute_descriptors(img, xy, v)
+    assert torch.equal(d, want) and not torch.any(theta)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tap_sum_model_matches_plain_chain_on_random_images(seed):
+    rng = np.random.default_rng(seed)
+    n, H, W = 512, 120, 200
+    padded = torch.from_numpy(rng.uniform(0, 255, (H + 30, W + 30)).astype(np.float32))
+    xy = np.stack([rng.uniform(-2, W + 1, n), rng.uniform(-2, H + 1, n)], 1).astype(np.float32)
+    xy[::5] = np.floor(xy[::5]) + 0.5  # ties: round half to even
+    valid = torch.from_numpy(rng.random(n) < 0.75)
+    xy = torch.from_numpy(xy)
+    want = dk.orb_describe_plain(padded, xy, valid, porb.steer_table(False, "cpu"))
+    assert torch.equal(_tap_sum_model(padded, xy, valid), want)
+    assert torch.all(want[~valid] == 0) and torch.any(want[valid] != 0)

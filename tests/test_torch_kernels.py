@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions.
 
-Tolerance: bit for bit (integer distances and indices; a copy and a
-round-to-nearest-even cast). The comparisons need a CUDA device and skip
+Tolerance: bit for bit for the Hamming search (integer distances and
+indices) and the patch cut (a copy and a round-to-nearest-even cast); for
+the fused upright describe at most 1e-4 of the bits may differ (0
+expected): it adds each sample's <= 4 exact products in ascending pixel
+index, cuBLAS in its own order, so only a pair tied to the last bit could
+flip. The comparisons need a CUDA device and skip
 without one; on the card, run them with
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py
@@ -17,7 +21,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from stereo_orb_slam_torch import convert  # noqa: E402
-from stereo_orb_slam_torch.ops.kernels import hamming as hk, patches as pk  # noqa: E402
+from stereo_orb_slam_torch.ops import orb  # noqa: E402
+from stereo_orb_slam_torch.ops.kernels import (  # noqa: E402
+    describe as dk, hamming as hk, patches as pk,
+)
 
 torch.set_num_threads(1)
 
@@ -68,6 +75,47 @@ def test_hamming_kernel_matches_plain(rng, cuda, kind, n, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["masked", "all_invalid", "ties"])
+@pytest.mark.parametrize("n,ma,mb", [(1024, 1024, 1024), (1000, 777, 1500), (1, 2, 3),
+                                     (33, 300, 8)])
+def test_hamming_pair_kernel_matches_plain(rng, cuda, kind, n, ma, mb):
+    q, ta, va = _hamming_case(rng, n, ma, kind)
+    _, tb, vb = _hamming_case(rng, n, mb, kind)
+    qd = convert.desc_to_tensor(q, cuda)
+    sets = [(convert.desc_to_tensor(t, cuda), torch.as_tensor(v, device=cuda))
+            for t, v in ((ta, va), (tb, vb))]
+    before = hk.LAUNCHES
+    got = hk.hamming_top2_pair(qd, *sets[0], *sets[1])
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES == before + 1
+    for g_set, (t, v) in zip(got, sets):
+        for g, w in zip(g_set, hk.hamming_top2_plain(qd, t, v)):
+            assert g.device.type == "cuda" and g.dtype == w.dtype
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 1, 37])
+def test_describe_kernel_matches_plain(rng, cuda, n):
+    H, W = 406, 1271
+    img = torch.from_numpy(rng.uniform(0, 255, (H, W)).astype(np.float32)).to(cuda)
+    xy = np.stack([rng.uniform(-3, W - 28, n), rng.uniform(-3, H - 28, n)], 1)
+    xy[::3] = np.floor(xy[::3]) + 0.5
+    xy = torch.from_numpy(xy.astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.random(n) >= 0.25).to(cuda)
+    table = orb.steer_table(False, cuda)
+    before = dk.LAUNCHES
+    got = dk.orb_describe(img, xy, valid, table)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == before + 1
+    want = dk.orb_describe_plain(img, xy, valid, table)
+    assert got.dtype == torch.int32 and got.shape == (n, 8)
+    flips = int((orb.unpack_bits(got) != orb.unpack_bits(want)).sum())
+    assert flips <= 1e-4 * n * 256
+    assert torch.all(got[~valid] == 0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1024, 1, 37])
 def test_patch_kernel_matches_plain(rng, cuda, n):
     img = torch.from_numpy(rng.normal(size=(406, 1271)).astype(np.float32))
@@ -104,10 +152,43 @@ def test_wrappers_reject_bad_input():
         pk.extract_patches(img, idx, idx[:2], 32)
 
 
+def test_pair_and_describe_wrappers_reject_bad_input():
+    d = torch.zeros((4, 8), dtype=torch.int32)
+    v = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        hk.hamming_top2_pair(d, d, v, d[:1], v[:1])
+    with pytest.raises(ValueError):
+        hk.hamming_top2_pair(d, d, v, d.to(torch.int64), v)
+    with pytest.raises(ValueError):
+        hk.hamming_top2_pair(d[:, :4], d, v, d, v)
+    with pytest.raises(ValueError):
+        hk.hamming_top2_pair(d, d, v, d, v[:3])
+    img = torch.zeros((40, 50))
+    xy = torch.zeros((3, 2))
+    ok = torch.ones(3, dtype=torch.bool)
+    table = orb.steer_table(False, "cpu")
+    with pytest.raises(ValueError):
+        dk.orb_describe(img[:20], xy, ok, table)
+    with pytest.raises(ValueError):
+        dk.orb_describe(img.double(), xy, ok, table)
+    with pytest.raises(ValueError):
+        dk.orb_describe(img, xy.double(), ok, table)
+    with pytest.raises(ValueError):
+        dk.orb_describe(img, xy, ok[:2], table)
+    with pytest.raises(ValueError):
+        dk.orb_describe(img, xy, ok, table.float())
+    with pytest.raises(ValueError):
+        dk.orb_describe(img, xy, ok, orb.steer_table(True, "cpu"))
+
+
 def test_cpu_tensors_take_the_plain_version():
     d = torch.zeros((4, 8), dtype=torch.int32)
-    before = (hk.LAUNCHES, pk.LAUNCHES)
-    hk.hamming_top2(d, d, torch.ones(4, dtype=torch.bool))
+    v = torch.ones(4, dtype=torch.bool)
+    before = (hk.LAUNCHES, pk.LAUNCHES, dk.LAUNCHES)
+    hk.hamming_top2(d, d, v)
+    hk.hamming_top2_pair(d, d, v, d, v)
     pk.extract_patches(torch.zeros((40, 50)), torch.zeros(2, dtype=torch.int32),
                        torch.zeros(2, dtype=torch.int32), 32)
-    assert (hk.LAUNCHES, pk.LAUNCHES) == before
+    dk.orb_describe(torch.zeros((40, 50)), torch.zeros((2, 2)), torch.ones(2, dtype=torch.bool),
+                    orb.steer_table(False, "cpu"))
+    assert (hk.LAUNCHES, pk.LAUNCHES, dk.LAUNCHES) == before

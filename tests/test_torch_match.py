@@ -1,4 +1,5 @@
-"""Port parity: the Hamming top-2 search and ops/match.py against the JAX
+"""Port parity: the Hamming top-2 search (one train set, and the pair of
+train sets that one launch serves) and ops/match.py against the JAX
 package.
 
 Tolerance: bit-exact. Distances and indices are integers, computed exactly
@@ -24,9 +25,11 @@ from stereo_orb_slam_torch.ops.kernels import hamming as hk  # noqa: E402
 torch.set_num_threads(1)
 
 
-def _case(rng, n, m, kind):
-    """Packed uint32 query/train words and train validity for one case."""
-    q = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+def _case(rng, n, m, kind, q=None):
+    """Packed uint32 query/train words and train validity for one case
+    (against the given query words `q`, when given)."""
+    if q is None:
+        q = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
     t = rng.integers(0, 2 ** 32, (m, 8), dtype=np.uint32)
     vt = np.ones(m, bool)
     if kind == "masked":
@@ -78,6 +81,61 @@ def test_plain_top2_matches_pallas_kernel(rng, kind):
                       jnp.asarray(vt), interpret=True)
     for r, p in zip(ref, _port_top2(q, t, vt)):
         np.testing.assert_array_equal(p, np.asarray(r))
+
+
+def _pair_case(rng, n, ma, mb, kind):
+    """One query set and two train sets; with kind "ties" both train sets
+    hold planted copies of the same query rows."""
+    q, ta, va = _case(rng, n, ma, kind)
+    _, tb, vb = _case(rng, n, mb, kind, q=q)
+    return q, (ta, va), (tb, vb)
+
+
+def _port_pair(q, a, b):
+    t = [(convert.desc_to_tensor(x, "cpu"), torch.as_tensor(v)) for x, v in (a, b)]
+    out = hk.hamming_top2_pair(convert.desc_to_tensor(q, "cpu"), *t[0], *t[1])
+    assert len(out) == 2
+    return [tuple(x.numpy() for x in r) for r in out]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,ma,mb", [(128, 256, 200), (100, 77, 130), (3, 2, 5), (17, 9, 2)])
+def test_pair_top2_equals_two_single_calls_and_reference(rng, kind, n, ma, mb):
+    q, a, b = _pair_case(rng, n, ma, mb, kind)
+    for got, (t, vt) in zip(_port_pair(q, a, b), (a, b)):
+        for g, single, ref in zip(got, _port_top2(q, t, vt), _ref_top2(q, t, vt)):
+            assert g.dtype == single.dtype
+            np.testing.assert_array_equal(g, single)
+            np.testing.assert_array_equal(g, ref)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_pair_top2_matches_pallas_kernel(rng, kind):
+    q, a, b = _pair_case(rng, 128, 256, 384, kind)
+    signs_q = rmatch.signs_from_packed(jnp.asarray(q))
+    for got, (t, vt) in zip(_port_pair(q, a, b), (a, b)):
+        ref = pallas_top2(signs_q, rmatch.signs_from_packed(jnp.asarray(t)),
+                          jnp.asarray(vt), interpret=True)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, np.asarray(r))
+
+
+@pytest.mark.parametrize("kind", ["random", "masked", "all_invalid", "ties"])
+def test_gate_matches_reproduces_match_descriptors(rng, kind):
+    n = 200
+    q, t, vt = _case(rng, n, 150, kind)
+    t[: n // 4] = q[: n // 4]  # some exact matches, so the gates pass rows
+    vq = rng.random(n) < 0.8
+    args = [convert.desc_to_tensor(q, "cpu"), convert.desc_to_tensor(t, "cpu"),
+            torch.from_numpy(vq), torch.from_numpy(vt)]
+    want = pmatch.match_descriptors(*args, 30.0, 0.5)
+    got = pmatch.gate_matches(pmatch.hamming_top2(args[0], args[1], args[3]), args[2],
+                              30.0, 0.5)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g, w)
+    if kind != "all_invalid":
+        assert want[1].sum() > 10
 
 
 def test_hamming_matrix_and_signs(rng):
