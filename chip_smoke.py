@@ -26,13 +26,42 @@ Phases, each of which fails the run when it fails:
      `VisualOdometer` with `FrontendConfig(oriented=True)`; finite poses and
      exactly 2 extract_patches and 1 hamming_top2 launches per frame (ATE
      printed);
-  6. with --profile PATH: a torch.profiler breakdown of 20 main-path frames.
+  6. windowed bundle adjustment (`stereo_orb_slam_torch.backend.ba`, torch
+     ops, no kernel of its own):
+     a. the 60 frames through `VisualOdometer` + `BundleAdjuster(BAConfig())`
+        with the live loop's cadence (a per-frame solve after each frame, a
+        20-frame window every 10): ATE < 0.01 m, finite poses, exactly 1
+        hamming_top2 and 2 orb_describe launches per frame; per solve kind
+        the wall ms, LM iterations, sizes and path;
+     b. the card against the CPU on the last window problem (50 LM
+        iterations) and on the reference's banded problem (4 LM iterations
+        on each path): the first step's H_cc within BA_DEVICE_HESSIAN_RTOL,
+        the same iteration count, pose6, points and cost within their
+        bounds; each also run with TF32 left on, the control, whose H_cc
+        must break the bound on the paths with cuBLAS products;
+     c. `apps.refine` over a dump of the tracked world (50 iterations):
+        cost not above its initial value, ATE < 0.01 m;
+     d. global BA from that world perturbed by 2 cm / 0.2 degrees per pose
+        and 5 cm per point: cost below 1e-2 of its initial value, ATE <
+        0.01 m;
+     e. the banded and the dense Schur assembly on a 64-camera, 8192-point
+        track-local problem: ms per LM iteration, pose6 within 5e-5;
+     f. the matrix-free path at map size (1000 cameras, 100,000 points,
+        200,000 observations, 6 LM iterations): ms per LM iteration, peak
+        device memory, the final cost within BA_MAP_COST_RTOL of the CPU
+        path's (and the same with TF32 left on);
+  7. with --profile PATH: a torch.profiler breakdown of 20 main-path frames
+     (to PATH), and of 3 LM iterations of the last window and of the map
+     problem with device syncs counted (to PATH with _ba before the
+     extension).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -291,8 +320,6 @@ def _render_sequence(root, n):
     packages alike.
     """
     from PIL import Image
-
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
     from synth import PlaneScene
 
     seq = os.path.join(root, "sequences", "00")
@@ -428,6 +455,568 @@ def phase_oriented(seq, gt, frames=ORIENTED_FRAMES):
     return launches
 
 
+# The live loop's BA cadence (SlamSystem.process: optimize(n-1, n) after
+# each tracked frame, optimize(max(0, n-20), n) every 10 frames), written as
+# literals: SlamConfig.refine_interval = 10 and per_frame_ba = True
+# (stereo_orb_slam_tpu/config.py:254,257; the port's SlamConfig comes with
+# the SLAM app slice).
+REFINE_INTERVAL = 10
+PER_FRAME_BA = True
+MAP_SIZE = dict(C=1000, P=100_000, opc=200)   # tests/test_f32_scale.py's generator
+MAP_LM_ITERATIONS = 6
+# Card against CPU on a BA problem (phase 6b), each bound between the
+# readings of the sound runs and those of the control with TF32 left on
+# where the control moves the quantity (PERF.md has the readings). H_cc of
+# the first LM step, largest difference over largest entry, per problem:
+BA_DEVICE_HESSIAN_RTOL = {"window": 1e-6, "reference": 1e-5}
+# The solve's end: largest pose6 and point differences, relative cost.
+BA_DEVICE_POSE6_ATOL = 1e-4
+BA_DEVICE_POINTS_ATOL = 2.5e-3
+BA_DEVICE_COST_RTOL = 1e-6
+# Map problem (phase 6f): relative difference of the final cost (the
+# devices' whole-array sums run in another order; TF32 does not reach this
+# path).
+BA_MAP_COST_RTOL = 5e-6
+
+
+def _is_cuda(device):
+    import torch
+
+    return torch.device(device).type == "cuda"
+
+
+def _sync(device):
+    import torch
+
+    if _is_cuda(device):
+        torch.cuda.synchronize()
+
+
+def _solve_record(kind, ms, stats):
+    return {"kind": kind, "ms": ms, "iterations": stats["iterations"],
+            "cams": stats["num_cams"], "points": stats["num_points"],
+            "obs": stats["num_obs"], "path": stats["path"], "chunked": stats["chunked"],
+            "cost_initial": stats["cost_initial"], "cost_final": stats["cost_final"]}
+
+
+def _summarize_solves(solves):
+    """Per solve kind: count, median wall ms, median LM iterations, median ms
+    per LM iteration, sizes and paths."""
+    out = {}
+    for kind in sorted({s["kind"] for s in solves}):
+        ss = [s for s in solves if s["kind"] == kind]
+        out[kind] = {
+            "solves": len(ss),
+            "median_ms": statistics.median(s["ms"] for s in ss),
+            "max_ms": max(s["ms"] for s in ss),
+            "median_iterations": statistics.median(s["iterations"] for s in ss),
+            "median_ms_per_iteration": statistics.median(
+                s["ms"] / max(s["iterations"], 1) for s in ss),
+            "cams": [min(s["cams"] for s in ss), max(s["cams"] for s in ss)],
+            "points": [min(s["points"] for s in ss), max(s["points"] for s in ss)],
+            "obs": [min(s["obs"] for s in ss), max(s["obs"] for s in ss)],
+            "paths": sorted({s["path"] for s in ss}),
+        }
+    return out
+
+
+def phase_ba_tracking(seq, gt, device="cuda", frames=N_FRAMES):
+    """`VisualOdometer` + `BundleAdjuster(BAConfig())` over the rendered
+    frames with the live loop's cadence. Needs finite poses, ATE < 0.01 m
+    and exactly 1 hamming_top2 and 2 orb_describe launches per frame (on
+    the card). Returns (world, summary, the last window's world before its
+    solve with its frame range)."""
+    import copy
+
+    from stereo_orb_slam_torch.backend.ba import BundleAdjuster
+    from stereo_orb_slam_torch.config import BAConfig
+    from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.utils import evaluate
+    from stereo_orb_slam_torch.worldmap import WorldMap
+
+    pairs = datasets.load_dataset("kitti", seq)[:frames]
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    rig = calib.load_camera(os.path.join(seq, "calib.txt"), device=device)
+    world = WorldMap()
+    vo = VisualOdometer(world, rig)
+    adj = BundleAdjuster(world, rig, BAConfig())
+    solves, last_window = [], None
+
+    def solve(kind, start, end):
+        t0 = time.perf_counter()
+        stats = adj.optimize(start, end)
+        _sync(device)
+        if stats:
+            solves.append(_solve_record(kind, (time.perf_counter() - t0) * 1e3, stats))
+
+    _reset_launches()
+    t_start = time.perf_counter()
+    for il, ir in imgs:
+        vo.track(il, ir)
+        n = world.num_frames
+        if n > 0 and vo.success:
+            if PER_FRAME_BA:
+                solve("per_frame", n - 1, n)
+            if n % REFINE_INTERVAL == 0:
+                start = max(0, n - 2 * REFINE_INTERVAL)
+                last_window = (copy.deepcopy(world), start, n)
+                solve("window", start, n)
+    _sync(device)
+    total_s = time.perf_counter() - t_start
+    launches = _read_launches()
+    n = world.num_frames
+    poses = world.pose_global[:n]
+    if not (np.isfinite(poses).all() and n == frames):
+        raise AssertionError("tracking with BA: poses are not finite, or frames were lost")
+    ate = evaluate.ate_rmse(poses, evaluate.load_kitti_gt(gt)[:n])
+    summary = {"frames": n, "ms_per_frame": total_s * 1e3 / n, "ate_m": ate,
+               "points": world.num_points, "obs": world.num_obs,
+               "solves": _summarize_solves(solves), "launches": launches}
+    log(f"tracking with BA: {n} frames, {summary['ms_per_frame']:.1f} ms/frame with BA, "
+        f"ATE {ate:.5f} m, {world.num_points} points, {world.num_obs} observations, "
+        f"launches per frame {({k: v / n for k, v in launches.items()})}")
+    for kind, s in summary["solves"].items():
+        log(f"  {kind} BA: {s['solves']} solves, median {s['median_ms']:.2f} ms "
+            f"(max {s['max_ms']:.2f}), median {s['median_iterations']} LM iterations, "
+            f"{s['median_ms_per_iteration']:.3f} ms per iteration, cams {s['cams']}, "
+            f"points {s['points']}, obs {s['obs']}, path {s['paths']}")
+    if not ate < 0.01:
+        raise AssertionError(f"tracking with BA: ATE {ate} m is not below 0.01 m")
+    if _is_cuda(device):
+        _check_launches("tracking with BA", launches,
+                        {"hamming_top2": 1, "orb_describe": 2, "extract_patches": 0}, n)
+    return world, summary, last_window
+
+
+@contextlib.contextmanager
+def _tf32_left_on():
+    """The control for the card-against-CPU bounds: TF32 on for float32
+    matrix products, and the solver's own switch (`ba.full_f32`, which sets
+    the precision to "highest" around every entry point) made a no-op, so
+    the solve runs as it would if the solver did not turn TF32 off."""
+    import torch
+
+    setter = torch.set_float32_matmul_precision
+    before = torch.get_float32_matmul_precision()
+    setter("high")
+    torch.set_float32_matmul_precision = lambda precision: None
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision = setter
+        setter(before)
+
+
+def _gaps(got, ref):
+    """Card against CPU: per quantity of the first step, the largest
+    difference over the CPU's largest magnitude; of the solve's end state,
+    the largest pose6 and point differences and the relative cost
+    difference."""
+    (step_g, (cg, _)), (step_r, (cr, _)) = got, ref
+    out = {k: float((step_g[k].cpu() - step_r[k]).abs().max() / step_r[k].abs().max())
+           for k in ("H_cc", "b_c", "step")}
+    out.update(pose6=float((cg.prob.pose6.cpu() - cr.prob.pose6).abs().max()),
+               points=float((cg.prob.points.cpu() - cr.prob.points).abs().max()),
+               cost_rel=abs(float(cg.cost) - float(cr.cost)) / abs(float(cr.cost)))
+    return out
+
+
+def phase_ba_devices(seq, window, device="cuda", reference_device="cpu"):
+    """The card against the port's CPU path on the same problems: the last
+    window of the tracking run (`BAConfig()`, 50 LM iterations, its own
+    path), and the reference's banded problem (64 cameras, 8,192 points;
+    tests/test_torch_ba_oracles.py's card tests) for 4 LM iterations on
+    each of the banded, dense and matrix-free paths.
+
+    Two checks per problem. The first LM step: H_cc (relative to the CPU's
+    largest entry) within BA_DEVICE_HESSIAN_RTOL, where TF32 rounding of
+    the one-hot reduction shows; b_c and the proposed step are printed
+    only (b_c nearly cancels at the window's start, near its minimum, and
+    the reference problem's reduced system is ill-conditioned enough to
+    turn H_cc's float32 differences into 1e-2 of the step). The solve's
+    end: the CPU's iteration count, pose6, points and cost within
+    BA_DEVICE_POSE6_ATOL, BA_DEVICE_POINTS_ATOL and BA_DEVICE_COST_RTOL.
+    The card's solve is run twice and must repeat bit for bit (no
+    reduction on the path adds in a varying order), so each reading holds
+    from run to run. Each problem is also run on the card with TF32 left
+    on (`_tf32_left_on`), the control: on the paths with cuBLAS products
+    (dense, banded) its H_cc must break the bound, or the check has lost
+    its power."""
+    import torch
+
+    from stereo_orb_slam_torch.backend import ba
+    from stereo_orb_slam_torch.config import BAConfig
+    from stereo_orb_slam_torch.io import calib
+    from synth_ba import banded_problem, first_step
+
+    world, start, end = window
+    cfg = BAConfig()
+
+    def window_problem(dev):
+        adj = ba.BundleAdjuster(world, calib.load_camera(os.path.join(seq, "calib.txt"),
+                                                         device=dev), cfg)
+        setup = adj.prepare(start, end)
+        return setup.prob, cfg, cfg.max_iterations, setup.solve_kwargs()
+
+    def reference_problem(path):
+        def make(dev):
+            prob, _, (bases, B, Pc) = banded_problem(np.random.default_rng(0), device=dev)
+            if path == "matrix-free":
+                return prob, BAConfig(cg_iterations=50), 4, {}
+            band = dict(band_bases=bases, band_B=B, band_Pc=Pc) if path == "banded" else {}
+            return prob, cfg, 4, dict(dense_K=8, **band)
+        return make
+
+    def run(make, dev):
+        prob, c, iters, kw = make(dev)
+        step = first_step(prob, c, **kw)
+        carry, n_it, _ = ba.ba_solve(prob, iters, c, **kw)
+        return step, (carry, int(n_it))
+
+    adj = ba.BundleAdjuster(world, calib.load_camera(os.path.join(seq, "calib.txt"),
+                                                     device=reference_device), cfg)
+    cases = {f"window [{start}, {end}) ({adj.prepare(start, end).path}, 50 iterations)":
+             window_problem}
+    cases.update({f"reference problem ({path}, 4 iterations)": reference_problem(path)
+                  for path in ("banded", "dense", "matrix-free")})
+    out = {}
+    for name, make in cases.items():
+        ref = run(make, reference_device)
+        t0 = time.perf_counter()
+        card = run(make, device)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        again = run(make, device)[1][0].prob
+        repeats = all(torch.equal(a, b) for a, b in zip(
+            (card[1][0].prob.pose6, card[1][0].prob.points), (again.pose6, again.points)))
+        with _tf32_left_on():
+            tf32 = run(make, device)
+        sound, control = _gaps(card, ref), _gaps(tf32, ref)
+        its = [card[1][1], ref[1][1], tf32[1][1]]
+        out[name] = {"iterations": its, "gaps": sound, "gaps_tf32_on": control,
+                     "repeats": repeats, "ms_first_step_and_solve": ms}
+        for label, g in (("sound", sound), ("TF32 left on", control)):
+            log(f"BA cuda vs cpu, {name}, {label}: first step H_cc {g['H_cc']:.3g}, b_c "
+                f"{g['b_c']:.3g}, step {g['step']:.3g} (relative); end pose6 "
+                f"{g['pose6']:.3g}, points {g['points']:.3g}, cost rel {g['cost_rel']:.3g}")
+        log(f"  iterations card / cpu / card with TF32 {its}, {ms:.1f} ms on the card, "
+            f"second card solve identical: {repeats}")
+        h_rtol = BA_DEVICE_HESSIAN_RTOL[name.split()[0]]
+        if not repeats:
+            raise AssertionError(f"BA cuda vs cpu, {name}: two solves on the card differ")
+        if not (its[0] == its[1] and sound["H_cc"] <= h_rtol
+                and sound["pose6"] <= BA_DEVICE_POSE6_ATOL
+                and sound["points"] <= BA_DEVICE_POINTS_ATOL
+                and sound["cost_rel"] <= BA_DEVICE_COST_RTOL):
+            raise AssertionError(f"BA cuda vs cpu, {name}: the devices differ beyond the "
+                                 f"bounds (H_cc {h_rtol}, pose6 {BA_DEVICE_POSE6_ATOL}, "
+                                 f"points {BA_DEVICE_POINTS_ATOL}, cost "
+                                 f"{BA_DEVICE_COST_RTOL}): iterations {its[:2]}, {sound}")
+        if _is_cuda(device) and "matrix-free" not in name and not control["H_cc"] > h_rtol:
+            raise AssertionError(f"BA cuda vs cpu, {name}: with TF32 left on, H_cc stays "
+                                 f"within {h_rtol}, so the bound would not catch it")
+    return out
+
+
+def phase_ba_refine(seq, gt, world, out_dir, device="cuda", iterations=50):
+    """The refine app over a dump of the tracked world: final cost at most
+    the initial, ATE < 0.01 m."""
+    from stereo_orb_slam_torch.apps import refine
+    from stereo_orb_slam_torch.io import export
+    from stereo_orb_slam_torch.utils import evaluate
+
+    dump = os.path.join(out_dir, "dump")
+    export.dump_world(dump, world)
+    t0 = time.perf_counter()
+    stats = refine.main(["--input_dir", dump, "--camera", os.path.join(seq, "calib.txt"),
+                         "--output_dir", os.path.join(out_dir, "refined"),
+                         "--iterations", str(iterations), "--device", device])
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    refined = stats.pop("world")
+    n = refined.num_frames
+    ate = evaluate.ate_rmse(refined.pose_global[:n], evaluate.load_kitti_gt(gt)[:n])
+    rec = dict(_solve_record("global_refine", ms, stats), ate_m=ate)
+    log(f"refine app: {n} frames, {stats['num_points']} points, {stats['num_obs']} obs, "
+        f"{stats['path']}, {stats['iterations']} iterations, cost {stats['cost_initial']:.6g} "
+        f"-> {stats['cost_final']:.6g}, {ms:.1f} ms (restore + solve + dump), ATE {ate:.5f} m")
+    if not (stats["cost_final"] <= stats["cost_initial"] and ate < 0.01):
+        raise AssertionError("refine app: the cost rose or the ATE is not below 0.01 m")
+    return rec
+
+
+def phase_ba_recovery(seq, gt, world, device="cuda", seed=1):
+    """Global BA from a perturbed copy of the tracked world: 2 cm and 0.2
+    degrees (per-axis sigma) on every pose but the first, 5 cm on every
+    point. Needs the cost below 1e-2 of its initial value and ATE < 0.01 m."""
+    import copy
+
+    from scipy.spatial.transform import Rotation
+
+    from stereo_orb_slam_torch.backend.ba import BundleAdjuster
+    from stereo_orb_slam_torch.config import BAConfig
+    from stereo_orb_slam_torch.io import calib
+    from stereo_orb_slam_torch.utils import evaluate
+
+    rng = np.random.default_rng(seed)
+    world = copy.deepcopy(world)
+    n = world.num_frames
+    for i in range(1, n):
+        d = np.eye(4, dtype=np.float32)
+        d[:3, :3] = Rotation.from_rotvec(rng.normal(0, np.deg2rad(0.2), 3)).as_matrix()
+        d[:3, 3] = rng.normal(0, 0.02, 3)
+        world.pose_global[i] = world.pose_global[i] @ d
+    world.points[: world.num_points] += rng.normal(0, 0.05, (world.num_points, 3)).astype(
+        np.float32)
+    gt_poses = evaluate.load_kitti_gt(gt)[:n]
+    ate0 = evaluate.ate_rmse(world.pose_global[:n], gt_poses)
+    adj = BundleAdjuster(world, calib.load_camera(os.path.join(seq, "calib.txt"), device=device),
+                         BAConfig())
+    t0 = time.perf_counter()
+    stats = adj.optimize(0, n)
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    ate = evaluate.ate_rmse(world.pose_global[:n], gt_poses)
+    ratio = stats["cost_final"] / stats["cost_initial"]
+    rec = dict(_solve_record("global_recovery", ms, stats), ate_m=ate, ate_before_m=ate0,
+               cost_ratio=ratio)
+    log(f"recovery: {n} frames, {stats['path']}, {stats['iterations']} iterations, cost "
+        f"{stats['cost_initial']:.6g} -> {stats['cost_final']:.6g} (ratio {ratio:.3g}), "
+        f"ATE {ate0:.5f} -> {ate:.5f} m, {ms:.1f} ms")
+    if not (np.isfinite(world.pose_global[:n]).all() and ratio < 1e-2 and ate < 0.01):
+        raise AssertionError("recovery: the cost did not fall below 1e-2 of its initial "
+                             "value, or the ATE is not below 0.01 m")
+    return rec
+
+
+def make_map_problem(device, C, P, opc, seed=0):
+    """tests/test_f32_scale.py's global-BA generator: C cameras with opc
+    observations each of P points (uniform), KITTI intrinsics, 0.5 px
+    noise, poses perturbed by 0.003, point-sorted. Unpadded."""
+    import torch
+
+    from stereo_orb_slam_torch.backend.ba import BAProblem
+
+    rng = np.random.default_rng(seed)
+    fx, cx, cy, b = 718.856, 607.1928, 185.2157, 0.5371657
+    P_l = np.array([[fx, 0, cx, 0], [0, fx, cy, 0], [0, 0, 1, 0]], np.float32)
+    P_r = P_l.copy()
+    P_r[0, 3] = -fx * b
+    O = C * opc
+    pts = np.stack([rng.uniform(-20, 20, P), rng.uniform(-5, 5, P),
+                    rng.uniform(5, 60, P)], 1).astype(np.float32)
+    pose6 = rng.normal(0, 0.003, (C, 6)).astype(np.float32)
+    obs_cam = np.repeat(np.arange(C, dtype=np.int32), opc)
+    obs_point = rng.integers(0, P, O).astype(np.int32)
+    order = np.argsort(obs_point, kind="stable")
+    obs_point, obs_cam = obs_point[order], obs_cam[order]
+    X = pts[obs_point]
+    Xh = np.concatenate([X, np.ones((O, 1), np.float32)], 1)
+    obs_uv = np.concatenate([(Xh @ Pm.T)[:, :2] / np.maximum((Xh @ Pm.T)[:, 2:3], 1e-6)
+                             for Pm in (P_l, P_r)], 1).astype(np.float32)
+    obs_uv += rng.normal(0, 0.5, obs_uv.shape).astype(np.float32)
+    cam_mask = np.r_[0.0, np.ones(C - 1)].astype(np.float32)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return BAProblem(t(pose6), t(pts), t(obs_cam, torch.long), t(obs_point, torch.long),
+                     t(obs_uv), torch.ones(O, device=device), t(cam_mask),
+                     torch.ones(P, device=device), t(P_l), t(P_r))
+
+
+def _map_solve(device, size, iters):
+    """lm_init + `iters` LM iterations of the matrix-free path on the map
+    problem. Returns (carry, iterations, cost0, init_ms, ms_per_iteration)."""
+    from stereo_orb_slam_torch.backend import ba
+    from stereo_orb_slam_torch.config import BAConfig
+
+    cfg = BAConfig(cg_iterations=40, function_tolerance=0.0)
+    prob = make_map_problem(device, **size)
+    _sync(device)
+    t0 = time.perf_counter()
+    plan = ba._cam_reduction(prob, None, None)
+    carry = ba.lm_init(prob, cfg, cam_red=plan)
+    cost0 = float(carry.cost)
+    t1 = time.perf_counter()
+    carry, n_it, _ = ba.ba_resume(carry, iters, cfg, cam_red=plan)
+    _sync(device)
+    t2 = time.perf_counter()
+    n_it = int(n_it)
+    return carry, n_it, cost0, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(n_it, 1)
+
+
+def phase_ba_map(device="cuda", reference_device="cpu", size=MAP_SIZE,
+                 iters=MAP_LM_ITERATIONS):
+    """The matrix-free path at map size (C = 1000 cameras, P = 100,000
+    points, 200,000 observations; the unpadded C is above the 512-camera
+    dense gate): ms per LM iteration and peak device memory on `device`,
+    the final cost held against the port's CPU path within
+    BA_MAP_COST_RTOL (the devices' whole-array sums run in another order),
+    and the same
+    again with TF32 left on (the control; this path has no cuBLAS product).
+    Needs a falling, finite cost."""
+    import torch
+
+    if _is_cuda(device):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    carry, n_it, cost0, init_ms, ms_it = _map_solve(device, size, iters)
+    peak = torch.cuda.max_memory_allocated() if _is_cuda(device) else None
+    cost = float(carry.cost)
+    finite = all(bool(torch.isfinite(x).all()) for x in (carry.prob.pose6, carry.prob.points))
+    ref, n_ref, cost0_ref, _, ms_ref = _map_solve(reference_device, size, iters)
+    cost_ref = float(ref.cost)
+    rel = abs(cost - cost_ref) / cost_ref
+    with _tf32_left_on():
+        tf32 = _map_solve(device, size, iters)[0]
+    rel_tf32 = abs(float(tf32.cost) - cost_ref) / cost_ref
+    rec = {"C": size["C"], "P": size["P"], "O": size["C"] * size["opc"], "iterations": n_it,
+           "cost_initial": cost0, "cost_final": cost, "cost_final_reference": cost_ref,
+           "cost_rel_diff": rel, "cost_rel_diff_tf32_on": rel_tf32, "init_ms": init_ms,
+           "ms_per_iteration": ms_it, "reference_ms_per_iteration": ms_ref,
+           "peak_bytes": peak, "path": "matrix-free"}
+    log(f"map BA ({size['C']} cams, {size['P']} points, {size['C'] * size['opc']} obs, "
+        f"matrix-free, cg 40): {n_it} LM iterations, cost {cost0:.6g} -> {cost:.6g}, "
+        f"{ms_it:.2f} ms per LM iteration (init {init_ms:.2f} ms), peak "
+        f"{(peak or 0) / 2**20:.1f} MiB; {reference_device}: cost {cost_ref:.6g} "
+        f"(rel diff {rel:.3g}; with TF32 left on {rel_tf32:.3g}), {ms_ref:.1f} ms per "
+        f"LM iteration")
+    if not (finite and cost < cost0 and n_it == iters == n_ref and rel <= BA_MAP_COST_RTOL):
+        raise AssertionError("map BA: the cost did not fall, a value is not finite, or the "
+                             f"devices disagree beyond rtol {BA_MAP_COST_RTOL}")
+    return rec
+
+
+def phase_ba_banded(device="cuda", iters=5, **size):
+    """The banded and the dense Schur assembly on the reference's banded
+    problem (64 cameras, 8192 points), `iters` LM iterations each: ms per LM
+    iteration of both, and pose6 within 5e-5 of each other (the two sum in
+    another order; tests/test_torch_ba_oracles.py states the bound)."""
+    from stereo_orb_slam_torch.backend import ba
+    from stereo_orb_slam_torch.config import BAConfig
+    from synth_ba import banded_problem
+
+    prob, slots, (bases, B, Pc) = banded_problem(np.random.default_rng(0), device=device,
+                                                 **size)
+    cfg = dataclasses.replace(BAConfig(), function_tolerance=0.0)
+    out = {}
+    for path, kw in (("dense", {}), ("banded", dict(band_bases=bases, band_B=B, band_Pc=Pc))):
+        for _ in range(2):  # the second solve is timed, warm
+            _sync(device)
+            t0 = time.perf_counter()
+            carry, n_it, _ = ba.ba_solve(prob, iters, cfg, dense_slots=slots, **kw)
+            _sync(device)
+        n_it = int(n_it)
+        out[path] = (carry, n_it, (time.perf_counter() - t0) * 1e3 / (n_it + 1))
+    (cd, itd, ms_d), (cb, itb, ms_b) = out["dense"], out["banded"]
+    err = float((cd.prob.pose6 - cb.prob.pose6).abs().max())
+    rec = {"C": prob.pose6.shape[0], "P": prob.points.shape[0], "O": prob.obs_cam.shape[0],
+           "band_B": B, "band_chunks": len(bases), "iterations": [itd, itb],
+           "dense_ms_per_iteration": ms_d, "banded_ms_per_iteration": ms_b,
+           "pose6_max_diff": err,
+           "cost": [float(cd.cost), float(cb.cost)]}
+    log(f"banded vs dense ({rec['C']} cams, {rec['P']} points, {rec['O']} obs, band "
+        f"{B} in {len(bases)} chunks): {rec['dense_ms_per_iteration']:.2f} / "
+        f"{rec['banded_ms_per_iteration']:.2f} ms per LM iteration (second runs, init "
+        f"counted as one), pose6 max diff {err:.3g}, cost {rec['cost'][0]:.6g} / "
+        f"{rec['cost'][1]:.6g}")
+    if itd != itb or not err <= 5e-5:
+        raise AssertionError("banded and dense Schur solves disagree beyond 5e-5")
+    return rec
+
+
+def _device_summary(prof, wall_ms, per):
+    import torch
+
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_launches_per_lm_iteration": sum(e.count for e in kernels) / per,
+            "kernels": [{"name": e.key[:120], "count_per_lm_iteration": e.count / per,
+                         "device_us_per_lm_iteration": e.self_device_time_total / per}
+                        for e in top]}
+
+
+def _syncs_per_call(fn):
+    """(result, device syncs counted by torch's sync debug mode in fn())."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_ba_profile(seq, window, path, iters=3):
+    """torch.profiler over `iters` LM iterations of the last window problem
+    (its own path) and of the map problem (matrix-free), after one warm
+    iteration each; device syncs per LM iteration counted separately."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_orb_slam_torch.backend import ba
+    from stereo_orb_slam_torch.config import BAConfig
+    from stereo_orb_slam_torch.io import calib
+
+    world, start, end = window
+    adj = ba.BundleAdjuster(world, calib.load_camera(os.path.join(seq, "calib.txt")),
+                            BAConfig())
+    setup = adj.prepare(start, end)
+    kw = setup.solve_kwargs()
+    slots = None if kw["dense_K"] is None else ba.build_slots_device(
+        setup.prob.obs_point, setup.prob.obs_cam, setup.prob.obs_weight, setup.P_pad,
+        kw["dense_K"])
+    cam_red = ba._cam_reduction(setup.prob, slots, kw["cam_K"])
+    band = {k: kw[k] for k in ("band_bases", "band_B", "band_Pc")}
+    map_prob = make_map_problem("cuda", **MAP_SIZE)
+    map_cfg = BAConfig(cg_iterations=40, function_tolerance=0.0)
+    map_plan = ba._cam_reduction(map_prob, None, None)
+    cases = {
+        f"window ({setup.path}, C={setup.num_cams}, P={setup.num_points}, "
+        f"O={setup.num_obs})": (ba.lm_init(setup.prob, adj.cfg, slots, cam_red), adj.cfg,
+                                dict(dense_slots=slots, cam_red=cam_red, **band)),
+        "map (matrix-free, C=1000, P=100000, O=200000, cg 40)": (
+            ba.lm_init(map_prob, map_cfg, cam_red=map_plan), map_cfg, dict(cam_red=map_plan)),
+    }
+    report = {}
+    for name, (carry, cfg, kwargs) in cases.items():
+        cfg = dataclasses.replace(cfg, function_tolerance=0.0)  # run every iteration
+        carry, _, _ = ba.ba_resume(carry, 1, cfg, **kwargs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            carry, n_it, _ = ba.ba_resume(carry, iters, cfg, **kwargs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        n_it = int(n_it)
+        rep = _device_summary(prof, wall_ms, n_it)
+        (_, _, _), syncs = _syncs_per_call(lambda: ba.ba_resume(carry, iters, cfg, **kwargs))
+        rep["device_syncs_per_lm_iteration"] = syncs / iters
+        rep["wall_ms_per_lm_iteration"] = wall_ms / n_it
+        report[name] = rep
+        top = ", ".join(f"{k['name'][:48]} {k['device_us_per_lm_iteration']:.1f} us"
+                        for k in rep["kernels"][:6])
+        log(f"BA profile, {name}: {rep['wall_ms_per_lm_iteration']:.2f} ms wall per LM "
+            f"iteration, device busy {rep['device_busy_ms'] / n_it:.3f} ms (idle share "
+            f"{rep['device_idle_share']:.3f}), {rep['device_launches_per_lm_iteration']:.0f} "
+            f"launches and {rep['device_syncs_per_lm_iteration']:.1f} syncs per LM iteration; "
+            f"top: {top}")
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1)
+    log(f"BA profile breakdown in {path}")
+
+
 def phase_profile(seq, path, frames=20, warm=5):
     """Where a frame's time goes: `frames` track() calls on the card under
     torch.profiler, after `warm` calls off the record. Writes the breakdown
@@ -477,9 +1066,12 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", default=None,
-                    help="also profile 20 frames of the main path; write the breakdown here")
+                    help="also profile 20 frames of the main path (breakdown written to "
+                         "PATH) and 3 LM iterations of a window and of the map problem "
+                         "(written to PATH with _ba before the extension)")
     args = ap.parse_args(argv)
     phase_card()
+    sys.path.insert(0, os.path.join(ROOT, "tests"))  # synth, synth_ba
     import torch
 
     rng = np.random.default_rng(0)
@@ -491,14 +1083,23 @@ def main(argv=None):
         phase_cuda_vs_cpu(seq)
         summary, launches = phase_main_path(seq, gt, os.path.join(tmp, "vo_out"))
         oriented = phase_oriented(seq, gt)
+        ba_world, tracking, window = phase_ba_tracking(seq, gt)
+        ba = {"tracking": tracking, "cuda_vs_cpu": phase_ba_devices(seq, window),
+              "refine": phase_ba_refine(seq, gt, ba_world, tmp),
+              "recovery": phase_ba_recovery(seq, gt, ba_world),
+              "banded": phase_ba_banded(), "map": phase_ba_map()}
         if args.profile:
             phase_profile(seq, args.profile)
-    paths = {"main": launches, "oriented": oriented}
+            root, ext = os.path.splitext(args.profile)
+            phase_ba_profile(seq, window, f"{root}_ba{ext or '.json'}")
+    paths = {"main": launches, "oriented": oriented, "ba_tracking": tracking["launches"]}
     for r in records:
         r["launches"] = paths[r["path"]][r["name"]]
+        r["launches_by_path"] = {p: ls[r["name"]] for p, ls in paths.items()}
     log(json.dumps({"main_path": {k: summary[k] for k in ("frames", "fps", "median_ms",
                                                           "ate_m")},
                     "launch_floor_ms": floor_ms}))
+    log(json.dumps({"ba": ba}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

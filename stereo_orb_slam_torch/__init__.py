@@ -1,5 +1,5 @@
-"""stereo_orb_slam_torch: the stereo ORB front end in PyTorch, with
-hand-written CUDA kernels for Hopper.
+"""stereo_orb_slam_torch: the stereo ORB front end and windowed bundle
+adjustment in PyTorch, with hand-written CUDA kernels for Hopper.
 
 The PyTorch port of the repository's JAX package, which stays the
 reference. It keeps that package's layer map and the layouts of its public
@@ -10,7 +10,8 @@ X_prev = T @ X_curr):
   worldmap/             SoA map state on the host (NumPy)
   ops/ frontend/        detection, ORB, matching, RANSAC odometry
   ops/kernels/ csrc/    the CUDA kernels and their wrappers
-  apps/                 the visual_odometry CLI
+  backend/              bundle adjustment (LM, dense/banded Schur, PCG)
+  apps/                 the visual_odometry and refine CLIs
 
 Entry points run on the CUDA device unless the caller asks for the CPU.
 Nothing here imports JAX or the JAX package.
@@ -18,6 +19,6 @@ Nothing here imports JAX or the JAX package.
 
 __version__ = "0.1.0"
 
-from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
+from stereo_orb_slam_torch.config import BAConfig, FrontendConfig, RansacConfig
 
-__all__ = ["FrontendConfig", "RansacConfig"]
+__all__ = ["BAConfig", "FrontendConfig", "RansacConfig"]

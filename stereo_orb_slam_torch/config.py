@@ -1,8 +1,8 @@
-"""Typed configuration of the stereo front end (PyTorch port).
+"""Typed configuration of the front end and bundle adjustment (PyTorch port).
 
-A copy of the front-end and RANSAC dataclasses of the JAX package's
+A copy of the front-end, RANSAC and BA dataclasses of the JAX package's
 `config.py`, with the same fields and defaults, so that both packages run
-the same configuration. Frozen dataclasses stay hashable. The back-end,
+the same configuration. Frozen dataclasses stay hashable. The pose-graph,
 loop and SLAM configurations follow with the slices that use them.
 """
 
@@ -90,3 +90,52 @@ class RansacConfig:
     # Minimum inliers for the winning model to be accepted (guards against
     # degenerate 3-point-only consensus; no analogue in the reference).
     min_inliers: int = 6
+
+
+@dataclass(frozen=True)
+class BAConfig:
+    """Bundle adjustment (Levenberg-Marquardt + Schur complement).
+
+    Reference: Ceres options at ref `src/bundle_adjuster.cpp:13-36` and
+    constants at ref `src/params.h:34-47`.
+    """
+
+    # LM iterations (ref src/params.h:34).
+    max_iterations: int = 50
+    # Huber loss scale (ref src/bundle_adjuster.cpp:100, HuberLoss(1.0)).
+    huber_delta: float = 1.0
+    # Landmark coordinate box bounds (ref src/params.h:44-47), applied as a
+    # clamp after each accepted LM step.
+    point_bound: float = 10000.0
+    # PCG on the reduced camera (Schur) system.
+    cg_iterations: int = 100
+    cg_tol: float = 1e-6
+    # LM damping schedule.
+    lm_lambda_init: float = 1e-4
+    lm_lambda_up: float = 4.0
+    lm_lambda_down: float = 0.5
+    lm_lambda_min: float = 1e-10
+    lm_lambda_max: float = 1e8
+    # Relative cost-decrease tolerance for early stop (the reference sets
+    # Ceres tolerances to 1e-16, i.e. effectively runs to the iteration cap;
+    # ref src/bundle_adjuster.cpp:35-36).
+    function_tolerance: float = 1e-9
+    # Wall-clock cap per solve, the reference's Ceres max_solver_time
+    # (1 s, ref src/params.h:41). 0 disables. Only enforced on the chunked
+    # large-solve path (backend.ba.BundleAdjuster); small windowed solves
+    # run as one unchunked solve.
+    max_solve_seconds: float = 0.0
+    # Dense-Schur fast path (backend/schur_dense.py): used when the window
+    # has at most this many cameras AND the point-grouped slot count
+    # (P_pad * max_track_len) fits; larger/global problems stay matrix-free.
+    dense_schur_max_cams: int = 512
+    dense_schur_max_slots: int = 4_194_304
+    # BANDED Schur assembly (schur_dense.band_plan/assemble_schur_banded):
+    # when every point chunk's camera span fits a band of width
+    # <= banded_max_width, the one-hot expansion and reduced-system
+    # contraction run at band width B instead of full C — (B/C)^2 of the
+    # dense flops. Feasibility is proven per problem on the host; problems
+    # with loop-distant observations automatically fall back to the dense
+    # expansion. Exact same math when feasible.
+    banded_schur: bool = True
+    banded_max_width: int = 128

@@ -1,17 +1,21 @@
 """Carry state and tables from NumPy into the port's tensors.
 
 The JAX package's objects, fetched to the host as NumPy arrays (camera rigs,
-per-frame slots, sampling tables), become the port's objects here, so two
-runs can start from the same rig and the same previous-frame state.
-Descriptor words arrive as uint32 and are kept as int32 tensors holding the
-same bit patterns.
+per-frame slots, sampling tables, BA problems and configs), become the
+port's objects here, so two runs can start from the same rig, the same
+previous-frame state or the same BA problem. Descriptor words arrive as
+uint32 and are kept as int32 tensors holding the same bit patterns.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from stereo_orb_slam_torch.backend.ba import BAProblem
+from stereo_orb_slam_torch.config import BAConfig
 from stereo_orb_slam_torch.frontend.odometer import FrameSlots
 from stereo_orb_slam_torch.geometry.camera import Pinhole, StereoRig
 
@@ -65,3 +69,26 @@ def table_from_numpy(table, device="cuda") -> torch.Tensor:
     """A sampling table given as any float array of bf16 values -> a bf16
     tensor (exact: the values are representable)."""
     return torch.as_tensor(np.asarray(table, np.float32), device=device).to(torch.bfloat16)
+
+
+def ba_problem_from_numpy(prob, device="cuda") -> BAProblem:
+    """A BAProblem from a mapping or NamedTuple with BAProblem's fields
+    (the JAX package's BAProblem converts field by field): index arrays
+    become int64 tensors, everything else float32."""
+    index_fields = ("obs_cam", "obs_point")
+    return BAProblem(**{
+        f: (torch.as_tensor(np.array(_get(prob, f), np.int64), device=device)
+            if f in index_fields else _tensor(_get(prob, f), device))
+        for f in BAProblem._fields
+    })
+
+
+def ba_config_from(cfg) -> BAConfig:
+    """The port's BAConfig with the field values of `cfg`, any dataclass
+    with BAConfig's fields (the JAX package's BAConfig). The port assembles
+    the reduced system in float32 only, so a config asking for the bfloat16
+    assembly (`dense_assemble_bf16`) is refused."""
+    values = dataclasses.asdict(cfg)
+    if values.get("dense_assemble_bf16"):
+        raise ValueError("the port has no bfloat16 Schur assembly (dense_assemble_bf16)")
+    return BAConfig(**{f.name: values[f.name] for f in dataclasses.fields(BAConfig)})

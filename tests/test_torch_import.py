@@ -35,6 +35,9 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert report["bad"] == []
     assert "stereo_orb_slam_torch.frontend.odometer" in report["modules"]
     assert "stereo_orb_slam_torch.ops.kernels.hamming" in report["modules"]
+    for name in ("backend.ba", "backend.schur_dense", "backend.residuals",
+                 "geometry.se3_np", "io.checkpoint", "apps.refine"):
+        assert "stereo_orb_slam_torch." + name in report["modules"]
 
 
 def _sources(with_smoke):
@@ -55,11 +58,13 @@ def test_port_package_does_not_name_the_jax_package():
 
 
 def test_entry_points_default_to_cuda():
+    from stereo_orb_slam_torch import convert
     from stereo_orb_slam_torch.frontend import odometer
     from stereo_orb_slam_torch.geometry import camera
     from stereo_orb_slam_torch.io import calib
     from stereo_orb_slam_torch.ops import orb
 
     for fn in (camera.Pinhole.create, calib.load_camera, calib.load_kitti_calib,
-               calib.load_reference_format, odometer.empty_slots, orb.steer_table):
+               calib.load_reference_format, odometer.empty_slots, orb.steer_table,
+               convert.ba_problem_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
