@@ -50,10 +50,25 @@ Phases, each of which fails the run when it fails:
         200,000 observations, 6 LM iterations): ms per LM iteration, peak
         device memory, the final cost within BA_MAP_COST_RTOL of the CPU
         path's (and the same with TF32 left on);
-  7. with --profile PATH: a torch.profiler breakdown of 20 main-path frames
-     (to PATH), and of 3 LM iterations of the last window and of the map
+  7. the SLAM app (`stereo_orb_slam_torch.apps.slam.main`, the shipped
+     SlamConfig: 1024 features, a 1024-word vocabulary trained at frame 12,
+     query_size 4, distant_frame_thresh 50, refine_interval 10, live BA 12
+     LM iterations) over 172 frames of the same scene on an out-and-back
+     trajectory (SLAM_STEPS), with --batch_frames 1 and 4: the loop
+     probability past is_loop_thresh, loop edges measured at a live closure
+     (pose graph + deferred polish) and at finish, merged landmarks, ATE <
+     0.01 m for both and within 1e-3 m of each other, and exact launches
+     (hamming_top2 one per frame, per BoW scoring batch, per vocabulary
+     assignment and per loop edge; orb_describe 2 per frame;
+     extract_patches 0). Then the path's pieces, the card against the CPU
+     (SLAM_* bounds): the vocabulary assignment bit for bit,
+     batch_score_update, the loop-edge batch with the same RANSAC sets and
+     pg_solve on the final graph, the last two with a TF32-on control, and
+     the time of the first forward-mode use in a process;
+  8. with --profile PATH: a torch.profiler breakdown of 20 main-path frames
+     (to PATH), of 3 LM iterations of the last window and of the map
      problem with device syncs counted (to PATH with _ba before the
-     extension).
+     extension), and of 20 SLAM frames and one pose-graph solve (_slam).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -307,8 +322,9 @@ def phase_kernels(rng):
     return records, floor_ms
 
 
-def _render_sequence(root, n):
-    """KITTI-layout folder of n synthetic stereo PNG pairs + calib + GT.
+def _render_sequence(root, n, steps=None):
+    """KITTI-layout folder of n synthetic stereo PNG pairs + calib + GT
+    (frame i at x = steps[i] whole steps; steps defaults to 0..n-1).
 
     A textured fronto-parallel plane under sideways motion, at KITTI's size
     and intrinsics. Its depth makes the disparity 38 px and the step 14 px
@@ -331,12 +347,12 @@ def _render_sequence(root, n):
     scene = PlaneScene(np.random.default_rng(42), fx=k["fx"], cx=k["cx"], cy=k["cy"],
                        baseline=k["baseline"], depth=depth, h=k["h"], w=k["w"])
     gt = []
-    for i in range(n):
+    for i, s in enumerate(range(n) if steps is None else steps):
         for cam, right in (("image_0", False), ("image_1", True)):
-            img = scene.render(i * step, right=right).clip(0, 255).astype(np.uint8)
+            img = scene.render(s * step, right=right).clip(0, 255).astype(np.uint8)
             Image.fromarray(img, "L").save(os.path.join(seq, cam, f"{i:06d}.png"))
         T = np.eye(4)
-        T[0, 3] = i * step
+        T[0, 3] = s * step
         gt.append(" ".join(f"{v:.6f}" for v in T[:3, :].reshape(12)))
     with open(os.path.join(seq, "calib.txt"), "w") as f:
         f.write(f"P0: {k['fx']} 0 {k['cx']} 0 0 {k['fx']} {k['cy']} 0 0 0 1 0\n"
@@ -455,13 +471,6 @@ def phase_oriented(seq, gt, frames=ORIENTED_FRAMES):
     return launches
 
 
-# The live loop's BA cadence (SlamSystem.process: optimize(n-1, n) after
-# each tracked frame, optimize(max(0, n-20), n) every 10 frames), written as
-# literals: SlamConfig.refine_interval = 10 and per_frame_ba = True
-# (stereo_orb_slam_tpu/config.py:254,257; the port's SlamConfig comes with
-# the SLAM app slice).
-REFINE_INTERVAL = 10
-PER_FRAME_BA = True
 MAP_SIZE = dict(C=1000, P=100_000, opc=200)   # tests/test_f32_scale.py's generator
 MAP_LM_ITERATIONS = 6
 # Card against CPU on a BA problem (phase 6b), each bound between the
@@ -529,7 +538,7 @@ def phase_ba_tracking(seq, gt, device="cuda", frames=N_FRAMES):
     import copy
 
     from stereo_orb_slam_torch.backend.ba import BundleAdjuster
-    from stereo_orb_slam_torch.config import BAConfig
+    from stereo_orb_slam_torch.config import BAConfig, SlamConfig
     from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
     from stereo_orb_slam_torch.io import calib, datasets
     from stereo_orb_slam_torch.utils import evaluate
@@ -541,6 +550,11 @@ def phase_ba_tracking(seq, gt, device="cuda", frames=N_FRAMES):
     world = WorldMap()
     vo = VisualOdometer(world, rig)
     adj = BundleAdjuster(world, rig, BAConfig())
+    # SlamSystem.process's cadence: optimize(n-1, n) after each tracked
+    # frame, optimize(max(0, n - 2 * refine_interval), n) every
+    # refine_interval frames.
+    slam_cfg = SlamConfig()
+    refine = slam_cfg.refine_interval
     solves, last_window = [], None
 
     def solve(kind, start, end):
@@ -556,10 +570,10 @@ def phase_ba_tracking(seq, gt, device="cuda", frames=N_FRAMES):
         vo.track(il, ir)
         n = world.num_frames
         if n > 0 and vo.success:
-            if PER_FRAME_BA:
+            if slam_cfg.per_frame_ba:
                 solve("per_frame", n - 1, n)
-            if n % REFINE_INTERVAL == 0:
-                start = max(0, n - 2 * REFINE_INTERVAL)
+            if n % refine == 0:
+                start = max(0, n - 2 * refine)
                 last_window = (copy.deepcopy(world), start, n)
                 solve("window", start, n)
     _sync(device)
@@ -927,7 +941,7 @@ def phase_ba_banded(device="cuda", iters=5, **size):
     return rec
 
 
-def _device_summary(prof, wall_ms, per):
+def _device_summary(prof, wall_ms, per, unit="lm_iteration"):
     import torch
 
     kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
@@ -936,9 +950,9 @@ def _device_summary(prof, wall_ms, per):
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "device_launches_per_lm_iteration": sum(e.count for e in kernels) / per,
-            "kernels": [{"name": e.key[:120], "count_per_lm_iteration": e.count / per,
-                         "device_us_per_lm_iteration": e.self_device_time_total / per}
+            f"device_launches_per_{unit}": sum(e.count for e in kernels) / per,
+            "kernels": [{"name": e.key[:120], f"count_per_{unit}": e.count / per,
+                         f"device_us_per_{unit}": e.self_device_time_total / per}
                         for e in top]}
 
 
@@ -1061,14 +1075,405 @@ def phase_profile(seq, path, frames=20, warm=5):
         f"device launches/frame; breakdown in {path}")
 
 
+# The SLAM phase's trajectory, in whole 14 px steps of x (see
+# _render_sequence): 64 frames out, 64 back over the outgoing views (the
+# same images; id gaps pass LoopConfig.distant_frame_thresh = 50 from about
+# frame 89, and about 8 matched frames lift the loop probability from 0.005
+# past 0.9), 16 frames past the start (new views: about 9 misses take it
+# below 0.1, and that exit runs the live closure), 16 back to the start and
+# 12 out again over the first views (a second entry, whose edges the
+# pose graph measures at finish()).
+SLAM_STEPS = (list(range(64)) + list(range(63, -1, -1)) + list(range(-1, -17, -1))
+              + list(range(-15, 1)) + list(range(1, 13)))
+SLAM_VOCAB_FRAMES = 12     # SlamSystem's default vocab_train_frames
+# Card against CPU in the SLAM phase, each set between the sound readings
+# and the TF32-on control where the control moves the quantity (PERF.md):
+SLAM_EDGE_Z_ATOL = 1e-4            # loop-edge transforms
+SLAM_SCORE_ATOL = 1e-6             # BoW scores (no matrix product: min + sum)
+# pg_solve on the final graph perturbed (see phase_slam_devices): rotation,
+# translation (m) after 1 and after 10 GN steps. The solve returns to the
+# consistent graph, so after 10 steps the two devices agree almost exactly.
+SLAM_PG_ONE_STEP = (2e-6, 3e-5)
+SLAM_PG_SOLVE = (1e-6, 1e-6)
+
+
+def _slam_launches_expected(system, frames, k):
+    """hamming_top2 launches of a SLAM run from what the run did: one per
+    frame (the front end's stereo + temporal pair), one per BoW scoring
+    batch (fused into the chain, or LoopDetector.process_batch), the
+    vocabulary's iterations + 1 assignments and one per backfilled frame,
+    and one per loop edge measured. Returns (expected, the independent
+    count of BoW batches from the trajectory alone)."""
+    cfg = system.cfg.loop
+    edges = sum(h["loop_edges_measured"] for h in system.pgo.history)
+    bow = system.fused_score_batches + system.loop.score_batches
+    vocab = cfg.vocab_iterations + 1 + SLAM_VOCAB_FRAMES
+    expected = frames + bow + vocab + edges
+    return expected, -(-(frames - SLAM_VOCAB_FRAMES) // k), edges
+
+
+def phase_slam(seq, gt, out_dir, batch_frames):
+    """The SLAM app (`stereo_orb_slam_torch.apps.slam.main`) on the card at
+    full width: the loop sequence at 376x1241, 1024 features, a 1024-word
+    vocabulary trained at frame 12, the shipped SlamConfig. Needs the loop
+    probability past is_loop_thresh, loop edges measured at a live closure
+    and at finish, merged landmarks, ATE < 0.01 m after finish and the exact
+    launch counts."""
+    import torch
+
+    from stereo_orb_slam_torch.apps import slam
+
+    _reset_launches()
+    summary = slam.main([
+        "--dataset", "kitti", "--folder", seq, "--camera", os.path.join(seq, "calib.txt"),
+        "--output_dir", out_dir, "--gt", gt, "--batch_frames", str(batch_frames),
+        "--device", "cuda",
+    ])
+    launches = _read_launches()
+    torch.cuda.synchronize()
+    system = summary["system"]
+    n, world = summary["frames"], system.world
+    hist = system.pgo.history
+    live = [h for h in hist if h["live"]]
+    ids = np.arange(world.num_points, dtype=np.int32)
+    merged = int((world.canonical(ids) != ids).sum())
+    expected, bow_batches, edges = _slam_launches_expected(system, n, batch_frames)
+    splits = system.pgo.live_stall_splits
+    rec = {
+        "batch_frames": batch_frames, "frames": n, "tracked": world.num_frames,
+        "live_fps": summary["live_fps"], "fps": summary["fps"],
+        "median_ms": summary["median_ms"], "finish_seconds": summary["finish_seconds"],
+        "ate_m": summary["ate_m"], "live_ate_m": summary["live_ate_m"],
+        "rpe": summary["rpe"], "points": world.num_points, "merged_points": merged,
+        "max_loop_probability": max(system.loop.probabilities),
+        "vocab_train_ms": system.timers.totals["vocab.train"] * 1e3,
+        "closures": [{k: h[k] for k in ("live", "num_vertices", "num_edges",
+                                         "loop_edges_measured", "num_loop_edges",
+                                         "wall_split_seconds", "wall_seconds")}
+                     for h in hist],
+        "live_stall_splits": splits, "ba_log": system.ba_log[-3:],
+        "timers": system.timers.summary(), "launches": launches,
+        "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
+                              "extract_patches": 0},
+        "bow_batches": system.fused_score_batches + system.loop.score_batches,
+        "edges_measured": edges,
+    }
+    log(f"SLAM (--batch_frames {batch_frames}): {n} frames at {KITTI['h']}x{KITTI['w']}, "
+        f"live {rec['live_fps']:.2f} fps, overall {rec['fps']:.2f} fps, median "
+        f"{rec['median_ms']:.2f} ms/frame, vocabulary training {rec['vocab_train_ms']:.1f} ms, "
+        f"finish {rec['finish_seconds']:.2f} s, ATE {rec['ate_m']:.5f} m (live "
+        f"{rec['live_ate_m']:.5f}), RPE {rec['rpe']}, {world.num_points} points, "
+        f"{merged} merged, max loop probability {rec['max_loop_probability']:.4f}")
+    for h in rec["closures"]:
+        log(f"  pose graph ({'live' if h['live'] else 'finish'}): {h['num_vertices']} "
+            f"vertices, {h['num_edges']} edges, loop edges {h['num_loop_edges']} of "
+            f"{h['loop_edges_measured']} measured, split {h['wall_split_seconds']} s, "
+            f"total {h['wall_seconds']} s")
+    log(f"  launches {launches}, expected {rec['launches_expected']} ({rec['bow_batches']} "
+        f"BoW batches, {edges} loop edges); live closure stall splits {splits}")
+    poses = world.pose_global[: world.num_frames]
+    if not (np.isfinite(poses).all() and world.num_frames == n):
+        raise AssertionError("SLAM: poses are not finite, or frames were lost")
+    if not rec["max_loop_probability"] > system.cfg.loop.is_loop_thresh:
+        raise AssertionError("SLAM: the loop probability never passed is_loop_thresh")
+    if not any(h["num_loop_edges"] >= 1 for h in live):
+        raise AssertionError("SLAM: no loop edge was measured at a live closure")
+    if not (hist and not hist[-1]["live"] and hist[-1]["num_loop_edges"] >= 1):
+        raise AssertionError("SLAM: no loop edge was measured at finish")
+    if merged < 1:
+        raise AssertionError("SLAM: no landmarks were merged")
+    if not rec["ate_m"] < 0.01:
+        raise AssertionError(f"SLAM: ATE {rec['ate_m']} m is not below 0.01 m")
+    if rec["bow_batches"] != bow_batches:
+        raise AssertionError(f"SLAM: {rec['bow_batches']} BoW scoring batches, "
+                             f"the trajectory gives {bow_batches}")
+    if launches != rec["launches_expected"]:
+        raise AssertionError(f"SLAM: launches {launches}, expected {rec['launches_expected']}")
+    return rec, system
+
+
+def _edge_sampler(i, num_hypotheses):
+    """sampler_for_edge drawing on the CPU and moving the sets to the slots'
+    device, so the card and the CPU measure an edge from the same sets."""
+    import torch
+
+    from stereo_orb_slam_torch.frontend import ransac
+
+    gen = torch.Generator()
+    gen.manual_seed(1000 + i)
+    cpu_sample = ransac.gumbel_sampler(gen, num_hypotheses)
+    return lambda valid: cpu_sample(valid.cpu()).to(valid.device)
+
+
+def phase_slam_devices(system, device="cuda", reference_device="cpu"):
+    """The SLAM path's pieces, the card against the CPU, on the phase's own
+    data: the vocabulary assignment (the hamming_top2 kernel against its
+    plain version, bit for bit, and timed); batch_score_update on 4 recorded
+    frames against the final database (ids identical, scores within
+    SLAM_SCORE_ATOL); the loop-edge batch over the committed edges with the
+    same sets (flags and inlier counts identical, Z within
+    SLAM_EDGE_Z_ATOL); pg_solve on the final graph after 1 and 10 GN steps
+    (SLAM_PG_ONE_STEP, SLAM_PG_SOLVE). The edge batch and the pose graph run
+    again with TF32 left on, the control."""
+    import copy
+
+    import torch
+
+    from stereo_orb_slam_torch.apps import slam
+    from stereo_orb_slam_torch.backend import pose_graph
+    from stereo_orb_slam_torch.config import PoseGraphConfig
+    from stereo_orb_slam_torch.geometry import camera, se3
+    from stereo_orb_slam_torch.loop import vocab as vocab_mod
+    from stereo_orb_slam_torch.ops.kernels import hamming
+
+    rec = {}
+    system.sync_feature_banks()
+    world = system.world
+    nf = world.num_frames
+    voc = system.vocab
+    banks = system.vo.last_banks
+    # Vocabulary assignment at the live loop's shape (one frame's 1024 slots
+    # against the 1024 words) and at the training corpus's.
+    ones = torch.ones(voc.num_words, dtype=torch.bool, device=device)
+    q = banks[0][nf - 1].contiguous()
+    corpus = banks[0][:SLAM_VOCAB_FRAMES][banks[1][:SLAM_VOCAB_FRAMES]].contiguous()
+    err = 0.0
+    for name, desc in (("frame", q), ("corpus", corpus)):
+        got = hamming.hamming_top2(desc, voc.centroids, ones)
+        want = hamming.hamming_top2_plain(desc, voc.centroids, ones)
+        torch.cuda.synchronize()
+        err = max(err, _check_equal(f"assign_words ({name})", got, want))
+    valid_q = torch.ones(q.shape[0], dtype=torch.bool, device=device)
+    ms = time_device(lambda: vocab_mod.assign_words(q, valid_q, voc.centroids))
+    plain_ms = time_device(lambda: hamming.hamming_top2_plain(q, voc.centroids, ones))
+    rec["assign_words"] = {"match": True, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "shape": f"N={q.shape[0]} against W={voc.num_words}; corpus "
+                                    f"N={corpus.shape[0]}"}
+    log(f"assign_words (hamming_top2 against the words): bit for bit at N = {q.shape[0]} "
+        f"and N = {corpus.shape[0]}; {ms * 1e3:.2f} us device with its masks, plain "
+        f"{plain_ms * 1e3:.2f} us")
+
+    # BoW scoring + append of 4 recorded frames against the final database.
+    db, db_size = system.loop.database, system.loop.db_size
+    rows = list(range(nf - 4, nf))
+    args = (banks[0][rows], banks[1][rows], torch.ones(4, dtype=torch.bool, device=device),
+            voc.centroids, voc.idf, db, torch.tensor(db_size - 4, device=device))
+    out = {}
+    for dev in (device, reference_device):
+        a = [x.to(dev) if isinstance(x, torch.Tensor) else x for x in args]
+        out[dev] = [t.cpu() for t in vocab_mod.batch_score_update(*a, query_size=4)]
+    (ig, sg, dg), (ir, sr, dr) = out[device], out[reference_device]
+    s_err, d_err = float((sg - sr).abs().max()), float((dg - dr).abs().max())
+    ms = time_call(lambda: vocab_mod.batch_score_update(*args, query_size=4), iters=50)
+    rec["batch_score_update"] = {"ids_equal": bool(torch.equal(ig, ir)), "score_err": s_err,
+                                 "database_err": d_err, "ms": ms,
+                                 "shape": f"K=4 against {db_size - 4} of {db.shape[0]} rows"}
+    log(f"batch_score_update (K = 4, {db_size - 4} database rows of {db.shape[0]}): ids "
+        f"equal {rec['batch_score_update']['ids_equal']}, scores max diff {s_err:.3g}, rows "
+        f"{d_err:.3g}; {ms * 1e3:.1f} us per call")
+    if not torch.equal(ig, ir) or s_err > SLAM_SCORE_ATOL or d_err > SLAM_SCORE_ATOL:
+        raise AssertionError("batch_score_update: the card and the CPU disagree")
+
+    # The loop-edge batch with the same sets: 16 committed edges (the same
+    # view twice: exact duplicates) and 16 with src one frame on (a real
+    # one-step transform).
+    committed = system.pgo.committed_edges[:16]
+    edges = committed + [(s + 1, d) for s, d in committed]
+    rig_c = system.rig
+    rig_r = camera.StereoRig(*(type(c)(*(t.to(reference_device) for t in c))
+                               for c in (rig_c.left, rig_c.right)),
+                             rig_c.rectified, rig_c.baseline.to(reference_device))
+    readings = {}
+    for name, rig, ctx in (("card", rig_c, contextlib.nullcontext),
+                           ("cpu", rig_r, contextlib.nullcontext),
+                           ("card_tf32", rig_c, _tf32_left_on)):
+        w = copy.deepcopy(world)
+        m = slam.make_loop_matcher(w, rig, system.cfg, sampler_for_edge=lambda i: _edge_sampler(
+            i, system.cfg.ransac.num_hypotheses))
+        with ctx():
+            if name == "card":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            res = m.batch(edges)
+            if name == "card":
+                edge_ms = (time.perf_counter() - t0) * 1e3
+        readings[name] = (res, m.last, w.point_parent[: w.num_points].copy())
+    (rc, lc, pc), (rr, lr, pr) = readings["card"], readings["cpu"]
+
+    def z_err(a, b):
+        return max((float(np.abs(za - zb).max()) for (za, oka), (zb, _) in zip(a, b) if oka),
+                   default=0.0)
+
+    rec["loop_edges"] = {"edges": len(edges), "ok": sum(lc["ok"]), "ms": edge_ms,
+                         "flags_equal": lc["ok"] == lr["ok"],
+                         "inliers_equal": lc["num_inliers"] == lr["num_inliers"],
+                         "merges_equal": bool(np.array_equal(pc, pr)),
+                         "z_err": z_err(rc, rr), "z_err_tf32": z_err(readings["card_tf32"][0], rr),
+                         "inliers_equal_tf32":
+                             readings["card_tf32"][1]["num_inliers"] == lr["num_inliers"]}
+    le = rec["loop_edges"]
+    log(f"loop-edge batch ({le['edges']} edges, {le['ok']} measured): {edge_ms:.1f} ms on the "
+        f"card; card vs CPU flags equal {le['flags_equal']}, inliers equal "
+        f"{le['inliers_equal']}, merges equal {le['merges_equal']}, Z max diff "
+        f"{le['z_err']:.3g} (TF32 on: {le['z_err_tf32']:.3g}, inliers equal "
+        f"{le['inliers_equal_tf32']})")
+    if not (le["flags_equal"] and le["inliers_equal"] and le["merges_equal"]
+            and le["z_err"] <= SLAM_EDGE_Z_ATOL):
+        raise AssertionError("loop-edge batch: the card and the CPU disagree")
+
+    # pg_solve on the final graph (the finish() solve's input), its free
+    # poses perturbed by 2 cm / 2 mrad (seeded): the tracked graph is
+    # consistent already, so unperturbed it barely moves.
+    prob = system.pgo.last_problem
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(7)
+    xi = torch.randn((prob.poses.shape[0], 6), generator=gen) * torch.tensor(
+        [2e-3] * 3 + [2e-2] * 3)
+    xi = (xi * prob.vertex_mask.cpu()[:, None]).to(device)
+    prob = prob._replace(poses=prob.poses @ se3.se3_exp(xi))
+    pg = {}
+    for iters in (1, 10):
+        cfg = PoseGraphConfig(iterations=iters)
+        outs = {}
+        for name, dev, ctx in (("card", device, contextlib.nullcontext),
+                               ("cpu", reference_device, contextlib.nullcontext),
+                               ("card_tf32", device, _tf32_left_on)):
+            with ctx():
+                p, c0, c1 = pose_graph.pg_solve(pose_graph.PoseGraphProblem(
+                    *(t.to(dev) for t in prob)), cfg)
+                outs[name] = (p.poses.cpu().double(), float(c0), float(c1))
+        ref = outs["cpu"][0]
+        for name in ("card", "card_tf32"):
+            P = outs[name][0]
+            pg[f"{name}_{iters}"] = {
+                "rotation": float((P[:, :3, :3] - ref[:, :3, :3]).abs().max()),
+                "translation": float((P[:, :3, 3] - ref[:, :3, 3]).abs().max()),
+                "cost_rel": abs(outs[name][2] - outs["cpu"][2]) / max(abs(outs["cpu"][2]), 1e-30)}
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(pose_graph.pg_solve(prob, PoseGraphConfig())[2])  # its one readback
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pose_graph.pg_solve(prob, PoseGraphConfig())
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    pg.update(ms=statistics.median(times), launches=sum(e.count for e in kernels),
+              device_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+              vertices=prob.poses.shape[0], edges=prob.edge_a.shape[0])
+    log(f"pg_solve ({pg['vertices']} vertices, {pg['edges']} edges, 10 GN steps of 200 "
+        f"CG): {pg['ms']:.1f} ms wall (median of 3, readback included), "
+        f"{pg['launches']} launches, {pg['device_ms']:.2f} ms device; card vs CPU "
+        + "; ".join(f"{k} rot {v['rotation']:.3g} trans {v['translation']:.3g} cost "
+                    f"{v['cost_rel']:.3g}" for k, v in pg.items() if isinstance(v, dict)))
+    rec["pg_solve"] = pg
+    for iters, (rb, tb) in ((1, SLAM_PG_ONE_STEP), (10, SLAM_PG_SOLVE)):
+        g = pg[f"card_{iters}"]
+        if not (g["rotation"] <= rb and g["translation"] <= tb):
+            raise AssertionError(f"pg_solve ({iters} steps): the card and the CPU disagree "
+                                 f"beyond {rb} / {tb}: {g}")
+    return rec
+
+
+def phase_slam_first_call(device="cuda"):
+    """The closure path's first use in a process: pose_graph.warm_up (the
+    one-time cost of PyTorch's first forward-mode product, which
+    PoseGraphOptimizer pays when it is built), then two pg_solve calls on a
+    small graph (a chain of 32 poses with one loop edge)."""
+    import torch
+
+    from stereo_orb_slam_torch.backend import pose_graph
+    from stereo_orb_slam_torch.config import PoseGraphConfig
+
+    t0 = time.perf_counter()
+    pose_graph.warm_up()
+    warm_s = time.perf_counter() - t0
+
+    n = 32
+    poses = torch.eye(4, device=device).repeat(n, 1, 1)
+    poses[:, 0, 3] = torch.arange(n, device=device, dtype=torch.float32) * 0.2
+    ea = torch.cat([torch.arange(n - 1), torch.tensor([n - 1])]).to(device)
+    eb = torch.cat([torch.arange(1, n), torch.tensor([0])]).to(device)
+    meas = torch.linalg.inv(poses[ea]) @ poses[eb]
+    vm = torch.ones(n, device=device)
+    vm[0] = 0.0
+    prob = pose_graph.PoseGraphProblem(poses, ea, eb, meas, torch.ones(n, device=device), vm)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(pose_graph.pg_solve(prob, PoseGraphConfig())[2])
+        times.append(time.perf_counter() - t0)
+    log(f"pose_graph.warm_up (first forward mode in the process, on the CPU): {warm_s:.2f} s; "
+        f"then pg_solve on the card, first call {times[0]:.2f} s, second {times[1]:.2f} s "
+        f"({n} vertices)")
+    return {"warm_up_s": warm_s, "first_s": times[0], "second_s": times[1]}
+
+
+def phase_slam_profile(seq, path, warm=40, frames=20):
+    """Where a SLAM frame's time goes: `frames` process_batch calls (K = 1)
+    on the card under torch.profiler after `warm` calls off the record (the
+    vocabulary trains at frame 12), then one pose-graph solve of that
+    system's graph. Writes the breakdown to `path` as JSON."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_orb_slam_torch.apps.slam import SlamSystem
+    from stereo_orb_slam_torch.backend import pose_graph
+    from stereo_orb_slam_torch.io import calib, datasets
+
+    pairs = datasets.load_dataset("kitti", seq)[: warm + frames]
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    system = SlamSystem(calib.load_camera(os.path.join(seq, "calib.txt")))
+    up = [(torch.from_numpy(a.astype(np.uint8))[None].cuda(),
+           torch.from_numpy(b.astype(np.uint8))[None].cuda()) for a, b in imgs]
+    for il, ir in up[:warm]:
+        system.process_batch(il, ir)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for il, ir in up[warm:]:
+            system.process_batch(il, ir)
+        system.flush()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report = {"slam_frames": _device_summary(prof, wall_ms, frames, unit="frame")}
+    system.pgo.optimize(run_global_ba=False)
+    prob = system.pgo.last_problem
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p, _, c = pose_graph.pg_solve(prob, system.pgo.cfg)
+        float(c)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report["pg_solve"] = _device_summary(prof, wall_ms, 1, unit="solve")
+    report["pg_solve"]["graph"] = {"vertices": prob.poses.shape[0], "edges": prob.edge_a.shape[0]}
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1)
+    for name, per, count in (("slam_frames", "frame", frames), ("pg_solve", "solve", 1)):
+        rep = report[name]
+        top = ", ".join(f"{k['name'][:40]} {k[f'device_us_per_{per}']:.1f} us"
+                        for k in rep["kernels"][:6])
+        log(f"SLAM profile, {name}: {rep['wall_ms'] / count:.2f} ms wall per {per}, device "
+            f"busy {rep['device_busy_ms'] / count:.3f} ms (idle share "
+            f"{rep['device_idle_share']:.3f}), {rep[f'device_launches_per_{per}']:.0f} "
+            f"launches per {per}; top: {top}")
+    log(f"SLAM profile breakdown in {path}")
+
+
 def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile 20 frames of the main path (breakdown written to "
-                         "PATH) and 3 LM iterations of a window and of the map problem "
-                         "(written to PATH with _ba before the extension)")
+                         "PATH), 3 LM iterations of a window and of the map problem "
+                         "(PATH with _ba before the extension) and 20 SLAM frames and a "
+                         "pose-graph solve (_slam)")
     args = ap.parse_args(argv)
     phase_card()
     sys.path.insert(0, os.path.join(ROOT, "tests"))  # synth, synth_ba
@@ -1076,23 +1481,54 @@ def main(argv=None):
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    phase_build()
-    records, floor_ms = phase_kernels(rng)
+    seconds = {}
+
+    def timed(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = time.perf_counter() - t
+        log(f"[{name}: {seconds[name]:.1f} s]")
+        return out
+
+    timed("build", phase_build)
+    records, floor_ms = timed("kernels", phase_kernels, rng)
     with tempfile.TemporaryDirectory() as tmp:
-        seq, gt = _render_sequence(tmp, N_FRAMES)
-        phase_cuda_vs_cpu(seq)
-        summary, launches = phase_main_path(seq, gt, os.path.join(tmp, "vo_out"))
-        oriented = phase_oriented(seq, gt)
-        ba_world, tracking, window = phase_ba_tracking(seq, gt)
-        ba = {"tracking": tracking, "cuda_vs_cpu": phase_ba_devices(seq, window),
-              "refine": phase_ba_refine(seq, gt, ba_world, tmp),
-              "recovery": phase_ba_recovery(seq, gt, ba_world),
-              "banded": phase_ba_banded(), "map": phase_ba_map()}
+        seq, gt = timed("render", _render_sequence, tmp, N_FRAMES)
+        timed("cuda_vs_cpu", phase_cuda_vs_cpu, seq)
+        summary, launches = timed("main_path", phase_main_path, seq, gt,
+                                  os.path.join(tmp, "vo_out"))
+        oriented = timed("oriented", phase_oriented, seq, gt)
+        ba_world, tracking, window = timed("ba_tracking", phase_ba_tracking, seq, gt)
+        ba = {"tracking": tracking,
+              "cuda_vs_cpu": timed("ba_devices", phase_ba_devices, seq, window),
+              "refine": timed("ba_refine", phase_ba_refine, seq, gt, ba_world, tmp),
+              "recovery": timed("ba_recovery", phase_ba_recovery, seq, gt, ba_world),
+              "banded": timed("ba_banded", phase_ba_banded),
+              "map": timed("ba_map", phase_ba_map)}
+        slam_seq, slam_gt = timed("render_slam", _render_sequence, os.path.join(tmp, "slam"),
+                                  len(SLAM_STEPS), SLAM_STEPS)
+        first_call = timed("slam_first_call", phase_slam_first_call)
+        slam_runs = {}
+        for k in (1, 4):
+            slam_runs[k], system = timed(f"slam_k{k}", phase_slam, slam_seq, slam_gt,
+                                         os.path.join(tmp, f"slam_out_{k}"), k)
+            if k == 1:
+                slam_devices = timed("slam_devices", phase_slam_devices, system)
+            del system
+        gap = abs(slam_runs[4]["ate_m"] - slam_runs[1]["ate_m"])
+        log(f"SLAM --batch_frames 4 against 1: ATE {slam_runs[4]['ate_m']:.5f} / "
+            f"{slam_runs[1]['ate_m']:.5f} m, gap {gap:.3g} m")
+        if not gap <= 1e-3:
+            raise AssertionError("SLAM: --batch_frames 4 and 1 differ in ATE by more than "
+                                 "1e-3 m")
         if args.profile:
-            phase_profile(seq, args.profile)
             root, ext = os.path.splitext(args.profile)
-            phase_ba_profile(seq, window, f"{root}_ba{ext or '.json'}")
-    paths = {"main": launches, "oriented": oriented, "ba_tracking": tracking["launches"]}
+            timed("profile", phase_profile, seq, args.profile)
+            timed("profile_ba", phase_ba_profile, seq, window, f"{root}_ba{ext or '.json'}")
+            timed("profile_slam", phase_slam_profile, slam_seq,
+                  f"{root}_slam{ext or '.json'}")
+    paths = {"main": launches, "oriented": oriented, "ba_tracking": tracking["launches"],
+             "slam": slam_runs[1]["launches"], "slam_batch4": slam_runs[4]["launches"]}
     for r in records:
         r["launches"] = paths[r["path"]][r["name"]]
         r["launches_by_path"] = {p: ls[r["name"]] for p, ls in paths.items()}
@@ -1100,6 +1536,11 @@ def main(argv=None):
                                                           "ate_m")},
                     "launch_floor_ms": floor_ms}))
     log(json.dumps({"ba": ba}))
+    log(json.dumps({"slam": {str(k): {key: v for key, v in r.items() if key != "timers"}
+                             for k, r in slam_runs.items()},
+                    "slam_timers": slam_runs[1]["timers"], "slam_devices": slam_devices,
+                    "slam_first_call": first_call}, default=float))
+    log(json.dumps({"phase_seconds": seconds}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

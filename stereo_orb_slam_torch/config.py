@@ -1,13 +1,15 @@
 """Typed configuration of the front end and bundle adjustment (PyTorch port).
 
-A copy of the front-end, RANSAC and BA dataclasses of the JAX package's
-`config.py`, with the same fields and defaults, so that both packages run
-the same configuration. Frozen dataclasses stay hashable. The pose-graph,
-loop and SLAM configurations follow with the slices that use them.
+A copy of the dataclasses of the JAX package's `config.py` (front end,
+RANSAC, BA, pose graph, loop detection and the SLAM wiring), with the same
+fields and defaults, so that both packages run the same configuration.
+Frozen dataclasses stay hashable. The JAX package's
+`BAConfig.dense_assemble_bf16` is not carried (see `convert.ba_config_from`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 
@@ -139,3 +141,122 @@ class BAConfig:
     # expansion. Exact same math when feasible.
     banded_schur: bool = True
     banded_max_width: int = 128
+
+
+@dataclass(frozen=True)
+class PoseGraphConfig:
+    """SE(3) pose-graph Gauss-Newton.
+
+    Reference: g2o setup at ref `src/pose_graph_optimizer.cpp:14-27`, 10
+    iterations at ref `src/pose_graph_optimizer.cpp:69`.
+    """
+
+    iterations: int = 10
+    # Information matrix: identity with the translation block scaled to 0.01
+    # (ref src/pose_graph_optimizer.cpp:23-26; g2o EdgeSE3 orders error as
+    # [translation, rotation]).
+    info_translation: float = 0.01
+    info_rotation: float = 1.0
+    huber_delta: float = 1.0
+    # Gauss-Newton damping for robustness (reference uses g2o Levenberg).
+    damping: float = 1e-6
+    cg_iterations: int = 200
+    cg_tol: float = 1e-8
+    # Wall cap for the global BA a LIVE (mid-run, loop-exit) pose-graph
+    # solve triggers — the reference's Ceres max_solver_time_in_seconds
+    # (1 s, ref src/params.h:41 via pose_graph_optimizer.cpp:95): a loop
+    # closure must never blank more than ~1 s of the live loop; the solve
+    # returns best-so-far. End-of-sequence solves are uncapped here (they
+    # honor BAConfig.max_solve_seconds instead).
+    live_ba_max_seconds: float = 1.0
+    # Frame extent of that LIVE post-closure refinement. The reference
+    # global-BAs the whole map mid-run under the same 1 s Ceres cap — at
+    # deep-sequence scale that buys roughly one LM iteration while costing
+    # a full giant-problem build (the r4 endurance trace measured a
+    # multi-minute stall in exactly this call). Bounding the live solve to
+    # the trailing window keeps the stall within the cap at ANY sequence
+    # length; the full-map polish still runs at finish() (ref
+    # slam.cpp:152-156). 0 = whole map (reference cadence). 64 keeps the
+    # live refinement inside the dense-Schur gate EVEN when feature tracks
+    # span the entire window (K = pow2(track length) multiplies the slot
+    # count; at 64 frames P_pad*K stays under dense_schur_max_slots).
+    live_ba_window_frames: int = 64
+    # Minimum frame spacing between LIVE polish BAs: sustained revisits
+    # make the Bayes filter exit/re-enter loops every few dozen frames
+    # (29 episodes over the 1,200-frame canyon), and consecutive polishes
+    # over the same live_ba_window are redundant by construction — the
+    # pose graph has already applied each closure's correction, and
+    # finish() runs the full-depth solve. 0 = polish after every closure
+    # (reference cadence, ref pose_graph_optimizer.cpp:95).
+    live_polish_min_spacing_frames: int = 32
+    # Candidate loop edges measured per LIVE closure (most recent kept).
+    # A long revisit queues one candidate per frame (375 in the r4
+    # endurance drive); they are massively redundant — consecutive frames
+    # of the same revisit — and each one costs matcher+RANSAC work inside
+    # the stall. The reference measures every queued candidate serially
+    # (ref pose_graph_optimizer.cpp:175-217) and would stall far longer.
+    # 0 = measure all (reference cadence). Final (finish) solves always
+    # measure everything still queued.
+    live_max_edges: int = 128
+
+
+@dataclass(frozen=True)
+class LoopConfig:
+    """Bag-of-words place recognition + Bayesian loop filter.
+
+    Reference: ref `src/params.h:54-81` and ref `src/loop_detector.cpp`.
+    """
+
+    query_size: int = 4              # ref src/params.h:54
+    adjacent_frame_thresh: int = 5   # ref src/params.h:57
+    distant_frame_thresh: int = 50   # ref src/params.h:60
+    score_window: int = 5            # ref src/params.h:63
+    match_probability_thresh: float = 0.5   # ref src/params.h:66
+    is_loop_thresh: float = 0.9      # ref src/params.h:69
+    not_loop_thresh: float = 0.1     # ref src/params.h:72
+    decay_rate: float = 0.75         # ref src/params.h:75
+    min_loop_probability: float = 0.005  # ref src/params.h:78
+    max_loop_probability: float = 0.995  # ref src/params.h:81
+    # Score-likelihood prior. The reference stubs ScoreProbability() to 0.5
+    # (ref src/loop_detector.cpp:167-170); we keep that behavior by default
+    # and document it as a quirk.
+    score_probability: float = 0.5
+    # Flat vocabulary size (replaces the DBoW2 k^d tree: the reference uses
+    # branching 9 / depth 3 = 729 leaves, ref src/loop_detector.cpp:9-10).
+    # Flat nearest-word assignment is one top-1 Hamming search (the
+    # hamming_top2 kernel, the words as its train set).
+    vocab_words: int = 1024
+    vocab_iterations: int = 8
+    # Capacity of the BoW database (frames), grown by re-allocation.
+    database_capacity: int = 8192
+
+
+@dataclass(frozen=True)
+class SlamConfig:
+    """Top-level pipeline wiring (the gflags tier, ref src/slam.cpp:31-35)."""
+
+    frontend: FrontendConfig = FrontendConfig()
+    ransac: RansacConfig = RansacConfig()
+    ba: BAConfig = BAConfig()
+    pose_graph: PoseGraphConfig = PoseGraphConfig()
+    loop: LoopConfig = LoopConfig()
+    # Sliding-window BA cadence: every `refine_interval` frames optimize the
+    # last 2*refine_interval frames (ref src/slam.cpp:34,126-129).
+    refine_interval: int = 10
+    # Per-frame single-pose BA (landmark-only refine since the lone pose is
+    # held fixed; ref src/slam.cpp:123 + src/bundle_adjuster.cpp:113).
+    per_frame_ba: bool = True
+    # Frames per device dispatch in the live loop (SlamSystem.process_batch):
+    # 1 = the reference cadence (one Track/BA/Query per frame); >1 batches
+    # K frames into one front-end chain + one BoW scoring + one BA solve.
+    batch_frames: int = 1
+    # LM iteration budget for the live-loop (batched) BA solves. The
+    # reference effectively runs min(50 iterations, 1 s wall) per solve
+    # (ref src/params.h:34,41); windowed refinement converges in far fewer
+    # iterations, and the live loop's latency budget is the binding
+    # constraint. finish()/global BA keep the full 50.
+    live_ba_iterations: int = 12
+    output_suffix: str = "slam"
+
+    def replace(self, **kw) -> "SlamConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,10 +1,11 @@
 """Carry state and tables from NumPy into the port's tensors.
 
 The JAX package's objects, fetched to the host as NumPy arrays (camera rigs,
-per-frame slots, sampling tables, BA problems and configs), become the
-port's objects here, so two runs can start from the same rig, the same
-previous-frame state or the same BA problem. Descriptor words arrive as
-uint32 and are kept as int32 tensors holding the same bit patterns.
+per-frame slots, sampling tables, BA problems, vocabularies, loop databases
+and configs), become the port's objects here, so two runs can start from
+the same rig, the same previous-frame state, the same BA problem or the
+same vocabulary. Descriptor words arrive as uint32 and are kept as int32
+tensors holding the same bit patterns.
 """
 
 from __future__ import annotations
@@ -15,9 +16,12 @@ import numpy as np
 import torch
 
 from stereo_orb_slam_torch.backend.ba import BAProblem
-from stereo_orb_slam_torch.config import BAConfig
+from stereo_orb_slam_torch.config import (
+    BAConfig, FrontendConfig, LoopConfig, PoseGraphConfig, RansacConfig, SlamConfig,
+)
 from stereo_orb_slam_torch.frontend.odometer import FrameSlots
 from stereo_orb_slam_torch.geometry.camera import Pinhole, StereoRig
+from stereo_orb_slam_torch.loop.vocab import OrbVocabulary
 
 _PINHOLE_FIELDS = Pinhole._fields
 
@@ -92,3 +96,37 @@ def ba_config_from(cfg) -> BAConfig:
     if values.get("dense_assemble_bf16"):
         raise ValueError("the port has no bfloat16 Schur assembly (dense_assemble_bf16)")
     return BAConfig(**{f.name: values[f.name] for f in dataclasses.fields(BAConfig)})
+
+
+def _dataclass_from(cls, cfg):
+    values = dataclasses.asdict(cfg)
+    return cls(**{f.name: values[f.name] for f in dataclasses.fields(cls)})
+
+
+def slam_config_from(cfg) -> SlamConfig:
+    """The port's SlamConfig with the field values of `cfg`, a dataclass
+    with SlamConfig's fields and nested configs (the JAX package's
+    SlamConfig). Refuses what `ba_config_from` refuses."""
+    nested = {"frontend": FrontendConfig, "ransac": RansacConfig,
+              "pose_graph": PoseGraphConfig, "loop": LoopConfig}
+    values = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(SlamConfig)}
+    for name, cls in nested.items():
+        values[name] = _dataclass_from(cls, values[name])
+    values["ba"] = ba_config_from(values["ba"])
+    return SlamConfig(**values)
+
+
+def vocabulary_from_numpy(centroids_u32, idf, device="cuda") -> OrbVocabulary:
+    """An OrbVocabulary from its weights: centroids uint32 [W, 8] and idf
+    float32 [W] (the arrays of the JAX package's vocabulary.npz)."""
+    return OrbVocabulary(np.asarray(centroids_u32, np.uint32), np.asarray(idf, np.float32),
+                         device)
+
+
+def loop_database_from_numpy(database, db_size: int, device="cuda") -> torch.Tensor:
+    """A loop detector's BoW database rows [capacity, W] float32 as the
+    port's tensor (a JAX LoopDetector's `database`, fetched to the host);
+    rows at and past `db_size` are zeroed, as unused rows are."""
+    rows = np.array(database, np.float32)
+    rows[db_size:] = 0.0
+    return torch.as_tensor(rows, device=device)

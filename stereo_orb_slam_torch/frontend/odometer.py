@@ -22,6 +22,14 @@ Behaviour kept from the JAX package (and the reference):
 The minimal-set sampler of frame i is `sampler_for_frame(i)`, by default a
 Gumbel sampler on a generator seeded from (seed, i), so `track_batch` and K
 `track` calls see the same draws.
+
+The live loop (apps/slam.py) runs K-frame batches as a two-deep pipeline:
+`dispatch_batch` launches a batch's chain (with the BoW scoring and the
+feature-bank rings of `frontend_chain_bow` once a vocabulary exists) while
+the tracker state threads on the device, and `collect_batch` reads it back
+and replays the host bookkeeping. After a collected batch the previous
+frame's slots (descriptors included) are the device carry, so a switch to
+`track` finds them even when the host mirror kept no descriptors.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
 from stereo_orb_slam_torch.frontend import ransac
 from stereo_orb_slam_torch.geometry import camera as cam_mod
+from stereo_orb_slam_torch.loop.vocab import batch_score_update
 from stereo_orb_slam_torch.ops import detect, match, orb
 from stereo_orb_slam_torch.worldmap import WorldMap
 
@@ -209,11 +218,58 @@ def frontend_chain(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, samplers,
     return (prev, initialized), stacked
 
 
-def _to_host(res: StepResult) -> StepResult:
+def empty_banks(capacity: int, n: int, device="cuda"):
+    """Feature-bank rings for `capacity` frames of n slots: descriptors
+    [capacity + 1, n, 8] int32, validity [capacity + 1, n] bool and ideal
+    stereo observations [capacity + 1, n, 4] float32. Row f holds frame f;
+    the last row is scratch, written by the frames that are not recorded."""
+    return (torch.zeros((capacity + 1, n, 8), dtype=torch.int32, device=device),
+            torch.zeros((capacity + 1, n), dtype=torch.bool, device=device),
+            torch.zeros((capacity + 1, n, 4), dtype=torch.float32, device=device))
+
+
+def frontend_chain_bow(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, samplers,
+                       rig, max_distance, fe: FrontendConfig, rc: RansacConfig,
+                       rectified, steer, centroids, idf, database, db_size,
+                       query_size: int, banks):
+    """frontend_chain + the K frames' BoW scoring and database append
+    (loop/vocab.batch_score_update), all launched with no host sync: the
+    per-batch hot path of ref `src/slam.cpp:108-134` (Track + loop
+    Query/Track). `recorded` is derived on the device from the state
+    machine that the host replays (the num_stereo gate).
+
+    The recorded frames' feature banks (descriptors, validity, ideal stereo
+    observations) are written into the rings `banks` (see empty_banks) at
+    row db_size + #recorded-before, the database's row rule, so ring rows,
+    database rows and world frame ids agree; the loop-edge matcher gathers
+    them there. The rings are written in place (rows only ever appended;
+    unrecorded frames write the scratch row); the database is a new tensor.
+
+    Returns (carry, stacked StepResult, top_ids [K, q] int32, top_scores
+    [K, q], new_database, new_db_size (0-d), banks)."""
+    carry, res = frontend_chain(imgs_l, imgs_r, prev, prev_initialized, samplers, rig,
+                                max_distance, fe, rc, rectified, steer)
+    recorded = res.num_stereo >= fe.min_stereo_matches
+    top_ids, top_scores, new_db = batch_score_update(
+        res.slots.desc, res.slots.valid, recorded, centroids, idf, database, db_size,
+        query_size=query_size)
+    rec_i = recorded.to(torch.int64)
+    new_db_size = db_size + torch.sum(rec_i)
+    rows = db_size + torch.cumsum(rec_i, 0) - rec_i
+    safe_rows = torch.where(recorded, rows, banks[0].shape[0] - 1)
+    uv4 = torch.cat([res.slots.kp_l, res.slots.kp_r], dim=-1)
+    for ring, vals in zip(banks, (res.slots.desc, res.slots.valid, uv4)):
+        ring[safe_rows] = vals
+    return carry, res, top_ids, top_scores, new_db, new_db_size, banks
+
+
+def _to_host(res: StepResult, with_desc: bool = True) -> StepResult:
     """NumPy copy of a (possibly stacked) StepResult; descriptor words come
-    back as uint32."""
-    slots = FrameSlots(*(t.cpu().numpy() for t in res.slots))
-    slots = slots._replace(desc=slots.desc.view(np.uint32))
+    back as uint32, or not at all (desc None) when `with_desc` is False."""
+    slots = FrameSlots(*(t.cpu().numpy() if (name != "desc" or with_desc) else None
+                         for name, t in zip(FrameSlots._fields, res.slots)))
+    if with_desc:
+        slots = slots._replace(desc=slots.desc.view(np.uint32))
     return StepResult(slots, *(t.cpu().numpy() for t in res[1:]))
 
 
@@ -262,8 +318,20 @@ class VisualOdometer:
         self.success = True
         self.frame_recorded = False
         self.last_result = None        # StepResult of the last track()
-        self.last_batch = None         # host StepResult of the last track_batch()
+        self.last_batch = None         # host StepResult of the last collected batch
         self.last_batch_recorded = []
+        self.last_new_database = None  # BoW database after the last fused batch
+        self.last_topk_ids = None      # [K, query_size] int32
+        self.last_topk_scores = None   # [K, query_size] float32
+        # Feature-bank rings as of the last collected batch: the loop-edge
+        # matcher's source (apps/slam.py).
+        self.last_banks = None
+        # (prev slots, initialized) on the device after the last dispatched
+        # batch; None when the host mirrors are current (after track() or at
+        # the start).
+        self._carry_dev = None
+        # (desc, uv4, point_ids, valid) of the latest recorded frame.
+        self._current_features = None
 
     def _gumbel_for_frame(self, frame: int) -> ransac.Sampler:
         gen = torch.Generator(device=self.device)
@@ -284,24 +352,79 @@ class VisualOdometer:
             self.rig, self.max_distance, self.fe, self.rc, self.rectified,
             self.steer,
         )
+        self._carry_dev = None  # the host mirrors are now ahead of the device
         return self._ingest(res)
 
-    def track_batch(self, imgs_l, imgs_r) -> list:
+    def track_batch(self, imgs_l, imgs_r, bow=None) -> list:
         """Process K stereo pairs: the K frame steps run back to back on the
         device with the swap/record state kept there, then one readback,
-        then the host replays the map bookkeeping of K `track` calls."""
+        then the host replays the map bookkeeping of K `track` calls. With
+        `bow` (see dispatch_batch) the K frames' BoW scoring runs with them."""
+        return self.collect_batch(self.dispatch_batch(imgs_l, imgs_r, bow))
+
+    def dispatch_batch(self, imgs_l, imgs_r, bow=None, banks=None) -> dict:
+        """Launch the K-frame chain; returns a handle for collect_batch. Does
+        not wait for the device: the tracker state threads on the device, so
+        the next batch can be launched before this one is collected (the
+        live loop's two-deep pipeline). Handles are collected in dispatch
+        order.
+
+        `bow` = (centroids, idf, database, db_size, query_size) adds the
+        frames' BoW scoring and database append (frontend_chain_bow), with
+        the feature-bank rings `banks` (throwaway rings at the database's
+        capacity when None)."""
         k = len(imgs_l)
         samplers = [self.sampler_for_frame(self._frame_counter + j) for j in range(k)]
         self._frame_counter += k
-        (prev, _), stacked = frontend_chain(
-            self._upload(imgs_l), self._upload(imgs_r), self.prev,
-            self.initialized, samplers, self.rig, self.max_distance, self.fe,
-            self.rc, self.rectified, self.steer,
-        )
-        self.last_batch = _to_host(stacked)
-        out = self._ingest_batch(self.last_batch, k)
-        self.prev = prev
+        if self._carry_dev is None:
+            self._carry_dev = (self.prev, torch.tensor(self.initialized, device=self.device))
+        args = (self._upload(imgs_l), self._upload(imgs_r), self._carry_dev[0],
+                self._carry_dev[1], samplers, self.rig, self.max_distance, self.fe,
+                self.rc, self.rectified, self.steer)
+        handle = {"k": k, "bow": None, "banks": None}
+        if bow is None:
+            carry, stacked = frontend_chain(*args)
+        else:
+            centroids, idf, database, db_size, query_size = bow
+            if banks is None:
+                banks = empty_banks(database.shape[0], self.fe.num_features, self.device)
+            db_size = torch.as_tensor(db_size, dtype=torch.int64, device=self.device)
+            carry, stacked, top_ids, top_scores, new_db, new_db_size, banks = (
+                frontend_chain_bow(*args, centroids, idf, database, db_size, query_size,
+                                   banks))
+            handle["bow"] = (new_db, new_db_size, query_size)
+            handle["banks"] = banks
+            handle["topk"] = (top_ids, top_scores)
+        self._carry_dev = carry
+        handle["carry"] = carry
+        handle["stacked"] = stacked
+        return handle
+
+    def collect_batch(self, handle: dict) -> list:
+        """Read a dispatch_batch handle's results back and replay the host
+        bookkeeping (map update, swap/record mirrors, loop top-k). On the
+        fused-BoW path the descriptors stay on the device (in the rings) and
+        the world's host descriptor mirror is marked stale."""
+        with_bow = handle["bow"] is not None
+        if with_bow:
+            self.last_new_database = handle["bow"][0]
+            self.last_banks = handle["banks"]
+            self.last_topk_ids = handle["topk"][0].cpu().numpy()
+            self.last_topk_scores = handle["topk"][1].cpu().numpy()
+        batch = _to_host(handle["stacked"], with_desc=not with_bow)
+        self.last_batch = batch
+        out = self._ingest_batch(batch, handle["k"])
+        # The device carry after this batch is the state the host replay
+        # reached (the same swap rule), and it keeps the descriptors.
+        self.prev = handle["carry"][0]
         return out
+
+    @property
+    def current_frame_features(self):
+        """Descriptor bank of the most recently recorded frame, (desc, uv4,
+        point_ids, valid), the reference's GetCurrFrameData (ref
+        visual_odometer.cpp:59-62); desc is None after a fused-BoW batch."""
+        return self._current_features
 
     def _host_points(self, slots: FrameSlots) -> np.ndarray:
         """Camera-frame points of host slots ([..., N] leading dims)."""
@@ -405,7 +528,13 @@ class VisualOdometer:
         # creation observation, compensated here as in the per-frame path.
         world.point_obs_count[gids_mat[newmask_mat].astype(np.int64)] -= 1
         world.set_frame_features_batch(
-            int(fids[0]), desc_b[jsel], uv4_mat, gids_mat.astype(np.int32), obs_mask_mat,
+            int(fids[0]), desc_b[jsel] if desc_b is not None else None, uv4_mat,
+            gids_mat.astype(np.int32), obs_mask_mat,
+        )
+        j_last = rec_info[-1][0]
+        self._current_features = (
+            desc_b[j_last] if desc_b is not None else None,
+            uv4_mat[-1], gids_mat[-1].astype(np.int32), obs_mask_mat[-1],
         )
         return out
 
@@ -480,4 +609,5 @@ class VisualOdometer:
         # them again: take the double count back.
         world.point_obs_count[gids[new_mask].astype(np.int64)] -= 1
         world.set_frame_features(fid, slots.desc, uv4, gids.astype(np.int32), obs_mask)
+        self._current_features = (slots.desc, uv4, gids.astype(np.int32), obs_mask)
         self._curr_global_idx = gids

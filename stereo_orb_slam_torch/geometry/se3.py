@@ -53,7 +53,7 @@ def so3_exp(w):
 def so3_log(R):
     """Rotation matrix -> angle-axis, through the quaternion (robust near pi)."""
     q = rotmat_to_quat(R)  # [..., 4] (w, x, y, z), w >= 0
-    qw = torch.clamp(q[..., 0], -1.0, 1.0)
+    qw = torch.clamp(q[..., :1], -1.0, 1.0)[..., 0]  # clamped with its dim (see above)
     qv = q[..., 1:]
     norm_qv = torch.linalg.vector_norm(qv, dim=-1, keepdim=True)
     theta = 2.0 * torch.atan2(norm_qv[..., 0], qw)[..., None]
@@ -83,9 +83,15 @@ def se3_log(T):
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     w = so3_log(R)
-    theta2, small, a, b = _sin_cos_terms(w)
+    theta2, small, a, _ = _sin_cos_terms(w)
     K = hat(w)
-    # V^-1 = I - K/2 + (1/theta^2)(1 - a/(2b)) K^2
+    # V^-1 = I - K/2 + (1/theta^2)(1 - a/(2b)) K^2, with b = (1 - cos t)/t^2
+    # taken as 2 sin^2(t/2)/t^2: in float32, cos t rounds to 1 for t up to
+    # about 3.4e-4 (above the Taylor branch's 1e-4), and 1 - cos t = 0 made
+    # the JAX package's coefficient -inf and v NaN there.
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    half = torch.sin(0.5 * theta)
+    b = 2.0 * half * half / theta2
     coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
                        (1.0 - a / (2.0 * b)) / theta2)
     Vinv = _eye3_like(K) - 0.5 * K + coef * (K @ K)
@@ -104,12 +110,12 @@ def matrix_to_pose6(T):
 
 
 def rt_to_matrix(R, t):
-    """(3x3, 3) -> 4x4 homogeneous, batched."""
-    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    """(3x3, 3) -> 4x4 homogeneous, batched. Built without writes in place,
+    so it runs under torch.func transforms (the pose graph's jacfwd/vmap)."""
+    top = torch.cat([R, t[..., None]], dim=-1)  # [..., 3, 4]
+    # [0, 0, 0, 1] made on the device (a host tensor would be a copy and a sync).
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:]
+    return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
 
 def inverse(T):
@@ -138,22 +144,21 @@ def rotmat_to_quat(R):
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
     tr = m00 + m11 + m22
 
-    qw2 = torch.clamp(1.0 + tr, min=0.0)
-    qx2 = torch.clamp(1.0 + m00 - m11 - m22, min=0.0)
-    qy2 = torch.clamp(1.0 - m00 + m11 - m22, min=0.0)
-    qz2 = torch.clamp(1.0 - m00 - m11 + m22, min=0.0)
-
-    sw = 0.5 * torch.sqrt(torch.clamp(qw2, min=_EPS))
-    sx = 0.5 * torch.sqrt(torch.clamp(qx2, min=_EPS))
-    sy = 0.5 * torch.sqrt(torch.clamp(qy2, min=_EPS))
-    sz = 0.5 * torch.sqrt(torch.clamp(qz2, min=_EPS))
+    # The clamps run on the stacked [..., 4] candidates: on a 0-d tensor,
+    # clamp's forward-mode derivative comes out float64 (torch.func.jacfwd,
+    # the pose graph's Jacobians).
+    q2 = torch.clamp(torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                                  1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1),
+                     min=0.0)
+    qw2, qx2, qy2, qz2 = q2.unbind(-1)
+    sw, sx, sy, sz = (0.5 * torch.sqrt(torch.clamp(q2, min=_EPS))).unbind(-1)
 
     qw_w = torch.stack([sw, (m21 - m12) / (4 * sw), (m02 - m20) / (4 * sw), (m10 - m01) / (4 * sw)], -1)
     qx_x = torch.stack([(m21 - m12) / (4 * sx), sx, (m01 + m10) / (4 * sx), (m02 + m20) / (4 * sx)], -1)
     qy_y = torch.stack([(m02 - m20) / (4 * sy), (m01 + m10) / (4 * sy), sy, (m12 + m21) / (4 * sy)], -1)
     qz_z = torch.stack([(m10 - m01) / (4 * sz), (m02 + m20) / (4 * sz), (m12 + m21) / (4 * sz), sz], -1)
 
-    best = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], -1), dim=-1)
+    best = torch.argmax(q2, dim=-1)
     q = torch.where((best == 0)[..., None], qw_w,
         torch.where((best == 1)[..., None], qx_x,
         torch.where((best == 2)[..., None], qy_y, qz_z)))

@@ -1,6 +1,7 @@
 """Stereo dataset enumeration: KITTI, EuRoC, and suffix-paired folders.
 
-A copy of the JAX package's `io/datasets.py` without its JAX upload reader.
+A copy of the JAX package's `io/datasets.py`; its device batch reader
+uploads with torch.
 
 Mirrors ref `src/dataset.cpp`:
 - KITTI: sorted listings of `image_0` / `image_1` (ref dataset.cpp:10-41).
@@ -152,3 +153,64 @@ class PrefetchingReader:
 
     def close(self):
         self._stop.set()
+
+
+class DeviceBatchReader:
+    """Background-thread reader that decodes K-frame batches, stacks them as
+    uint8 and uploads them to `device` from the reader thread, so decoding
+    and the host-to-device copy overlap the main thread's work. uint8 (the
+    camera's own type) moves a quarter of the bytes of float32; the front
+    end casts on the device.
+
+    `pairs` items are (path_l, path_r) or in-memory (img_l, img_r) arrays.
+    Full K-batches are yielded as [K, H, W] uint8 tensors on `device`; a
+    trailing remainder (< K frames) is left in `self.remainder` as host
+    pairs once the iteration ends.
+    """
+
+    def __init__(self, pairs, batch: int, depth: int = 2, device="cuda"):
+        import queue
+        import threading
+
+        self.pairs = pairs
+        self.batch = batch
+        self.device = device
+        self.remainder: list = []
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self.t = threading.Thread(target=self._worker, daemon=True)
+        self.t.start()
+
+    @staticmethod
+    def _load(item):
+        a, b = item
+        if isinstance(a, str):
+            a, b = read_grayscale(a), read_grayscale(b)
+        return (np.clip(a, 0, 255).astype(np.uint8), np.clip(b, 0, 255).astype(np.uint8))
+
+    def _worker(self):
+        import torch
+
+        buf_l, buf_r = [], []
+        try:
+            for item in self.pairs:
+                il, ir = self._load(item)
+                buf_l.append(il)
+                buf_r.append(ir)
+                if len(buf_l) == self.batch:
+                    dl = torch.from_numpy(np.stack(buf_l)).to(self.device)
+                    dr = torch.from_numpy(np.stack(buf_r)).to(self.device)
+                    buf_l, buf_r = [], []
+                    self.q.put((dl, dr))
+            self.remainder = list(zip(buf_l, buf_r))
+            self.q.put(None)
+        except BaseException as e:  # re-raised by the consuming thread
+            self.q.put(e)
+
+    def __iter__(self):
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item

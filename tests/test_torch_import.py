@@ -36,7 +36,9 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert "stereo_orb_slam_torch.frontend.odometer" in report["modules"]
     assert "stereo_orb_slam_torch.ops.kernels.hamming" in report["modules"]
     for name in ("backend.ba", "backend.schur_dense", "backend.residuals",
-                 "geometry.se3_np", "io.checkpoint", "apps.refine"):
+                 "geometry.se3_np", "io.checkpoint", "apps.refine",
+                 "loop", "loop.vocab", "loop.detector", "backend.pose_graph",
+                 "apps.slam", "apps.train_vocab", "utils.viz", "utils.profiling"):
         assert "stereo_orb_slam_torch." + name in report["modules"]
 
 
@@ -61,10 +63,14 @@ def test_entry_points_default_to_cuda():
     from stereo_orb_slam_torch import convert
     from stereo_orb_slam_torch.frontend import odometer
     from stereo_orb_slam_torch.geometry import camera
-    from stereo_orb_slam_torch.io import calib
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.loop import OrbVocabulary
     from stereo_orb_slam_torch.ops import orb
 
     for fn in (camera.Pinhole.create, calib.load_camera, calib.load_kitti_calib,
                calib.load_reference_format, odometer.empty_slots, orb.steer_table,
-               convert.ba_problem_from_numpy):
+               convert.ba_problem_from_numpy, odometer.empty_banks,
+               datasets.DeviceBatchReader, OrbVocabulary, OrbVocabulary.train,
+               OrbVocabulary.load, convert.vocabulary_from_numpy,
+               convert.loop_database_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
