@@ -65,10 +65,32 @@ Phases, each of which fails the run when it fails:
      batch_score_update, the loop-edge batch with the same RANSAC sets and
      pg_solve on the final graph, the last two with a TF32-on control, and
      the time of the first forward-mode use in a process;
-  8. with --profile PATH: a torch.profiler breakdown of 20 main-path frames
-     (to PATH), of 3 LM iterations of the last window and of the map
-     problem with device syncs counted (to PATH with _ba before the
-     extension), and of 20 SLAM frames and one pose-graph solve (_slam).
+  8. multi-sequence tracking (BASELINE.json config 4): first the
+     three kernels at batch 3 in one launch each, bit for bit against
+     their batched plain versions and against B = 1 launches (phase 3);
+     then `MultiSequenceSLAM` over S = 3 rendered sequences of 60 frames
+     at 376 x 1241 (MULTI_SEQ), against each sequence tracked alone by
+     `VisualOdometer` on the card: poses within MULTI_SEQ_POSE_ATOL, ATE
+     < 0.01 m per sequence, 1 hamming_top2, 2 orb_describe and 0
+     extract_patches launches per step; steps/s beside single-sequence
+     VO (after phase 5);
+  9. distribution (BASELINE.json config 5; after phase 7):
+     `DistributedBundleAdjuster` (both layouts) on the tracked world,
+     the point-aligned solve of the map problem (DIST_LM_ITERATIONS LM
+     iterations each) and `dist_pose_graph.solve` on phase 7's final
+     graph: at 1 NCCL rank in this process, bit for bit against the same
+     code with no process group and with the same device syncs; at 2 and
+     4 gloo ranks spawned on the card (the pose graph at 4), within the
+     DIST_* bounds of the single-process card solves, every rank's
+     replica the same; ms, all_reduces and bytes per LM iteration and
+     peak memory per rank. Then `apps.refine --distributed` under
+     torchrun (1 NCCL rank) and `apps.scaling_bench` at 1 NCCL rank;
+  10. with --profile PATH: a torch.profiler breakdown of 20 main-path
+     frames (to PATH), of 3 LM iterations of the last window and of the
+     map problem with device syncs counted (to PATH with _ba before the
+     extension), of 20 SLAM frames and one pose-graph solve (_slam), of 20
+     multi-sequence steps (_multi_seq) and of the distributed map solve
+     at 1 NCCL rank (_dist).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -76,6 +98,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -1465,6 +1488,569 @@ def phase_slam_profile(seq, path, warm=40, frames=20):
     log(f"SLAM profile breakdown in {path}")
 
 
+BATCH = 3   # the multi-sequence phase's sequences: KITTI 00, 02, 05 stand-ins
+
+
+def phase_batched_kernels(rng, batch=BATCH):
+    """The three kernels with a batch axis at B = `batch`, one launch each:
+    bit for bit against their batched plain versions and against a B = 1
+    launch on each slice, and timed beside the bound of B problems."""
+    import torch
+
+    from stereo_orb_slam_torch import convert
+    from stereo_orb_slam_torch.ops import orb
+    from stereo_orb_slam_torch.ops.kernels import describe, hamming, patches
+
+    dev = torch.device("cuda")
+    records = []
+    n = m = 1024
+    B = batch
+
+    # hamming_top2: B x (1024 queries against two train sets of 1024), one
+    # batch entry of each kind (masked columns, ties, an all-invalid set).
+    cases = [(_hamming_case(rng, kind), _hamming_case(rng, kind))
+             for kind in ("masked", "ties", "all_invalid")[:B]]
+    q = convert.desc_to_tensor(np.stack([a[0] for a, _ in cases]), dev)
+    ta = convert.desc_to_tensor(np.stack([a[1] for a, _ in cases]), dev)
+    tb = convert.desc_to_tensor(np.stack([b[1] for _, b in cases]), dev)
+    va = torch.as_tensor(np.stack([a[2] for a, _ in cases]), device=dev)
+    vb = torch.as_tensor(np.stack([b[2] for _, b in cases]), device=dev)
+    got = hamming.hamming_top2_pair(q, ta, va, tb, vb)
+    plain = (hamming.hamming_top2_plain(q, ta, va), hamming.hamming_top2_plain(q, tb, vb))
+    torch.cuda.synchronize()
+    err = max(_check_equal("hamming_top2_pair (batch, set a)", got[0], plain[0]),
+              _check_equal("hamming_top2_pair (batch, set b)", got[1], plain[1]))
+    for b in range(B):
+        one = hamming.hamming_top2_pair(q[b], ta[b], va[b], tb[b], vb[b])
+        for s in range(2):
+            _check_equal(f"hamming_top2_pair (batch entry {b}, set {s}) against B = 1",
+                         tuple(x[b] for x in got[s]), one[s])
+    ms = time_device(lambda: hamming.hamming_top2_pair(q, ta, va, tb, vb))
+    plain_ms = time_device(lambda: (hamming.hamming_top2_plain(q, ta, va),
+                                    hamming.hamming_top2_plain(q, tb, vb)))
+    bytes_ = B * (n * 32 + 2 * (m * 32 + m + n * 12))
+    ops = B * 2 * 2 * n * m * 256
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / INT8_TENSOR_OPS_PER_S * 1e3
+    records.append(_record(
+        f"hamming_top2 (B={B})", "stereo_orb_slam_torch/csrc/hamming_top2.cu",
+        "stereo_orb_slam_tpu/ops/pallas/hamming.py:74", "multi_seq",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes > t_ops else "operations", library_ms=None, match=True,
+        batch=B, shape=f"B={B} x (N={n}, two train sets of M={m}), one launch"))
+
+    # orb_describe and extract_patches on B padded KITTI images.
+    H, W = KITTI["h"] + 2 * orb.PATCH_R, KITTI["w"] + 2 * orb.PATCH_R
+    img = torch.from_numpy(rng.uniform(0, 255, (B, H, W)).astype(np.float32)).to(dev)
+    xy = np.stack([rng.uniform(0, KITTI["w"] - 1, (B, n)),
+                   rng.uniform(0, KITTI["h"] - 1, (B, n))], -1).astype(np.float32)
+    xy[:, ::7] = np.floor(xy[:, ::7]) + 0.5
+    xy = torch.from_numpy(xy).to(dev)
+    valid = torch.from_numpy(rng.random((B, n)) >= 0.25).to(dev)
+    table = orb.steer_table(False, dev)
+    got = describe.orb_describe(img, xy, valid, table)
+    want = describe.orb_describe_plain(img, xy, valid, table)
+    torch.cuda.synchronize()
+    diff = (orb.unpack_bits(got) - orb.unpack_bits(want)).abs()
+    flips = int(diff.sum())
+    log(f"orb_describe (B = {B}): {flips} of {B * n * orb.N_TESTS} bits differ from the "
+        f"batched plain version")
+    if got.shape != want.shape or flips:
+        raise AssertionError(f"batched orb_describe differs from its plain version in "
+                             f"{flips} bits")
+    for b in range(B):
+        _check_equal(f"orb_describe (image {b}) against B = 1",
+                     (got[b],), (describe.orb_describe(img[b], xy[b], valid[b], table),))
+    ms = time_device(lambda: describe.orb_describe(img, xy, valid, table))
+    plain_ms = time_device(lambda: describe.orb_describe_plain(img, xy, valid, table))
+    bytes_ = B * (H * W * 4 + n * (8 + 1) + n * 32)
+    fmas = B * n * 2 * orb.N_TESTS * describe.TAPS
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, 2 * fmas / F32_OPS_PER_S * 1e3
+    records.append(_record(
+        f"orb_describe (B={B})", "stereo_orb_slam_torch/csrc/orb_describe.cu",
+        "stereo_orb_slam_tpu/ops/pallas/patches.py:63", "multi_seq",
+        max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes > t_ops else "operations", library_ms=None,
+        match=True, batch=B, bits_differing=flips,
+        shape=f"B={B} images of {H}x{W}, N={n} each (a quarter invalid), one launch"))
+
+    ys, xs = orb.window_starts(xy)
+    got = patches.extract_patches(img, ys, xs, orb.PATCH)
+    want = patches.extract_patches_plain(img, ys, xs, orb.PATCH)
+    torch.cuda.synchronize()
+    err = _check_equal("extract_patches (batch)", (got,), (want,))
+    for b in range(B):
+        _check_equal(f"extract_patches (image {b}) against B = 1", (got[b],),
+                     (patches.extract_patches(img[b], ys[b], xs[b], orb.PATCH),))
+    ar = torch.arange(orb.PATCH, device=dev)
+    image = torch.arange(B, device=dev)[:, None, None, None]
+    rows = (ys.long().clamp(0, H - orb.PATCH)[..., None] + ar)[..., :, None]
+    cols = (xs.long().clamp(0, W - orb.PATCH)[..., None] + ar)[..., None, :]
+    ms = time_device(lambda: patches.extract_patches(img, ys, xs, orb.PATCH))
+    plain_ms = time_device(lambda: patches.extract_patches_plain(img, ys, xs, orb.PATCH))
+    library_ms = time_device(lambda: img[image, rows, cols])
+    bytes_ = B * (H * W * 4 + 2 * n * 4 + n * orb.PATCH * orb.PATCH * 2)
+    records.append(_record(
+        f"extract_patches (B={B})", "stereo_orb_slam_torch/csrc/extract_patches.cu",
+        "stereo_orb_slam_tpu/ops/pallas/patches.py:63", "oriented",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=library_ms, match=True, batch=B,
+        shape=f"B={B} images of {H}x{W}, N={n} each, one launch",
+        library_call="one advanced-index gather img[image, rows, cols] (float32 out)"))
+    for r in records:
+        log(f"kernel {r['name']}: bit for bit against the batched plain version and B = 1 "
+            f"launches; device {r['ms'] * 1e3:.2f} us per launch (bound {r['bound_ms'] * 1e3:.3f}"
+            f" us by {r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us, library "
+            f"{r['library_ms']}")
+    return records
+
+
+# The multi-sequence phase (BASELINE.json config 4): three whole-pixel
+# PlaneScene sequences (texture seeds and steps per frame in pixels) at
+# KITTI 00-02's size and intrinsics (KITTI 05 is 370 x 1226; stacked
+# images share one shape, so all three are rendered at 376 x 1241).
+MULTI_SEQ = ((0, 14), (2, 12), (5, 16))
+MULTI_SEQ_POSE_ATOL = 1e-4
+
+
+def _render_multi(frames=N_FRAMES, spec=MULTI_SEQ):
+    """([frames, S, H, W] uint8 left, same right, [S, frames, 4, 4] GT)."""
+    from synth import PlaneScene
+
+    k = KITTI
+    depth = k["fx"] * k["baseline"] / 38.0
+    left, right, gts = [], [], []
+    for seed, px in spec:
+        step = px * depth / k["fx"]
+        scene = PlaneScene(np.random.default_rng(seed), fx=k["fx"], cx=k["cx"], cy=k["cy"],
+                           baseline=k["baseline"], depth=depth, h=k["h"], w=k["w"])
+        left.append([scene.render(i * step).clip(0, 255).astype(np.uint8)
+                     for i in range(frames)])
+        right.append([scene.render(i * step, right=True).clip(0, 255).astype(np.uint8)
+                      for i in range(frames)])
+        gt = np.tile(np.eye(4), (frames, 1, 1))
+        gt[:, 0, 3] = np.arange(frames) * step
+        gts.append(gt)
+    return (np.stack(left, 1), np.stack(right, 1), np.stack(gts))
+
+
+def phase_multi_seq(seq, frames=N_FRAMES):
+    """MultiSequenceSLAM over S = 3 sequences of `frames` frames at full
+    width on the card (mesh None: one batched program), against each
+    sequence tracked alone by VisualOdometer on the card: relative poses
+    within MULTI_SEQ_POSE_ATOL, ATE < 0.01 m per sequence, and exactly 1
+    hamming_top2, 2 orb_describe and 0 extract_patches launches per step.
+    Steps/s and sequence-frames/s beside single-sequence VO on the same
+    frames."""
+    import torch
+
+    from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
+    from stereo_orb_slam_torch.io import calib
+    from stereo_orb_slam_torch.parallel.multi_seq import MultiSequenceSLAM
+    from stereo_orb_slam_torch.utils import evaluate
+    from stereo_orb_slam_torch.worldmap import WorldMap
+
+    t0 = time.perf_counter()
+    imgs_l, imgs_r, gts = _render_multi(frames)
+    render_s = time.perf_counter() - t0
+    S = imgs_l.shape[1]
+    rigs = [calib.load_camera(os.path.join(seq, "calib.txt")) for _ in range(S)]
+    # The first step of each path is paid once per process (tables, plans):
+    # both are warmed on a throwaway run of 2 frames.
+    warm = MultiSequenceSLAM(rigs)
+    for i in range(2):
+        warm.process(imgs_l[i], imgs_r[i])
+    VisualOdometer(WorldMap(), rigs[0]).track(imgs_l[0, 0], imgs_r[0, 0])
+    torch.cuda.synchronize()
+
+    multi = MultiSequenceSLAM(rigs)
+    _reset_launches()
+    t0 = time.perf_counter()
+    multi_T = [np.stack(multi.process(imgs_l[i], imgs_r[i])) for i in range(frames)]
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    launches = _read_launches()
+
+    single_s, gaps, ates = 0.0, [], []
+    for s in range(S):
+        vo = VisualOdometer(WorldMap(), rigs[s], seed=s)
+        t0 = time.perf_counter()
+        alone = [vo.track(imgs_l[i, s], imgs_r[i, s]) for i in range(frames)]
+        torch.cuda.synchronize()
+        single_s += time.perf_counter() - t0
+        gaps.append(float(np.abs(np.stack([T[s] for T in multi_T]) - np.stack(alone)).max()))
+        w = multi.worlds[s]
+        poses = w.pose_global[: w.num_frames]
+        if not (np.isfinite(poses).all() and w.num_frames == frames):
+            raise AssertionError(f"multi-sequence: sequence {s} lost frames or is not finite")
+        ates.append(evaluate.ate_rmse(poses, gts[s]))
+    rec = {"sequences": S, "frames": frames, "shape": f"{KITTI['h']}x{KITTI['w']}",
+           "steps_px": [px for _, px in MULTI_SEQ], "render_s": render_s,
+           "steps_per_s": frames / multi_s, "sequence_frames_per_s": S * frames / multi_s,
+           "ms_per_step": multi_s * 1e3 / frames,
+           "single_vo_frames_per_s": S * frames / single_s,
+           "pose_gap_to_single": gaps, "ate_m": ates, "launches": launches,
+           "points": [w.num_points for w in multi.worlds]}
+    log(f"multi-sequence (S = {S}, {frames} frames each at {rec['shape']}): "
+        f"{rec['steps_per_s']:.2f} steps/s, {rec['sequence_frames_per_s']:.2f} sequence-frames/s "
+        f"({rec['ms_per_step']:.2f} ms per step); single-sequence VO on the same frames "
+        f"{rec['single_vo_frames_per_s']:.2f} frames/s; pose gaps to single {gaps}; ATE {ates} "
+        f"m; launches {launches}")
+    if max(gaps) > MULTI_SEQ_POSE_ATOL:
+        raise AssertionError(f"multi-sequence: poses differ from single-sequence tracking by "
+                             f"{max(gaps)} (> {MULTI_SEQ_POSE_ATOL})")
+    if not max(ates) < 0.01:
+        raise AssertionError(f"multi-sequence: ATE {ates} m, not all below 0.01 m")
+    _check_launches("multi-sequence", launches,
+                    {"hamming_top2": 1, "orb_describe": 2, "extract_patches": 0}, frames)
+    return rec, (multi, imgs_l, imgs_r)
+
+
+def phase_multi_seq_profile(state, path, steps=20):
+    """torch.profiler over `steps` further multi-sequence steps (launches,
+    device busy, idle share per step), to `path`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    multi, imgs_l, imgs_r = state
+    n = imgs_l.shape[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            multi.process(imgs_l[i % n], imgs_r[i % n])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rep = _device_summary(prof, wall_ms, steps, unit="step")
+    with open(path, "w") as f:
+        json.dump(rep, f, indent=1)
+    top = ", ".join(f"{k['name'][:40]} {k['device_us_per_step']:.1f} us"
+                    for k in rep["kernels"][:6])
+    log(f"multi-sequence profile: {wall_ms / steps:.2f} ms wall per step, device busy "
+        f"{rep['device_busy_ms'] / steps:.3f} ms (idle share {rep['device_idle_share']:.3f}), "
+        f"{rep['device_launches_per_step']:.0f} launches per step; top: {top}; in {path}")
+    return rep
+
+
+# The distributed phase (BASELINE.json config 5): bounds of
+# tests/test_dist_ba.py and tests/test_dist_pose_graph.py for ranks above 1
+# (their sums run in another order); 1 rank is held bit for bit against
+# the same code with no process group.
+DIST_LM_ITERATIONS = 6
+DIST_COST_RTOL, DIST_COST_ATOL = 1e-3, 1e-4
+DIST_POSE_ATOL, DIST_POINT_ATOL = 5e-3, 2e-2
+DIST_PG_ATOL = 2e-3
+DIST_GLOO_RANKS = (2, 4)
+DIST_PG_GLOO_RANKS = (4,)   # the pose graph's gloo run (2,030 all_reduces a solve)
+
+
+def _rig_numpy(rig):
+    return {"left": {k: v.cpu().numpy() for k, v in rig.left._asdict().items()},
+            "right": {k: v.cpu().numpy() for k, v in rig.right._asdict().items()},
+            "rectified": rig.rectified, "baseline": rig.baseline.cpu().numpy()}
+
+
+def _collectives():
+    from stereo_orb_slam_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.ALL_REDUCES, mesh_mod.ALL_REDUCE_BYTES
+
+
+def _dist_solves(mesh, world, rig_np, map_size, graph, iters=DIST_LM_ITERATIONS, warm=True):
+    """On this rank: DistributedBundleAdjuster (both layouts) over copies of
+    the tracked world, the point-aligned solve of the map problem, and the
+    pose graph when `graph` is given. Per solve: results as NumPy, wall ms
+    per LM iteration (host set-up, solve and write-back; lm_init counted in
+    the map solve's), all_reduces and their bytes per LM iteration, peak
+    device memory. `warm`: each solve first runs once off the clock (the
+    process's first use of its shapes)."""
+    import torch
+
+    from stereo_orb_slam_torch import convert
+    from stereo_orb_slam_torch.config import BAConfig, PoseGraphConfig
+    from stereo_orb_slam_torch.parallel import dist_ba, dist_pose_graph
+
+    dev = mesh.device
+    rig = convert.rig_from_numpy(rig_np, dev)
+    out = {}
+
+    cuda = _is_cuda(dev)
+
+    def measured(fn, n_it):
+        _sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        n0, b0 = _collectives()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        n1, b1 = _collectives()
+        return res, {"ms_per_iteration": ms / n_it, "all_reduces_per_iteration": (n1 - n0) / n_it,
+                     "all_reduce_bytes_per_iteration": (b1 - b0) / n_it,
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None}
+
+    for scheme in ("point_aligned", "obs"):
+        w = copy.deepcopy(world)
+        adj = dist_ba.DistributedBundleAdjuster(w, rig, mesh, BAConfig(max_iterations=iters),
+                                                scheme=scheme)
+        if warm:
+            dist_ba.DistributedBundleAdjuster(copy.deepcopy(world), rig, mesh,
+                                              BAConfig(max_iterations=1),
+                                              scheme=scheme).optimize(0, world.num_frames)
+        stats, m = measured(lambda: adj.optimize(0, w.num_frames), iters)
+        out[f"window_{scheme}"] = dict(m, stats=stats, poses=w.pose_global[:w.num_frames].copy(),
+                                       points=w.points[:w.num_points].copy())
+
+    shard = dist_ba.place_point_aligned(mesh, *dist_ba.build_point_aligned(
+        *(x.numpy() for x in _map_host(map_size)), mesh.size))
+    cfg = BAConfig(cg_iterations=40, function_tolerance=0.0)
+    solve = dist_ba.sharded_ba_solve_point_aligned(mesh, cfg)
+    if warm:
+        solve(shard, 1)
+    (carry, n_it, c0), m = measured(lambda: solve(shard, iters), iters)
+    out["map"] = dict(m, iterations=int(n_it), cost_initial=float(c0), cost=float(carry.cost),
+                      pose6=carry.prob.pose6.cpu().numpy())
+
+    if graph is not None:
+        if warm:
+            dist_pose_graph.solve(*graph, mesh, PoseGraphConfig(iterations=1))
+        (poses, costs), m = measured(lambda: dist_pose_graph.solve(*graph, mesh), 1)
+        out["pose_graph"] = dict(m, poses=poses, costs=costs)
+    return out
+
+
+def _dist_gloo_rank(rank, world_size, world, rig_np, map_size, graph):
+    """A spawned gloo rank on the card (all ranks share cuda:0): the solves
+    of _dist_solves, not warmed (gloo ranks on one card are timed for
+    their collectives' count, not their speed)."""
+    import torch
+
+    from stereo_orb_slam_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    return _dist_solves(make_mesh(device="cuda:0"), world, rig_np, map_size, graph,
+                        warm=False)
+
+
+def _graph_numpy(prob):
+    return (prob.poses.cpu().numpy(), prob.edge_a.cpu().numpy(), prob.edge_b.cpu().numpy(),
+            prob.edge_meas.cpu().numpy())
+
+
+def _pose_gap(a, b):
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def phase_distributed(tmp, seq, world, slam_graph, map_size=MAP_SIZE):
+    """Distributed BA and pose graph on the card (parallel/): at 1 rank
+    under NCCL in this process, held bit for bit against the same code
+    with no process group; at 2 and 4 gloo ranks spawned on cuda:0, held
+    against the single-process card solve within the DIST_* bounds; every
+    rank's replica the same. The tracked 60-frame world (both layouts),
+    the map problem (point-aligned, matrix-free) and the SLAM phase's final
+    pose graph, each DIST_LM_ITERATIONS LM iterations (the graph
+    PoseGraphConfig's 10 GN steps). Also ms, all_reduces and bytes per LM
+    iteration, peak memory per rank, and device syncs per LM iteration at 1
+    NCCL rank (the single-process count expected)."""
+    import torch
+
+    from stereo_orb_slam_torch.backend import pose_graph
+    from stereo_orb_slam_torch.backend.ba import BundleAdjuster
+    from stereo_orb_slam_torch.config import BAConfig, PoseGraphConfig
+    from stereo_orb_slam_torch.io import calib
+    from stereo_orb_slam_torch.parallel import dist_ba, multihost
+    from stereo_orb_slam_torch.parallel.mesh import Mesh, make_mesh
+
+    dev = torch.device("cuda", 0)
+    rig = calib.load_camera(os.path.join(seq, "calib.txt"))
+    rig_np = _rig_numpy(rig)
+    iters = DIST_LM_ITERATIONS
+    rec = {}
+
+    # The single-process card solves the ranks are held against.
+    w = copy.deepcopy(world)
+    BundleAdjuster(w, rig, BAConfig(max_iterations=iters)).optimize(0, w.num_frames)
+    ref_window = (w.pose_global[:w.num_frames].copy(), w.points[:w.num_points].copy())
+    ref_map, _, _, _, _ = _map_solve("cuda", map_size, iters)
+    vm = np.ones(len(slam_graph[0]), np.float32)
+    vm[0] = 0.0
+    pg_prob = pose_graph.PoseGraphProblem(
+        *(torch.as_tensor(x, device=dev) for x in slam_graph),
+        edge_weight=torch.ones(len(slam_graph[1]), device=dev),
+        vertex_mask=torch.as_tensor(vm, device=dev))
+    ref_pg = pose_graph.pg_solve(pg_prob, PoseGraphConfig())[0].poses.cpu().numpy()
+
+    def held(name, got):
+        """Gaps of one rank's results to the single-process solves."""
+        g = {f"window_{s}": (_pose_gap(got[f"window_{s}"]["poses"], ref_window[0]),
+                             _pose_gap(got[f"window_{s}"]["points"], ref_window[1]))
+             for s in ("point_aligned", "obs")}
+        g["map"] = (_pose_gap(got["map"]["pose6"], ref_map.prob.pose6.cpu().numpy()),
+                    abs(got["map"]["cost"] - float(ref_map.cost)) / float(ref_map.cost))
+        if "pose_graph" in got:
+            g["pose_graph"] = _pose_gap(got["pose_graph"]["poses"], ref_pg)
+        for key in ("window_point_aligned", "window_obs"):
+            if g[key][0] > DIST_POSE_ATOL or g[key][1] > DIST_POINT_ATOL:
+                raise AssertionError(f"{name}: {key} differs from the single-process solve "
+                                     f"by {g[key]}")
+        if g["map"][0] > DIST_POSE_ATOL or g["map"][1] > DIST_COST_RTOL:
+            raise AssertionError(f"{name}: map solve differs from single-process by {g['map']}")
+        if g.get("pose_graph", 0.0) > DIST_PG_ATOL:
+            raise AssertionError(f"{name}: pose graph differs by {g['pose_graph']}")
+        return g
+
+    def summary(got):
+        return {k: {f: v[f] for f in ("ms_per_iteration", "all_reduces_per_iteration",
+                                      "all_reduce_bytes_per_iteration", "peak_bytes")}
+                for k, v in got.items()}
+
+    # 1 rank under NCCL, in this process.
+    multihost.initialize(init_method="file://" + os.path.join(tmp, "nccl_store"),
+                         num_processes=1, process_id=0, backend="nccl")
+    try:
+        nccl = make_mesh(device=dev)
+        got = _dist_solves(nccl, world, rig_np, map_size, slam_graph)
+        alone = _dist_solves(Mesh(None, 0, 1, dev), world, rig_np, map_size, slam_graph)
+        identical = {}
+        for key in got:
+            fields = [f for f in ("poses", "points", "pose6") if f in got[key]]
+            identical[key] = all(np.array_equal(got[key][f], alone[key][f]) for f in fields)
+        # Device syncs per LM iteration: the map solve with the NCCL group
+        # and without one.
+        shard = dist_ba.place_point_aligned(nccl, *dist_ba.build_point_aligned(
+            *(x.numpy() for x in _map_host(map_size)), 1))
+        cfg = BAConfig(cg_iterations=40, function_tolerance=0.0)
+        _, syncs_nccl = _syncs_per_call(
+            lambda: dist_ba.sharded_ba_solve_point_aligned(nccl, cfg)(shard, 2))
+        _, syncs_alone = _syncs_per_call(
+            lambda: dist_ba.sharded_ba_solve_point_aligned(Mesh(None, 0, 1, dev), cfg)(shard, 2))
+    finally:
+        multihost.shutdown()
+    rec["nccl_1"] = {"identical_to_no_group": identical, "gaps_to_single": held("nccl x1", got),
+                     "per_solve": summary(got), "per_solve_no_group": summary(alone),
+                     "syncs_per_lm_iteration": syncs_nccl / 2,
+                     "syncs_per_lm_iteration_no_group": syncs_alone / 2}
+    log(f"distributed, 1 NCCL rank: bit for bit against no group {identical}; gaps to the "
+        f"single-process solves {rec['nccl_1']['gaps_to_single']}; syncs per LM iteration "
+        f"{syncs_nccl / 2} (no group: {syncs_alone / 2}); per solve {rec['nccl_1']['per_solve']}"
+        f"; with no group {rec['nccl_1']['per_solve_no_group']}")
+    if not all(identical.values()):
+        raise AssertionError(f"1 NCCL rank is not bit for bit the solve with no group: {identical}")
+    if syncs_nccl != syncs_alone:
+        raise AssertionError(f"1 NCCL rank syncs {syncs_nccl} times, no group {syncs_alone}")
+
+    for n in DIST_GLOO_RANKS:
+        t0 = time.perf_counter()
+        graph = slam_graph if n in DIST_PG_GLOO_RANKS else None
+        outs = multihost.launch(_dist_gloo_rank, n, backend="gloo", timeout_s=600,
+                                args=(world, rig_np, map_size, graph))
+        wall_s = time.perf_counter() - t0
+        for other in outs[1:]:
+            for key in ("window_point_aligned", "window_obs"):
+                for f in ("poses", "points"):
+                    if not np.array_equal(other[key][f], outs[0][key][f]):
+                        raise AssertionError(f"gloo x{n}: ranks hold different {key} {f}")
+            if graph is not None and not np.array_equal(other["pose_graph"]["poses"],
+                                                        outs[0]["pose_graph"]["poses"]):
+                raise AssertionError(f"gloo x{n}: ranks hold different pose graphs")
+        rec[f"gloo_{n}"] = {"gaps_to_single": held(f"gloo x{n}", outs[0]),
+                            "per_solve_rank0": summary(outs[0]),
+                            "peak_bytes_per_rank": [o["map"]["peak_bytes"] for o in outs],
+                            "spawn_wall_s": wall_s}
+        log(f"distributed, {n} gloo ranks on one card (correctness and collective counts, not "
+            f"scaling): gaps to single {rec[f'gloo_{n}']['gaps_to_single']}; rank 0 per solve "
+            f"{rec[f'gloo_{n}']['per_solve_rank0']}; map peak bytes per rank "
+            f"{rec[f'gloo_{n}']['peak_bytes_per_rank']}; {wall_s:.1f} s with the spawn")
+    return rec
+
+
+def _map_host(map_size):
+    """The map problem's arrays for build_point_aligned (CPU tensors)."""
+    p = make_map_problem("cpu", **map_size)
+    return (p.pose6, p.points, p.obs_cam, p.obs_point, p.obs_uv, p.cam_mask, p.P_l, p.P_r)
+
+
+def phase_refine_torchrun(tmp, seq, gt, iterations=50):
+    """`apps.refine --distributed` under torchrun (one NCCL rank) over the
+    dump phase 6c wrote: cost not above its initial value, ATE < 0.01 m."""
+    from stereo_orb_slam_torch.io import export
+    from stereo_orb_slam_torch.utils import evaluate
+
+    out = os.path.join(tmp, "refined_torchrun")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           "-m", "stereo_orb_slam_torch.apps.refine", "--input_dir", os.path.join(tmp, "dump"),
+           "--camera", os.path.join(seq, "calib.txt"), "--output_dir", out, "--iterations",
+           str(iterations), "--distributed", "--backend", "nccl", "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun refine failed ({proc.returncode}):\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    line = [ln for ln in (proc.stdout + proc.stderr).splitlines() if "global BA:" in ln][-1]
+    poses = export.read_poses_txt(os.path.join(out, "poses.txt"))
+    ate = evaluate.ate_rmse(poses, evaluate.load_kitti_gt(gt)[:len(poses)])
+    log(f"refine --distributed under torchrun (1 NCCL rank): {wall_s:.1f} s wall with the "
+        f"launch; {line.strip()[:300]}; ATE {ate:.5f} m")
+    if not ate < 0.01:
+        raise AssertionError(f"torchrun refine: ATE {ate} m is not below 0.01 m")
+    return {"wall_s": wall_s, "ate_m": ate, "log": line.strip()}
+
+
+def phase_scaling_bench():
+    """apps.scaling_bench at 1 NCCL rank: LM iterations/s of the sharded LM
+    step on its C = 200, P = 20,000 problem (CUDA events)."""
+    from stereo_orb_slam_torch.apps import scaling_bench
+
+    res = scaling_bench.run([1], n_iter=8, device="cuda", backend="nccl")["1"]
+    log(f"scaling_bench, 1 NCCL rank (C=200, P=20000, O=120000, cg 25): "
+        f"{res['ba_iterations_per_sec']:.2f} LM iterations/s, {res['all_reduces_per_iteration']:.0f}"
+        f" all_reduces per iteration, peak {res['peak_bytes'] / 2**20:.1f} MiB")
+    return res
+
+
+def phase_dist_profile(path, map_size=MAP_SIZE, iters=3):
+    """torch.profiler over `iters` LM iterations of the point-aligned map
+    solve at 1 NCCL rank (launches, device busy, idle share, all_reduce
+    kernels), to `path`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_orb_slam_torch.config import BAConfig
+    from stereo_orb_slam_torch.parallel import dist_ba, multihost
+    from stereo_orb_slam_torch.parallel.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize(init_method="file://" + os.path.join(tmp, "store"),
+                             num_processes=1, process_id=0, backend="nccl")
+        try:
+            mesh = make_mesh(device="cuda:0")
+            shard = dist_ba.place_point_aligned(mesh, *dist_ba.build_point_aligned(
+                *(x.numpy() for x in _map_host(map_size)), 1))
+            solve = dist_ba.sharded_ba_solve_point_aligned(
+                mesh, BAConfig(cg_iterations=40, function_tolerance=0.0))
+            solve(shard, 1)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                solve(shard, iters)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            multihost.shutdown()
+    rep = _device_summary(prof, wall_ms, iters + 1)   # lm_init counted as one
+    with open(path, "w") as f:
+        json.dump(rep, f, indent=1)
+    top = ", ".join(f"{k['name'][:40]} {k['device_us_per_lm_iteration']:.1f} us"
+                    for k in rep["kernels"][:6])
+    log(f"distributed profile (map, point-aligned, 1 NCCL rank): "
+        f"{wall_ms / (iters + 1):.2f} ms wall per LM iteration, device busy "
+        f"{rep['device_busy_ms'] / (iters + 1):.3f} ms (idle share "
+        f"{rep['device_idle_share']:.3f}), {rep['device_launches_per_lm_iteration']:.0f} launches "
+        f"per LM iteration; top: {top}; in {path}")
+    return rep
+
+
 def main(argv=None):
     import argparse
 
@@ -1492,13 +2078,16 @@ def main(argv=None):
 
     timed("build", phase_build)
     records, floor_ms = timed("kernels", phase_kernels, rng)
+    records += timed("kernels_batched", phase_batched_kernels, rng)
     with tempfile.TemporaryDirectory() as tmp:
         seq, gt = timed("render", _render_sequence, tmp, N_FRAMES)
         timed("cuda_vs_cpu", phase_cuda_vs_cpu, seq)
         summary, launches = timed("main_path", phase_main_path, seq, gt,
                                   os.path.join(tmp, "vo_out"))
         oriented = timed("oriented", phase_oriented, seq, gt)
+        multi_seq, multi_state = timed("multi_seq", phase_multi_seq, seq)
         ba_world, tracking, window = timed("ba_tracking", phase_ba_tracking, seq, gt)
+        dist_world = copy.deepcopy(ba_world)
         ba = {"tracking": tracking,
               "cuda_vs_cpu": timed("ba_devices", phase_ba_devices, seq, window),
               "refine": timed("ba_refine", phase_ba_refine, seq, gt, ba_world, tmp),
@@ -1514,6 +2103,7 @@ def main(argv=None):
                                          os.path.join(tmp, f"slam_out_{k}"), k)
             if k == 1:
                 slam_devices = timed("slam_devices", phase_slam_devices, system)
+                slam_graph = _graph_numpy(system.pgo.last_problem)
             del system
         gap = abs(slam_runs[4]["ate_m"] - slam_runs[1]["ate_m"])
         log(f"SLAM --batch_frames 4 against 1: ATE {slam_runs[4]['ate_m']:.5f} / "
@@ -1521,17 +2111,28 @@ def main(argv=None):
         if not gap <= 1e-3:
             raise AssertionError("SLAM: --batch_frames 4 and 1 differ in ATE by more than "
                                  "1e-3 m")
+        distributed = {
+            "ba_pose_graph": timed("distributed", phase_distributed, tmp, seq, dist_world,
+                                   slam_graph),
+            "refine_torchrun": timed("refine_torchrun", phase_refine_torchrun, tmp, seq, gt),
+            "scaling_bench": timed("scaling_bench", phase_scaling_bench),
+        }
         if args.profile:
             root, ext = os.path.splitext(args.profile)
             timed("profile", phase_profile, seq, args.profile)
+            timed("profile_multi_seq", phase_multi_seq_profile, multi_state,
+                  f"{root}_multi_seq{ext or '.json'}")
+            timed("profile_dist", phase_dist_profile, f"{root}_dist{ext or '.json'}")
             timed("profile_ba", phase_ba_profile, seq, window, f"{root}_ba{ext or '.json'}")
             timed("profile_slam", phase_slam_profile, slam_seq,
                   f"{root}_slam{ext or '.json'}")
-    paths = {"main": launches, "oriented": oriented, "ba_tracking": tracking["launches"],
-             "slam": slam_runs[1]["launches"], "slam_batch4": slam_runs[4]["launches"]}
+    paths = {"main": launches, "oriented": oriented, "multi_seq": multi_seq["launches"],
+             "ba_tracking": tracking["launches"], "slam": slam_runs[1]["launches"],
+             "slam_batch4": slam_runs[4]["launches"]}
     for r in records:
-        r["launches"] = paths[r["path"]][r["name"]]
-        r["launches_by_path"] = {p: ls[r["name"]] for p, ls in paths.items()}
+        kernel = r["name"].split(" ")[0]
+        r["launches"] = paths[r["path"]][kernel]
+        r["launches_by_path"] = {p: ls[kernel] for p, ls in paths.items()}
     log(json.dumps({"main_path": {k: summary[k] for k in ("frames", "fps", "median_ms",
                                                           "ate_m")},
                     "launch_floor_ms": floor_ms}))
@@ -1540,6 +2141,7 @@ def main(argv=None):
                              for k, r in slam_runs.items()},
                     "slam_timers": slam_runs[1]["timers"], "slam_devices": slam_devices,
                     "slam_first_call": first_call}, default=float))
+    log(json.dumps({"multi_seq": multi_seq, "distributed": distributed}, default=float))
     log(json.dumps({"phase_seconds": seconds}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -10,8 +10,18 @@ global bundle adjustment over every frame, write the refined dump back.
 `--device` defaults to `cuda` and fails without a card; `cpu` runs on the
 CPU only when asked. The process keeps TF32 off for float32 matrix
 products (the Schur products and the one-hot reductions need full f32).
-The JAX package's `--distributed` (a solve sharded over devices) is not in
-the port yet.
+
+`--distributed` splits the solve over the ranks of a process group
+(`parallel/dist_ba.py`, the point-aligned layout). Start it under
+torchrun, one process per rank:
+
+    torchrun --standalone --nproc_per_node=N -m stereo_orb_slam_torch.apps.refine \
+        --distributed --backend nccl ...
+
+Every rank loads the dump and solves its shard; rank 0 writes the output.
+`--backend` is the process group's (nccl: one card per rank; gloo: CPU
+tensors, or several ranks sharing one card). Without torchrun's
+environment it runs as a group of one.
 """
 
 from __future__ import annotations
@@ -29,15 +39,17 @@ from stereo_orb_slam_torch.utils import logging as slog
 def main(argv=None) -> dict:
     """Run the CLI; returns the solve's stats and the refined WorldMap
     (under "world")."""
-    ap = argparse.ArgumentParser(
-        description="Offline global BA over a dump (PyTorch)",
-        epilog="The JAX package's --distributed (sharded solve over several "
-               "devices) is not ported yet.")
+    ap = argparse.ArgumentParser(description="Offline global BA over a dump (PyTorch)")
     ap.add_argument("--input_dir", required=True)
     ap.add_argument("--camera", required=True)
     ap.add_argument("--output_dir", required=True)
     ap.add_argument("--iterations", type=int, default=50)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--distributed", action="store_true",
+                    help="split the solve over the ranks of a process group "
+                         "(torchrun's environment, or a group of one)")
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                    help="the process group's backend with --distributed")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -46,16 +58,33 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     world = checkpoint.restore_world(args.input_dir)
-    rig = calib.load_camera(args.camera, device=args.device)
-    adj = BundleAdjuster(world, rig, BAConfig(max_iterations=args.iterations))
+    cfg = BAConfig(max_iterations=args.iterations)
+    if args.distributed:
+        from stereo_orb_slam_torch.parallel import multihost
+        from stereo_orb_slam_torch.parallel.dist_ba import DistributedBundleAdjuster
+        from stereo_orb_slam_torch.parallel.mesh import make_mesh
+
+        info = multihost.initialize(backend=args.backend)
+        mesh = make_mesh(device=None if args.device == "cuda" else "cpu")
+        rig = calib.load_camera(args.camera, device=mesh.device)
+        adj = DistributedBundleAdjuster(world, rig, mesh, cfg)
+        primary = multihost.is_primary()
+    else:
+        info = None
+        rig = calib.load_camera(args.camera, device=args.device)
+        adj = BundleAdjuster(world, rig, cfg)
+        primary = True
 
     stats = adj.optimize(0, world.num_frames)
-    slog.info(f"global BA: {stats}")
-    export.dump_world(args.output_dir, world)
-    export.save_kitti_trajectory(
-        f"{args.output_dir}/trajectory_refined.txt",
-        world.pose_global[: world.num_frames],
-    )
+    if primary:
+        slog.info(f"global BA: {stats}" + (f" ({info})" if info else ""))
+        export.dump_world(args.output_dir, world)
+        export.save_kitti_trajectory(
+            f"{args.output_dir}/trajectory_refined.txt",
+            world.pose_global[: world.num_frames],
+        )
+    if args.distributed:
+        multihost.shutdown()
     return dict(stats, world=world)
 
 

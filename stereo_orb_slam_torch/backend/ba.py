@@ -31,6 +31,12 @@ for float32 matrix products, whatever the caller's setting, and restores
 that setting on return: TF32 rounds the Schur products and the one-hot
 reductions.
 
+Distributed solves (parallel/dist_ba.py) pass `group`, a process group,
+wherever the JAX package takes `axis_name`: each rank holds its shard of
+the observations (and, with `point_sharded`, of the points), sums it
+locally in the same fixed order, and one `all_reduce` (parallel/mesh.py,
+JAX's `psum`) completes each reduction. `group` None is one process.
+
 Window semantics match the reference (ref `src/bundle_adjuster.cpp:39-133`):
 cameras parameterized as world->camera pose6, first camera in the window
 held constant (ref :113), point coordinates clamped to ±bound (ref
@@ -53,6 +59,7 @@ from stereo_orb_slam_torch.backend import schur_dense
 from stereo_orb_slam_torch.backend.residuals import bmv
 from stereo_orb_slam_torch.config import BAConfig
 from stereo_orb_slam_torch.geometry import se3_np
+from stereo_orb_slam_torch.parallel.mesh import all_reduce
 
 
 class BAProblem(NamedTuple):
@@ -111,44 +118,47 @@ def segments(ids, num: int) -> Segments:
     return Segments(order, torch.searchsorted(ids[order], bounds))
 
 
-def _seg_sum(x, ids, num, seg: Optional[Segments] = None):
+def _seg_sum(x, ids, num, seg: Optional[Segments] = None, group=None):
     """Segment sum of rows x [O, ...] by ids [O] into [num, ...]. Each
     segment's rows are added one after another in index order, on every
     device, so the sums equal a CPU scatter-add's bit for bit and a solve
     on the card repeats exactly (`index_add_` on CUDA adds with float
     atomics in no fixed order). `seg` is `segments(ids, num)`, computed
-    here when not given."""
+    here when not given. With `group`, the local sums are then summed over
+    its ranks (one all_reduce)."""
     if seg is None:
         seg = segments(ids, num)
-    return torch.segment_reduce(x[seg.order], "sum", offsets=seg.offsets, axis=0)
+    out = torch.segment_reduce(x[seg.order], "sum", offsets=seg.offsets, axis=0)
+    return all_reduce(out, group)
 
 
-def _seg_sum_points(x, obs_point, num, dense_slots=None, seg=None):
+def _seg_sum_points(x, obs_point, num, dense_slots=None, seg=None, group=None):
     """Per-point reduction of per-observation rows x [O, ...]: a segmented
-    sum, or with `dense_slots` (windowed path) a slot gather + sum over K."""
+    sum, or with `dense_slots` (windowed path) a slot gather + sum over K;
+    summed over `group`'s ranks when given."""
     if dense_slots is None:
-        return _seg_sum(x, obs_point, num, seg)
+        return _seg_sum(x, obs_point, num, seg, group)
     sto, _, smask = dense_slots
     F = math.prod(x.shape[1:])
     g = schur_dense.slot_gather(x.reshape(-1, F), sto, smask)
-    return g.sum(dim=1).reshape((sto.shape[0],) + tuple(x.shape[1:]))[:num]
+    return all_reduce(g.sum(dim=1).reshape((sto.shape[0],) + tuple(x.shape[1:]))[:num], group)
 
 
-def _seg_sum_cams(x, obs_cam, num, cam_red=None):
+def _seg_sum_cams(x, obs_cam, num, cam_red=None, group=None):
     """Per-camera reduction of per-observation rows x [O, F].
 
     `cam_red` None or a SegmentPlan (matrix-free path): a segmented sum.
     Dense windowed path: `cam_red` is either the [C,O] f32 ONE-HOT of
     obs_cam (one matrix product) or, past the one-hot's memory gate, a
     ([C,Kc] slot map, mask) tuple from build_cam_slots_device (gather +
-    local sum).
+    local sum). With `group`, the local sums are summed over its ranks.
     """
     if cam_red is None or isinstance(cam_red, SegmentPlan):
-        return _seg_sum(x, obs_cam, num, _plan(cam_red).cams)
+        return _seg_sum(x, obs_cam, num, _plan(cam_red).cams, group)
     if isinstance(cam_red, tuple):
         sto, mask = cam_red
-        return schur_dense.slot_gather(x, sto, mask).sum(dim=1)[:num]
-    return cam_red @ x
+        return all_reduce(schur_dense.slot_gather(x, sto, mask).sum(dim=1)[:num], group)
+    return all_reduce(cam_red @ x, group)
 
 
 def _plan(cam_red) -> SegmentPlan:
@@ -183,10 +193,16 @@ def build_cam_slots_device(obs_cam, obs_weight, n_cams: int, Kc: int):
 
 
 def build_normal_equations(prob: BAProblem, huber_delta: float,
-                           dense_slots=None, cam_red=None):
+                           dense_slots=None, cam_red=None, group=None,
+                           point_sharded: bool = False):
     """Normal-equation blocks at the problem's parameters:
     (H_cc [C,6,6], H_pp [P,3,3], W [O,6,3], b_c [C,6], b_p [P,3], cost, Wg)
-    with Wg the slot form [P,K,6,3] of W on the windowed path, else None."""
+    with Wg the slot form [P,K,6,3] of W on the windowed path, else None.
+
+    With `group`, prob's observations are this rank's shard: the camera
+    blocks and the cost are summed over the ranks, and so are the point
+    blocks unless `point_sharded` (the point-aligned layout, where every
+    point's observations are on one rank, so they stay local)."""
     C = prob.pose6.shape[0]
     P = prob.points.shape[0]
     cam_rows, pt_rows, W, cost = res_mod.build_rows_soa(
@@ -194,7 +210,7 @@ def build_normal_equations(prob: BAProblem, huber_delta: float,
         prob.obs_weight, prob.P_l, prob.P_r, huber_delta,
     )
     # Camera-side reductions fused into one row per observation.
-    cam_sum = _seg_sum_cams(cam_rows, prob.obs_cam, C, cam_red)
+    cam_sum = _seg_sum_cams(cam_rows, prob.obs_cam, C, cam_red, group)
     H_cc = cam_sum[:, :36].reshape(-1, 6, 6)
     b_c = -cam_sum[:, 36:]
     Wg = None
@@ -208,10 +224,11 @@ def build_normal_equations(prob: BAProblem, huber_delta: float,
         pt_red = g[..., :12].sum(dim=1)
         Wg = g[..., 12:].reshape(sto.shape[0], -1, 6, 3)
     else:
-        pt_red = _seg_sum_points(pt_rows, prob.obs_point, P, seg=_plan(cam_red).points)
+        pt_red = _seg_sum_points(pt_rows, prob.obs_point, P, seg=_plan(cam_red).points,
+                                 group=None if point_sharded else group)
     H_pp = pt_red[:, :9].reshape(-1, 3, 3)
     b_p = pt_red[:, 9:]
-    return H_cc, H_pp, W, b_c, b_p, cost, Wg
+    return H_cc, H_pp, W, b_c, b_p, all_reduce(cost, group), Wg
 
 
 def _damp_blocks(H, lam, eps=1e-8):
@@ -268,21 +285,25 @@ def _bmtv(A, x):
 
 
 def schur_matvec(x, H_cc_l, Hpp_inv, W, obs_cam, obs_point, cam_mask,
-                 plan: Optional[SegmentPlan] = None):
+                 plan: Optional[SegmentPlan] = None, group=None,
+                 point_sharded: bool = False):
     """S @ x with S = H_cc_l - W H_pp_l^-1 W^T, matrix-free.
 
     x: [C,6]. Fixed cameras are pinned via cam_mask (identity rows).
     `Hpp_inv` is the precomputed [P,3,3] inverse of the damped point blocks.
     `plan` is the problem's SegmentPlan (the grouping is computed per call
-    when None).
+    when None). With `group`, W and obs_* are this rank's shard and both
+    segmented sums are summed over the ranks (the point one stays local
+    when `point_sharded`).
     """
     plan = _plan(plan)
     xm = x * cam_mask[:, None]
     u = _bmtv(W, xm[obs_cam])                                    # [O,3] = W^T x
-    z = _seg_sum(u, obs_point, Hpp_inv.shape[0], plan.points)    # [P,3]
+    z = _seg_sum(u, obs_point, Hpp_inv.shape[0], plan.points,
+                 None if point_sharded else group)               # [P,3]
     w = bmv(Hpp_inv, z)                                          # [P,3]
     v = bmv(W, w[obs_point])                                     # [O,6] = W w
-    out = bmv(H_cc_l, xm) - _seg_sum(v, obs_cam, x.shape[0], plan.cams)
+    out = bmv(H_cc_l, xm) - _seg_sum(v, obs_cam, x.shape[0], plan.cams, group)
     return out * cam_mask[:, None] + x * (1.0 - cam_mask[:, None])
 
 
@@ -319,15 +340,21 @@ def pcg(matvec, b, M_inv_blocks, iters: int, tol: float):
 
 
 def _solve_lm(prob: BAProblem, H_cc, H_pp, W, b_c, b_p, lam, cfg: BAConfig,
-              dense_slots=None, cam_red=None, Wg=None, band=None):
+              dense_slots=None, cam_red=None, Wg=None, band=None, group=None,
+              point_sharded: bool = False):
     """Damp, marginalize points (Schur), solve the reduced camera system,
     back-substitute. Returns the PROPOSED (pose6, points) for this lambda.
 
     Two reduced-system solvers:
     - dense (windowed): IC-ordered S materialized (schur_dense, dense or
-      banded assembly) + direct Cholesky;
-    - matrix-free (global): block-Jacobi PCG with segmented-sum matvecs.
+      banded assembly) + direct Cholesky; with `group`, only on the
+      point-aligned layout: each rank assembles its points' share of S,
+      one [6C, 6C] all_reduce, the Cholesky replicated;
+    - matrix-free (global): block-Jacobi PCG with segmented-sum matvecs,
+      summed over `group`'s ranks when given.
     """
+    if dense_slots is not None and group is not None and not point_sharded:
+        raise ValueError("the distributed dense path needs the point-aligned layout")
     H_cc_l = _damp_blocks(H_cc, lam)
     H_pp_l = _damp_blocks(H_pp, lam)
     # Guard padding points: identity blocks so the inverse stays finite.
@@ -339,14 +366,14 @@ def _solve_lm(prob: BAProblem, H_cc, H_pp, W, b_c, b_p, lam, cfg: BAConfig,
     # rhs = b_c - W H_pp^-1 b_p
     hp_bp = bmv(Hpp_inv, b_p)
     rhs = b_c - _seg_sum_cams(bmv(W, hp_bp[prob.obs_point]), prob.obs_cam,
-                              b_c.shape[0], cam_red)
+                              b_c.shape[0], cam_red, group)
     rhs = rhs * prob.cam_mask[:, None]
 
     eye6 = torch.eye(6, dtype=H_cc_l.dtype, device=H_cc_l.device)
     H_cc_safe = torch.where(prob.cam_mask[:, None, None] > 0, H_cc_l, eye6)
 
     if dense_slots is not None:
-        if band is not None and Wg is not None:
+        if band is not None and Wg is not None and group is None:
             # Banded fast path (see schur_dense.band_plan): local-width
             # expansion per point chunk; feasibility proven on host.
             S = schur_dense.assemble_schur_banded(
@@ -356,7 +383,7 @@ def _solve_lm(prob: BAProblem, H_cc, H_pp, W, b_c, b_p, lam, cfg: BAConfig,
         else:
             S = schur_dense.assemble_schur(
                 H_cc_safe, W, Hpp_inv, dense_slots[0], dense_slots[1],
-                dense_slots[2], prob.cam_mask, Wg=Wg,
+                dense_slots[2], prob.cam_mask, Wg=Wg, group=group,
             )
         dc = schur_dense.solve_reduced_chol(S, rhs, prob.cam_mask)
     else:
@@ -366,7 +393,8 @@ def _solve_lm(prob: BAProblem, H_cc, H_pp, W, b_c, b_p, lam, cfg: BAConfig,
 
         def mv(x):
             return schur_matvec(x, H_cc_safe, Hpp_inv, W, prob.obs_cam,
-                                prob.obs_point, prob.cam_mask, _plan(cam_red))
+                                prob.obs_point, prob.cam_mask, _plan(cam_red), group,
+                                point_sharded)
 
         dc = pcg(mv, rhs, M_inv, cfg.cg_iterations, cfg.cg_tol)
     dc = dc * prob.cam_mask[:, None]
@@ -380,7 +408,7 @@ def _solve_lm(prob: BAProblem, H_cc, H_pp, W, b_c, b_p, lam, cfg: BAConfig,
     else:
         u = _bmtv(W, dc[prob.obs_cam])
         z = _seg_sum_points(u, prob.obs_point, b_p.shape[0], dense_slots,
-                            _plan(cam_red).points)
+                            _plan(cam_red).points, None if point_sharded else group)
     dp = bmv(Hpp_inv, b_p - z)
     dp = dp * prob.point_mask[:, None]
 
@@ -395,20 +423,23 @@ def _next_lambda(accept, lam, cfg: BAConfig):
 
 
 @full_f32
-def lm_step(prob: BAProblem, lam, cfg: BAConfig, dense_slots=None, cam_red=None):
+def lm_step(prob: BAProblem, lam, cfg: BAConfig, dense_slots=None, cam_red=None,
+            group=None, point_sharded: bool = False):
     """One two-pass LM iteration: build, solve, evaluate the cost at the
-    trial point, accept/reject.
+    trial point, accept/reject. With `group`, prob holds this rank's shard
+    (see build_normal_equations) and every reduction and cost is summed
+    over the ranks.
 
     Returns (new_prob, new_lam, accepted, cost_before, cost_after).
     """
     H_cc, H_pp, W, b_c, b_p, cost0, Wg = build_normal_equations(
-        prob, cfg.huber_delta, dense_slots, cam_red)
+        prob, cfg.huber_delta, dense_slots, cam_red, group, point_sharded)
     pose6_new, points_new = _solve_lm(prob, H_cc, H_pp, W, b_c, b_p, lam, cfg,
-                                      dense_slots, cam_red, Wg)
-    cost1 = res_mod.robust_cost(
+                                      dense_slots, cam_red, Wg, None, group, point_sharded)
+    cost1 = all_reduce(res_mod.robust_cost(
         pose6_new, points_new, prob.obs_cam, prob.obs_point, prob.obs_uv,
         prob.obs_weight, prob.P_l, prob.P_r, cfg.huber_delta,
-    )
+    ), group)
     accept = cost1 < cost0
     new_prob = prob._replace(pose6=torch.where(accept, pose6_new, prob.pose6),
                              points=torch.where(accept, points_new, prob.points))
@@ -435,31 +466,33 @@ class LMCarry(NamedTuple):
 
 
 @full_f32
-def lm_init(prob: BAProblem, cfg: BAConfig, dense_slots=None, cam_red=None) -> LMCarry:
+def lm_init(prob: BAProblem, cfg: BAConfig, dense_slots=None, cam_red=None, group=None,
+            point_sharded: bool = False) -> LMCarry:
     H_cc, H_pp, W, b_c, b_p, cost, Wg = build_normal_equations(
-        prob, cfg.huber_delta, dense_slots, cam_red)
+        prob, cfg.huber_delta, dense_slots, cam_red, group, point_sharded)
     lam = torch.full((), cfg.lm_lambda_init, dtype=torch.float32, device=cost.device)
     return LMCarry(prob, lam, cost, H_cc, H_pp, W, b_c, b_p, Wg)
 
 
 @full_f32
 def lm_iteration(carry: LMCarry, cfg: BAConfig, dense_slots=None, cam_red=None,
-                 band=None, active=None):
+                 band=None, active=None, group=None, point_sharded: bool = False):
     """One evaluate-once LM iteration. Returns (new_carry, accepted,
     cost_before, cost_after). The accept decisions and damping schedule are
     lm_step's; the trial cost comes from the same whitened-residual pass
     that also produces the trial normal equations.
 
     `active` (a bool device tensor, default True): where False, the
-    iteration is masked, and the carry comes back as it went in."""
+    iteration is masked, and the carry comes back as it went in. `group`
+    and `point_sharded` as in lm_step."""
     prob = carry.prob
     pose6_new, points_new = _solve_lm(
         prob, carry.H_cc, carry.H_pp, carry.W, carry.b_c, carry.b_p, carry.lam,
-        cfg, dense_slots, cam_red, carry.Wg, band,
+        cfg, dense_slots, cam_red, carry.Wg, band, group, point_sharded,
     )
     prob_try = prob._replace(pose6=pose6_new, points=points_new)
     H_cc2, H_pp2, W2, b_c2, b_p2, cost_try, Wg2 = build_normal_equations(
-        prob_try, cfg.huber_delta, dense_slots, cam_red)
+        prob_try, cfg.huber_delta, dense_slots, cam_red, group, point_sharded)
 
     # A NaN trial (a failed Cholesky) compares False: rejected.
     accept = cost_try < carry.cost
@@ -507,11 +540,13 @@ def build_slots_device(obs_point, obs_cam, obs_weight, n_points_pad: int, K: int
     return sto, scam, mask
 
 
-def _cam_reduction(prob: BAProblem, dense_slots, cam_K):
+def _cam_reduction(prob: BAProblem, dense_slots, cam_K, distributed: bool = False):
     """The reductions' plan. Dense path: the [C,O] one-hot when C*O <=
     2**26 (256 MB), else the camera-run slot maps when `cam_K` is given,
-    else None (segmented sums). Matrix-free path: the SegmentPlan."""
-    if dense_slots is None:
+    else None (segmented sums). Matrix-free path, and every `distributed`
+    solve (a process group, or the point-aligned layout even on one rank;
+    as in the JAX package): the SegmentPlan."""
+    if dense_slots is None or distributed:
         return SegmentPlan(segments(prob.obs_cam, prob.pose6.shape[0]),
                            segments(prob.obs_point, prob.points.shape[0]))
     C = prob.pose6.shape[0]
@@ -525,7 +560,7 @@ def _cam_reduction(prob: BAProblem, dense_slots, cam_K):
 
 
 def _lm_loop(carry: LMCarry, max_iters: int, cfg: BAConfig, dense_slots, cam_red,
-             band):
+             band, group=None, point_sharded: bool = False):
     """Up to `max_iters` evaluate-once iterations with the reference's
     convergence exit (relative cost decrease < function_tolerance on an
     accepted step, the Ceres default semantics; ref
@@ -541,7 +576,7 @@ def _lm_loop(carry: LMCarry, max_iters: int, cfg: BAConfig, dense_slots, cam_red
     for _ in range(max_iters):
         active = ~done
         carry, accepted, c0, c1 = lm_iteration(carry, cfg, dense_slots, cam_red, band,
-                                               active=active)
+                                               active, group, point_sharded)
         iters = iters + active
         done = done | (accepted & (c0 > 0) & ((c0 - c1) < cfg.function_tolerance * c0))
     return carry, iters, done
@@ -553,7 +588,8 @@ def _band(band_bases, band_B, band_Pc):
 
 @full_f32
 def ba_solve(prob: BAProblem, max_iters: int, cfg: BAConfig, dense_slots=None,
-             dense_K=None, cam_K=None, band_bases=None, band_B=None, band_Pc=None):
+             dense_K=None, cam_K=None, band_bases=None, band_B=None, band_Pc=None,
+             group=None, point_sharded: bool = False):
     """Full LM solve: init + evaluate-once iterations until convergence or
     `max_iters`. Returns (carry, iterations_run, cost_initial), the count a
     0-d device tensor (no host sync).
@@ -564,28 +600,34 @@ def ba_solve(prob: BAProblem, max_iters: int, cfg: BAConfig, dense_slots=None,
     past the one-hot's C*O gate; without either, camera reductions are
     segmented sums. `band_bases` (host ints), `band_B`, `band_Pc` select the
     banded Schur assembly (schur_dense.band_plan).
+
+    `group` (JAX's `axis_name`): prob holds this rank's shard of the
+    observations (and, with `point_sharded`, of the points, whose slot maps
+    `dense_K` then builds locally); every reduction is summed over the
+    ranks, so all ranks take the same steps (parallel/dist_ba.py).
     """
     if dense_slots is None and dense_K is not None:
         dense_slots = build_slots_device(prob.obs_point, prob.obs_cam,
                                          prob.obs_weight, prob.points.shape[0], dense_K)
-    cam_red = _cam_reduction(prob, dense_slots, cam_K)
-    carry = lm_init(prob, cfg, dense_slots, cam_red)
+    cam_red = _cam_reduction(prob, dense_slots, cam_K, group is not None or point_sharded)
+    carry = lm_init(prob, cfg, dense_slots, cam_red, group, point_sharded)
     cost_init = carry.cost
     carry, iters, _ = _lm_loop(carry, max_iters, cfg, dense_slots, cam_red,
-                               _band(band_bases, band_B, band_Pc))
+                               _band(band_bases, band_B, band_Pc), group, point_sharded)
     return carry, iters, cost_init
 
 
 @full_f32
 def ba_resume(carry: LMCarry, max_iters: int, cfg: BAConfig, dense_slots=None,
-              cam_red=None, band_bases=None, band_B=None, band_Pc=None):
+              cam_red=None, band_bases=None, band_B=None, band_Pc=None, group=None,
+              point_sharded: bool = False):
     """Continue an LM solve from an existing carry for up to `max_iters`
     more evaluate-once iterations (the loop of ba_solve). The chunked path
     of BundleAdjuster runs a large solve as bounded chunks of these, with
     the wall cap checked between them. Returns (carry, iterations_run,
     converged), the last two as device tensors."""
     return _lm_loop(carry, max_iters, cfg, dense_slots, cam_red,
-                    _band(band_bases, band_B, band_Pc))
+                    _band(band_bases, band_B, band_Pc), group, point_sharded)
 
 
 def _pad_to(n: int, mult: int = 256) -> int:

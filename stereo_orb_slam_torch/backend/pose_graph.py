@@ -17,6 +17,11 @@ JAX `while_loop`, with the same exit test). The graph Hessian is never
 materialised. The error vector is ordered [translation, rotation], as the
 g2o information matrix is indexed in the reference.
 
+Distributed (parallel/dist_pose_graph.py): with `group`, the problem's
+edges are this rank's shard and the vertex state is replicated; each
+vertex sum is taken locally in edge order and then summed over the ranks
+(one all_reduce, JAX's `psum`), and so is the cost.
+
 The JAX package pads the vertex and edge counts to powers of two so that
 XLA compiles a program per bucket, not per graph; the padding adds exact
 zeros and fixed identity vertices, so it changes no value, and the port
@@ -38,6 +43,7 @@ from stereo_orb_slam_torch.backend.ba import (
 from stereo_orb_slam_torch.backend.residuals import bmv
 from stereo_orb_slam_torch.config import PoseGraphConfig
 from stereo_orb_slam_torch.geometry import se3
+from stereo_orb_slam_torch.parallel.mesh import all_reduce
 
 
 class PoseGraphProblem(NamedTuple):
@@ -147,16 +153,19 @@ def edge_plan(prob: PoseGraphProblem) -> EdgePlan:
                     segments(torch.cat([prob.edge_a, prob.edge_b + N]), 2 * N))
 
 
-def _vertex_sum(rows_a, rows_b, plan: EdgePlan, N: int):
-    """seg_sum(rows_a by edge_a) + seg_sum(rows_b by edge_b), rows [E, ...]."""
+def _vertex_sum(rows_a, rows_b, plan: EdgePlan, N: int, group=None):
+    """seg_sum(rows_a by edge_a) + seg_sum(rows_b by edge_b), rows [E, ...],
+    summed over `group`'s ranks when given."""
     both = _seg_sum(torch.cat([rows_a, rows_b]), None, 2 * N, plan.seg)
-    return both.view((2, N) + both.shape[1:]).sum(0)
+    return all_reduce(both.view((2, N) + both.shape[1:]).sum(0), group)
 
 
-def gn_step(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: Optional[EdgePlan] = None):
+def gn_step(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: Optional[EdgePlan] = None,
+            group=None):
     """One damped Gauss-Newton iteration over the whole graph. Returns the
     updated problem and the cost before the step (a 0-d tensor). `plan` is
-    edge_plan(prob), computed here when not given."""
+    edge_plan(prob), computed here when not given. With `group`, prob's
+    edges are this rank's shard (JAX's `axis_name`)."""
     dt, dev = prob.poses.dtype, prob.poses.device
     plan = plan if plan is not None else edge_plan(prob)
     # Made on the device: a host tensor would be a copy and a sync per step.
@@ -172,10 +181,11 @@ def gn_step(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: Optional[EdgePla
     J = torch.cat([J_a, J_b])  # [2E, 6, 6], the rows of `plan.ends`
 
     # Gradient: b = -(J^T r) accumulated per vertex.
-    b = -_vertex_sum(_bmtv(J_a, r), _bmtv(J_b, r), plan, N) * vm
+    b = -_vertex_sum(_bmtv(J_a, r), _bmtv(J_b, r), plan, N, group) * vm
 
     # Block diagonal of H for the Jacobi preconditioner.
-    diag = _vertex_sum(J_a.transpose(-1, -2) @ J_a, J_b.transpose(-1, -2) @ J_b, plan, N)
+    diag = _vertex_sum(J_a.transpose(-1, -2) @ J_a, J_b.transpose(-1, -2) @ J_b, plan, N,
+                       group)
     eye6 = torch.eye(6, dtype=dt, device=dev)
     diag = diag + cfg.damping * eye6[None]
     diag = torch.where(prob.vertex_mask[:, None, None] > 0, diag, eye6[None])
@@ -187,27 +197,28 @@ def gn_step(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: Optional[EdgePla
         y = v.view(2, E, 6).sum(0)                       # [E,6] = J_e @ x
         w = _bmtv(J, y.repeat(2, 1))                     # J_a^T y; J_b^T y
         both = _seg_sum(w, None, 2 * N, plan.seg)
-        out = both.view(2, N, 6).sum(0) + cfg.damping * xm
+        out = all_reduce(both.view(2, N, 6).sum(0), group) + cfg.damping * xm
         return out * vm + x * fixed
 
     delta = pcg(matvec, b, M_inv, cfg.cg_iterations, cfg.cg_tol) * vm
     poses_new = se3.normalize_pose(prob.poses @ se3.se3_exp(delta))
-    return prob._replace(poses=poses_new), cost
+    return prob._replace(poses=poses_new), all_reduce(cost, group)
 
 
 @full_f32
-def pg_solve(prob: PoseGraphProblem, cfg: PoseGraphConfig):
+def pg_solve(prob: PoseGraphProblem, cfg: PoseGraphConfig, group=None):
     """All `cfg.iterations` Gauss-Newton iterations (the reference runs a
     fixed 10 g2o iterations with no convergence exit, ref
     pose_graph_optimizer.cpp:68-69), launched with no host sync; TF32 is off
     for its products.
 
     Returns (final problem, cost_initial, cost_final), the costs as 0-d
-    tensors: the cost before the first and before the last step."""
+    tensors: the cost before the first and before the last step. `group`
+    as in gn_step."""
     plan = edge_plan(prob)
     costs = []
     for _ in range(cfg.iterations):
-        prob, c = gn_step(prob, cfg, plan)
+        prob, c = gn_step(prob, cfg, plan, group)
         costs.append(c)
     return prob, costs[0], costs[-1]
 

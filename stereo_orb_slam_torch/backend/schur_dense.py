@@ -26,12 +26,18 @@ this path is gated to windowed problems (C <= BAConfig.dense_schur_max_cams,
 P*K <= dense_schur_max_slots). The chunk loop runs on the host over chunk
 counts known there, so it adds no device sync. All products need full
 float32; the BA entry points turn TF32 off.
+
+Distributed (point-aligned layout, parallel/dist_ba.py): each rank
+assembles the share of S of its own points, and one [6C, 6C] all_reduce
+over `group` sums them before the camera blocks are added.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from stereo_orb_slam_torch.parallel.mesh import all_reduce
 
 
 def group_slots(obs_point, obs_cam, n_points_pad: int, n_obs: int):
@@ -121,7 +127,7 @@ def _finish_schur(S_sub, H_cc_safe, cam_mask):
 
 
 def assemble_schur(H_cc_safe, W, Hpp_inv, slot_to_obs, slot_cam, slot_mask,
-                   cam_mask, Wg=None):
+                   cam_mask, Wg=None, group=None):
     """Materialize the reduced camera system S = H_cc_safe - W H_pp^-1 W^T
     as [6C, 6C] in IC ORDER: flat index q = i * C + c (parameter i of
     camera c), NOT the (c, i) order of the matrix-free path. Downstream
@@ -131,6 +137,10 @@ def assemble_schur(H_cc_safe, W, Hpp_inv, slot_to_obs, slot_cam, slot_mask,
     W: [O,6,3] flat per-observation coupling blocks (J_c^T J_p);
     Hpp_inv: [P,3,3]; slot maps from `group_slots`. Fixed cameras get
     identity rows/cols (the pinning the matrix-free matvec applies).
+
+    `group` (JAX's `axis_name`): the points are this rank's shard; the
+    local contributions are summed over the ranks in one [6, C, 6, C]
+    all_reduce. H_cc_safe must already be the global one.
     """
     C = H_cc_safe.shape[0]
     P, K = slot_to_obs.shape
@@ -145,7 +155,7 @@ def assemble_schur(H_cc_safe, W, Hpp_inv, slot_to_obs, slot_cam, slot_mask,
     for lo in range(0, slot_cam.shape[0], Pc):
         hi = lo + Pc
         S_sub += _chunk_product(slot_cam[lo:hi], Wg[lo:hi], Hpp_inv[lo:hi], C)
-    return _finish_schur(S_sub, H_cc_safe, cam_mask)
+    return _finish_schur(all_reduce(S_sub, group), H_cc_safe, cam_mask)
 
 
 def band_plan(obs_point, obs_cam, n_points_pad: int, n_obs: int, C: int,

@@ -5,7 +5,10 @@ per-frame slots, sampling tables, BA problems, vocabularies, loop databases
 and configs), become the port's objects here, so two runs can start from
 the same rig, the same previous-frame state, the same BA problem or the
 same vocabulary. Descriptor words arrive as uint32 and are kept as int32
-tensors holding the same bit patterns.
+tensors holding the same bit patterns. Batched state converts the same way
+(slots with a leading sequence axis, stacked rigs), and so do the
+distributed solvers' inputs (a point-aligned problem with its meta, a
+pose graph with its edges).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from stereo_orb_slam_torch.backend.ba import BAProblem
+from stereo_orb_slam_torch.backend.pose_graph import PoseGraphProblem
 from stereo_orb_slam_torch.config import (
     BAConfig, FrontendConfig, LoopConfig, PoseGraphConfig, RansacConfig, SlamConfig,
 )
@@ -42,11 +46,17 @@ def pinhole_from_numpy(cam, device="cuda") -> Pinhole:
 
 def rig_from_numpy(rig, device="cuda") -> StereoRig:
     """A StereoRig from a mapping or NamedTuple with left, right (see
-    pinhole_from_numpy), rectified and baseline."""
+    pinhole_from_numpy), rectified and baseline. A stacked rig (every
+    field with a leading sequence axis, as the JAX package's `stack_rigs`
+    makes it) gives the port's stacked rig; its `rectified` flags must
+    agree."""
+    flags = np.unique(np.asarray(_get(rig, "rectified"), bool))
+    if len(flags) != 1:
+        raise ValueError("a stacked rig's sequences must share the triangulation path")
     return StereoRig(
         left=pinhole_from_numpy(_get(rig, "left"), device),
         right=pinhole_from_numpy(_get(rig, "right"), device),
-        rectified=bool(_get(rig, "rectified")),
+        rectified=bool(flags[0]),
         baseline=_tensor(_get(rig, "baseline"), device),
     )
 
@@ -59,7 +69,8 @@ def desc_to_tensor(desc_u32, device="cuda") -> torch.Tensor:
 
 def slots_from_numpy(slots, device="cuda") -> FrameSlots:
     """FrameSlots from a mapping or NamedTuple of NumPy arrays (kp_l, kp_r,
-    desc as uint32, pts, valid)."""
+    desc as uint32, pts, valid), with or without a leading sequence axis
+    (the JAX package's `batch_slots`)."""
     return FrameSlots(
         kp_l=_tensor(_get(slots, "kp_l"), device),
         kp_r=_tensor(_get(slots, "kp_r"), device),
@@ -84,6 +95,36 @@ def ba_problem_from_numpy(prob, device="cuda") -> BAProblem:
         f: (torch.as_tensor(np.array(_get(prob, f), np.int64), device=device)
             if f in index_fields else _tensor(_get(prob, f), device))
         for f in BAProblem._fields
+    })
+
+
+def point_aligned_from_numpy(prob, meta, rank: int, device="cuda") -> BAProblem:
+    """Rank `rank`'s shard of a point-aligned problem given as host arrays
+    with the [n_dev * S] layout and its meta (the JAX package's
+    `build_point_aligned` output, or the port's): the rank's points and
+    observations (local point indices), camera state and projections
+    whole. meta["bounds"] holds every rank's (point_lo, point_hi) as
+    consecutive entries."""
+    n_dev = meta["n_dev"]
+    sharded = {"points", "point_mask", "obs_cam", "obs_point", "obs_uv", "obs_weight"}
+    arrays = {}
+    for f in BAProblem._fields:
+        x = np.asarray(_get(prob, f))
+        if f in sharded:
+            k = x.shape[0] // n_dev
+            x = x[rank * k:(rank + 1) * k]
+        arrays[f] = x
+    return ba_problem_from_numpy(arrays, device)
+
+
+def pose_graph_problem_from_numpy(prob, device="cuda") -> PoseGraphProblem:
+    """A PoseGraphProblem from a mapping or NamedTuple of its fields (the
+    JAX package's, fetched to the host): edge ends as int64 tensors,
+    everything else float32."""
+    return PoseGraphProblem(**{
+        f: (torch.as_tensor(np.array(_get(prob, f), np.int64), device=device)
+            if f in ("edge_a", "edge_b") else _tensor(_get(prob, f), device))
+        for f in PoseGraphProblem._fields
     })
 
 

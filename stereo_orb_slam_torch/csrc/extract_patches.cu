@@ -19,6 +19,10 @@
 // of a window row, so each warp reads one 128-byte row segment and writes
 // 64 contiguous bytes. The cast rounds to nearest even (__float2bfloat16_rn),
 // as torch's and XLA's float -> bf16 conversions do.
+//
+// Batch: B images of one shape in one launch (gridDim.y is the image).
+// Image b is img[b * h * w ...], its starts ys/xs[b * n ...], its patches
+// out[b * n * P * P ...]. B = 1 is the unbatched launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,6 +33,11 @@ __global__ void __launch_bounds__(256)
 extract_patches_kernel(const float* __restrict__ img, int h, int w,
                        const int* __restrict__ ys, const int* __restrict__ xs,
                        int patch, __nv_bfloat16* __restrict__ out) {
+  const size_t image = blockIdx.y;
+  img += image * h * w;
+  ys += image * gridDim.x;
+  xs += image * gridDim.x;
+  out += image * gridDim.x * patch * patch;
   const int i = blockIdx.x;
   const int ys_i = ys[i] < 0 ? ys[i] + h : ys[i];
   const int xs_i = xs[i] < 0 ? xs[i] + w : xs[i];
@@ -45,13 +54,16 @@ extract_patches_kernel(const float* __restrict__ img, int h, int w,
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). n must be > 0 and
-// the image at least patch x patch.
-extern "C" int extract_patches_launch(const void* img, int h, int w, const void* ys,
-                                      const void* xs, int n, int patch, void* out,
-                                      void* stream) {
-  dim3 block(32, 8);
-  extract_patches_kernel<<<n, block, 0, static_cast<cudaStream_t>(stream)>>>(
+// `batch` images [batch, h, w] with n starts each (ys, xs [batch, n]) into
+// out [batch, n, patch, patch]. Returns the cudaError_t of the launch (0 on
+// success). n and batch must be > 0 and the image at least patch x patch.
+extern "C" int extract_patches_launch(const void* img, int batch, int h, int w,
+                                      const void* ys, const void* xs, int n, int patch,
+                                      void* out, void* stream) {
+  if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n, batch);
+  const dim3 block(32, 8);
+  extract_patches_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), h, w, static_cast<const int*>(ys),
       static_cast<const int*>(xs), patch, static_cast<__nv_bfloat16*>(out));
   return static_cast<int>(cudaGetLastError());

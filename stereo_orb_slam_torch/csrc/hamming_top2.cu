@@ -1,5 +1,6 @@
 // Hamming distance + running top-2 over packed 256-bit descriptors, on the
-// tensor cores, for one query set against one or two train sets per launch.
+// tensor cores, for one query set against one or two train sets per launch,
+// for a batch of B such problems (B sequences of a multi-sequence step).
 //
 // Replaces the TPU kernel `hamming_top2` (body `_kernel`) of
 // the JAX package's ops/pallas/hamming.py. Same function: for every query
@@ -27,12 +28,17 @@
 // A and B hold the same descriptor word for the same k-chunk: a lane with
 // groupID g and thread-in-group c holds words c and c + 4 of query rows g
 // and g + 8 (A) and of train row g of the tile (B).
-// A block takes 16 query rows of one set (gridDim.y is the set) and all of
-// that set's train rows; its 8 warps take the 8-row tiles in turn (warp w
-// takes tiles w, w + 8, ...). Each train word is read by one warp of a
-// block only, so the tiles are loaded straight into registers, 16 tiles'
-// loads issued together to cover the L2 latency, and not staged in shared
-// memory. At N = 1024 and two sets that is 128 blocks, one wave on 132 SMs.
+// A block takes 16 query rows of one set (gridDim.y is the set) of one
+// batch entry (gridDim.z is the batch) and all of that set's train rows;
+// its 8 warps take the 8-row tiles in turn (warp w takes tiles w, w + 8,
+// ...). Each train word is read by one warp of a block only, so the tiles
+// are loaded straight into registers, 16 tiles' loads issued together to
+// cover the L2 latency, and not staged in shared memory. At N = 1024 and
+// two sets that is 128 blocks, one wave on 132 SMs; a batch of B is B
+// times that, in the same launch. The batch entries are independent and
+// stored one after another: entry b of the queries starts at row b * n,
+// of set s's train rows and mask at row b * m_s, and its results are row
+// s * B + b of the [sets * B, n] outputs. B = 1 is the unbatched launch.
 // The epilogue keeps a running (d1, i1, d2) per lane for its two
 // accumulator rows, visiting its columns in ascending order with strict
 // `<`; the 4 lanes of a quad merge with shuffles and the 8 warps through
@@ -113,9 +119,13 @@ hamming_top2_kernel(const uint32_t* __restrict__ q, int n, TrainSets sets,
   // Selected, not indexed by blockIdx.y, so the parameters stay out of
   // local memory.
   const int set = blockIdx.y;
-  const uint32_t* __restrict__ t = set == 0 ? sets.t[0] : sets.t[1];
-  const uint8_t* __restrict__ valid = set == 0 ? sets.valid[0] : sets.valid[1];
+  const int batch = blockIdx.z;
   const int m = set == 0 ? sets.m[0] : sets.m[1];
+  const uint32_t* __restrict__ t =
+      (set == 0 ? sets.t[0] : sets.t[1]) + (size_t)batch * m * kWords;
+  const uint8_t* __restrict__ valid =
+      (set == 0 ? sets.valid[0] : sets.valid[1]) + (size_t)batch * m;
+  q += (size_t)batch * n * kWords;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // groupID
@@ -187,7 +197,7 @@ hamming_top2_kernel(const uint32_t* __restrict__ q, int n, TrainSets sets,
       Top2 r = part[0][threadIdx.x];
 #pragma unroll
       for (int k = 1; k < kWarps; ++k) r = merge(r, part[k][threadIdx.x]);
-      const size_t o = (size_t)set * n + row;
+      const size_t o = ((size_t)set * gridDim.z + batch) * n + row;
       d1_out[o] = (float)min(r.d1, kBig);
       i1_out[o] = r.i1;
       d2_out[o] = (float)min(r.d2, kBig);
@@ -198,14 +208,18 @@ hamming_top2_kernel(const uint32_t* __restrict__ q, int n, TrainSets sets,
 }  // namespace
 
 // One launch for `num_sets` (1 or 2) train sets against the same n query
-// rows; outputs are [num_sets, n], set-major. Set 1's pointers are ignored
-// when num_sets is 1. Returns the cudaError_t of the launch (0 on
-// success). n must be > 0.
-extern "C" int hamming_top2_launch(const void* q, int n, int num_sets, const void* t0,
-                                   const void* valid0, int m0, const void* t1,
-                                   const void* valid1, int m1, void* d1, void* i1,
-                                   void* d2, void* stream) {
-  if (num_sets < 1 || num_sets > kMaxSets) return static_cast<int>(cudaErrorInvalidValue);
+// rows, for `batch` independent problems: queries [batch, n, 8], set s's
+// train rows [batch, m_s, 8] and mask [batch, m_s]; outputs are
+// [num_sets, batch, n], set-major. Set 1's pointers are ignored when
+// num_sets is 1. Returns the cudaError_t of the launch (0 on success).
+// n and batch must be > 0.
+extern "C" int hamming_top2_launch(const void* q, int n, int batch, int num_sets,
+                                   const void* t0, const void* valid0, int m0,
+                                   const void* t1, const void* valid1, int m1, void* d1,
+                                   void* i1, void* d2, void* stream) {
+  if (num_sets < 1 || num_sets > kMaxSets || batch < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   TrainSets sets;
   sets.t[0] = static_cast<const uint32_t*>(t0);
   sets.valid[0] = static_cast<const uint8_t*>(valid0);
@@ -213,7 +227,7 @@ extern "C" int hamming_top2_launch(const void* q, int n, int num_sets, const voi
   sets.t[1] = static_cast<const uint32_t*>(t1);
   sets.valid[1] = static_cast<const uint8_t*>(valid1);
   sets.m[1] = m1;
-  dim3 grid((n + kRows - 1) / kRows, num_sets);
+  dim3 grid((n + kRows - 1) / kRows, num_sets, batch);
   hamming_top2_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(q), n, sets, static_cast<float*>(d1),
       static_cast<int*>(i1), static_cast<float*>(d2));

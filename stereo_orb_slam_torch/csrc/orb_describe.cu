@@ -33,6 +33,12 @@
 // segment), then lane j computes bit j of every word (samples 32w + j and
 // 256 + 32w + j, 4 taps each), and `__ballot_sync` assembles each word;
 // lanes 0-7 write the 8 words.
+//
+// Batch: B images of one shape in one launch (gridDim.y is the image; a
+// multi-sequence step describes all its left, then all its right images
+// this way). Image b is img[b * h * w ...], its corners xy[b * n * 2 ...]
+// and valid[b * n ...], its words out[b * n * 8 ...]. B = 1 is the
+// unbatched launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +76,11 @@ orb_describe_kernel(const float* __restrict__ img, int h, int w,
     s_idx[s] = tap_idx[s];
     s_w[s] = tap_w[s];
   }
+  const size_t image = blockIdx.y;
+  img += image * h * w;
+  xy += image * n * 2;
+  valid += image * n;
+  out += image * n * kWords;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int i = blockIdx.x * kWarps + warp;
@@ -107,12 +118,16 @@ orb_describe_kernel(const float* __restrict__ img, int h, int w,
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). n must be > 0, the
-// image at least 32 x 32, the tap tables [512, 4] (int16 and float32).
-extern "C" int orb_describe_launch(const void* img, int h, int w, const void* xy,
-                                   const void* valid, int n, const void* tap_idx,
-                                   const void* tap_w, void* out, void* stream) {
-  const int blocks = (n + kWarps - 1) / kWarps;
+// `batch` images [batch, h, w] with n corners each: xy [batch, n, 2],
+// valid [batch, n], out [batch, n, 8]. Returns the cudaError_t of the
+// launch (0 on success). n and batch must be > 0, the image at least
+// 32 x 32, the tap tables [512, 4] (int16 and float32).
+extern "C" int orb_describe_launch(const void* img, int batch, int h, int w,
+                                   const void* xy, const void* valid, int n,
+                                   const void* tap_idx, const void* tap_w, void* out,
+                                   void* stream) {
+  if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 blocks((n + kWarps - 1) / kWarps, batch);
   orb_describe_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), h, w, static_cast<const float*>(xy),
       static_cast<const uint8_t*>(valid), n, static_cast<const short4*>(tap_idx),

@@ -79,7 +79,8 @@ def empty_slots(n: int, device="cuda") -> FrameSlots:
 
 
 def detect_and_describe(img, fe: FrontendConfig, steer=None):
-    """Corners + ORB descriptors for one image."""
+    """Corners + ORB descriptors for one image [H, W], or for a batch of
+    images [S, H, W] (one describe launch for all of them)."""
     xy, _, v = detect.detect_corners(
         img, num_features=fe.num_features, quality_level=fe.quality_level,
         block_size=fe.block_size, min_distance=fe.min_distance,
@@ -94,29 +95,38 @@ def detect_and_describe(img, fe: FrontendConfig, steer=None):
     return xy, v, d
 
 
+def _take(x, idx):
+    """x[s, idx[s]] for every sequence s: x [S, N, ...], idx [S, M] int64."""
+    seq = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[seq, idx]
+
+
 def associate(
     xy_l, v_l, d_l, xy_r, v_r, d_r,
-    prev: FrameSlots, prev_usable, sampler: ransac.Sampler,
+    prev: FrameSlots, prev_usable, samplers,
     rig: cam_mod.StereoRig, max_distance,
     fe: FrontendConfig, rc: RansacConfig,
     rectified: Optional[bool] = None,
 ) -> StepResult:
-    """Stereo match + triangulate + temporal match + RANSAC.
+    """Stereo match + triangulate + temporal match + RANSAC, for S
+    sequences at once: every input with a leading S axis ([S] for
+    prev_usable), one sampler per sequence, and a rig shared by all or
+    stacked (`camera.stack_rigs`, one per sequence); max_distance is a
+    scalar or [S].
 
     Both matching stages take the left descriptors as queries, so one
-    top-2 search runs against the right image's and the previous frame's
-    descriptors together; each result is then gated with its own query
-    validity (left-corner validity for stereo, the slot validity that
-    stereo produces for temporal)."""
-    n = fe.num_features
-    prev_valid = prev.valid & prev_usable
+    top-2 search runs against the right images' and the previous frames'
+    descriptors together (one launch for all S sequences); each result is
+    then gated with its own query validity (left-corner validity for
+    stereo, the slot validity that stereo produces for temporal)."""
+    prev_valid = prev.valid & prev_usable[:, None]
     stereo_top2, temporal_top2 = match.hamming_top2_pair(
         d_l, d_r, v_r, prev.desc, prev_valid)
     # Stereo matching: left query -> right train (ref :262-289).
     r_idx, s_ok, _ = match.gate_matches(
         stereo_top2, v_l, max_distance=fe.match_max_distance, ratio=fe.match_ratio,
     )
-    kp_r = xy_r[r_idx.long()]
+    kp_r = _take(xy_r, r_idx.long())
 
     # A non-rectified rig's pixels are undistorted once, here, so slots,
     # map observations and RANSAC all see ideal pinhole coordinates.
@@ -127,12 +137,12 @@ def associate(
     pts, tri_ok = cam_mod.triangulate_ideal(
         rig, xy_l, kp_r, rectified=(True if rectified is None else rectified),
     )
-    depth_ok = torch.abs(pts[:, 2]) < max_distance
+    depth_ok = torch.abs(pts[..., 2]) < torch.as_tensor(max_distance)[..., None]
     slot_valid = v_l & s_ok & tri_ok & depth_ok
-    pts = torch.where(slot_valid[:, None], pts, 0.0)
+    pts = torch.where(slot_valid[..., None], pts, 0.0)
 
     slots = FrameSlots(kp_l=xy_l, kp_r=kp_r, desc=d_l, pts=pts, valid=slot_valid)
-    num_stereo = torch.sum(slot_valid.to(torch.int32))
+    num_stereo = torch.sum(slot_valid.to(torch.int32), dim=-1)
 
     # Temporal matching curr -> prev (ref :316-333; MatchPoints :64-91);
     # the slots' descriptors are d_l.
@@ -140,20 +150,20 @@ def associate(
         temporal_top2, slot_valid, max_distance=fe.match_max_distance,
         ratio=fe.match_ratio,
     )
-    num_temporal = torch.sum(t_ok.to(torch.int32))
+    num_temporal = torch.sum(t_ok.to(torch.int32), dim=-1)
 
-    # Batched RANSAC pose (ref :158-177).
+    # Batched RANSAC pose (ref :158-177), one sampler per sequence.
     pi = prev_idx.long()
     obs_curr = torch.cat([slots.kp_l, slots.kp_r], dim=-1)
     obs_prev_all = torch.cat([prev.kp_l, prev.kp_r], dim=-1)
     res = ransac.solve(
-        sampler,
+        samplers,
         slots.pts,
-        prev.pts[pi],
+        _take(prev.pts, pi),
         obs_curr,
-        obs_prev_all[pi],
+        _take(obs_prev_all, pi),
         t_ok,
-        torch.ones(n, dtype=torch.float32, device=xy_l.device),
+        torch.ones(t_ok.shape, dtype=torch.float32, device=xy_l.device),
         rig.left.projection,
         rig.right.projection,
         inlier_threshold_px=rc.inlier_threshold_px,
@@ -173,17 +183,37 @@ def associate(
     )
 
 
+def batched_frontend_step(imgs_l, imgs_r, prev: FrameSlots, prev_usable, samplers,
+                          rig: cam_mod.StereoRig, max_distance, fe: FrontendConfig,
+                          rc: RansacConfig, rectified=None, steer=None) -> StepResult:
+    """The full per-frame front end, Track() (ref visual_odometer.cpp:105-221),
+    for S sequences in one batched program: imgs [S, H, W] (uint8 or float32
+    tensors on the rig's device), prev with a leading S axis, prev_usable
+    [S], one sampler per sequence, a shared or stacked rig. Every field of
+    the result has the leading S axis. On the card a step launches
+    `hamming_top2` once and `orb_describe` twice (left images, right
+    images), whatever S is. The JAX package vmaps `frontend_step` over
+    sequences (its parallel/multi_seq.py); each sequence's result is the
+    one it gets alone."""
+    imgs_l = imgs_l.to(torch.float32)
+    imgs_r = imgs_r.to(torch.float32)
+    xy_l, v_l, d_l = detect_and_describe(imgs_l, fe, steer)
+    xy_r, v_r, d_r = detect_and_describe(imgs_r, fe, steer)
+    return associate(xy_l, v_l, d_l, xy_r, v_r, d_r, prev, prev_usable, samplers,
+                     rig, max_distance, fe, rc, rectified)
+
+
 def frontend_step(img_l, img_r, prev: FrameSlots, prev_usable, sampler,
                   rig: cam_mod.StereoRig, max_distance, fe: FrontendConfig,
                   rc: RansacConfig, rectified=None, steer=None) -> StepResult:
-    """The full per-frame front end, Track() (ref visual_odometer.cpp:105-221).
-    Images may be uint8 or float32 tensors on the rig's device."""
-    img_l = img_l.to(torch.float32)
-    img_r = img_r.to(torch.float32)
-    xy_l, v_l, d_l = detect_and_describe(img_l, fe, steer)
-    xy_r, v_r, d_r = detect_and_describe(img_r, fe, steer)
-    return associate(xy_l, v_l, d_l, xy_r, v_r, d_r, prev, prev_usable, sampler,
-                     rig, max_distance, fe, rc, rectified)
+    """The full per-frame front end of one sequence: `batched_frontend_step`
+    with S = 1. Images may be uint8 or float32 tensors on the rig's
+    device."""
+    prev_b = FrameSlots(*(x[None] for x in prev))
+    usable = torch.as_tensor(prev_usable, device=prev.valid.device).reshape(1)
+    res = batched_frontend_step(img_l[None], img_r[None], prev_b, usable, [sampler], rig,
+                                max_distance, fe, rc, rectified, steer)
+    return StepResult(FrameSlots(*(x[0] for x in res.slots)), *(x[0] for x in res[1:]))
 
 
 def frontend_chain(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, samplers,
@@ -264,13 +294,29 @@ def frontend_chain_bow(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, sampl
 
 
 def _to_host(res: StepResult, with_desc: bool = True) -> StepResult:
-    """NumPy copy of a (possibly stacked) StepResult; descriptor words come
-    back as uint32, or not at all (desc None) when `with_desc` is False."""
-    slots = FrameSlots(*(t.cpu().numpy() if (name != "desc" or with_desc) else None
-                         for name, t in zip(FrameSlots._fields, res.slots)))
+    """NumPy copy of a (possibly stacked or batched) StepResult in one
+    device-to-host copy: the fields' bytes are packed into one buffer,
+    widest elements first, so every field starts aligned. Descriptor
+    words come back as uint32, or not at all (desc None) when `with_desc` is
+    False."""
+    fields = [t for name, t in zip(FrameSlots._fields, res.slots)
+              if name != "desc" or with_desc] + list(res[1:])
+    order = sorted(range(len(fields)), key=lambda i: -fields[i].element_size())
+    buf = torch.cat([fields[i].reshape(-1).view(torch.uint8) for i in order]).cpu().numpy()
+    out, off = [None] * len(fields), 0
+    for i in order:
+        t = fields[i]
+        nbytes = t.numel() * t.element_size()
+        dtype = np.dtype(str(t.dtype).replace("torch.", ""))
+        out[i] = buf[off:off + nbytes].view(dtype).reshape(tuple(t.shape))
+        off += nbytes
+    n_slots = len(fields) - (len(res) - 1)
+    slots = out[:n_slots]
     if with_desc:
-        slots = slots._replace(desc=slots.desc.view(np.uint32))
-    return StepResult(slots, *(t.cpu().numpy() for t in res[1:]))
+        slots[2] = slots[2].view(np.uint32)
+    else:
+        slots.insert(2, None)
+    return StepResult(FrameSlots(*slots), *out[n_slots:])
 
 
 def _frame_seed(seed: int, frame: int) -> int:
@@ -538,10 +584,13 @@ class VisualOdometer:
         )
         return out
 
-    def _ingest(self, res: StepResult) -> np.ndarray:
-        """Host bookkeeping for one device StepResult."""
+    def _ingest(self, res: StepResult, host: Optional[StepResult] = None) -> np.ndarray:
+        """Host bookkeeping for one device StepResult; `host` is its NumPy
+        copy when the caller has read it back already (the multi-sequence
+        step reads all its sequences at once)."""
         self.last_result = res
-        host = _to_host(res)
+        if host is None:
+            host = _to_host(res)
         if int(host.num_stereo) < self.fe.min_stereo_matches:
             # Reference early return: the frame is not recorded (:117-121).
             self.success = False

@@ -14,6 +14,11 @@ All K hypotheses run at once as a batch dimension:
      reprojection error,
   4. the most inliers win, ties broken by the smaller truncated loss; the
      first maximum wins, as `jnp.argmax` picks.
+
+`solve` also takes S independent problems at once (the sequences of a
+multi-sequence step, which the JAX package vmaps): every per-pair input
+with a leading S axis and one sampler per sequence, so sequence s draws
+from its own stream and gets the result it gets alone.
 """
 
 from __future__ import annotations
@@ -77,17 +82,27 @@ def kabsch(src, dst, weights=None):
     return se3.rt_to_matrix(R, t)
 
 
+def _project(ph, P):
+    """Homogeneous points [S, ..., 4] through P: one [3, 4] for all, or
+    [S, 3, 4], one per sequence (each sequence's rows in one product)."""
+    if P.dim() == 2:
+        return ph @ P.T
+    S = ph.shape[0]
+    return (ph.reshape(S, -1, 4) @ P.transpose(-1, -2)).reshape(ph.shape[:-1] + (3,))
+
+
 def _stereo_residuals(T, pts_curr, obs_prev, P_l, P_r):
     """Predicted minus observed prev-frame stereo obs of curr-frame points
-    under T (batched over T's leading dims). Returns [..., N, 4]."""
-    Xp = se3.transform_points(T, pts_curr)
+    under T: T [S, K, 4, 4], pts_curr [S, N, 3], obs_prev [S, N, 4]. Returns
+    [S, K, N, 4]."""
+    Xp = se3.transform_points(T, pts_curr[:, None])
     ph = torch.cat([Xp, torch.ones_like(Xp[..., :1])], dim=-1)
-    uvw_l = ph @ P_l.T
-    uvw_r = ph @ P_r.T
+    uvw_l = _project(ph, P_l)
+    uvw_r = _project(ph, P_r)
     wl = torch.where(torch.abs(uvw_l[..., 2:3]) < 1e-9, 1e-9, uvw_l[..., 2:3])
     wr = torch.where(torch.abs(uvw_r[..., 2:3]) < 1e-9, 1e-9, uvw_r[..., 2:3])
     pred = torch.cat([uvw_l[..., :2] / wl, uvw_r[..., :2] / wr], dim=-1)
-    return pred - obs_prev
+    return pred - obs_prev[:, None]
 
 
 def gumbel_sampler(generator: torch.Generator, num_hypotheses: int) -> Sampler:
@@ -105,7 +120,7 @@ def gumbel_sampler(generator: torch.Generator, num_hypotheses: int) -> Sampler:
 
 
 def solve(
-    sampler: Sampler,
+    sampler,
     pts_curr,
     pts_prev,
     obs_curr,
@@ -122,57 +137,80 @@ def solve(
     """Batched RANSAC solve.
 
     Args:
-      sampler: valid [N] bool -> [K, 3] indices of the minimal sets.
+      sampler: valid [N] bool -> [K, 3] indices of the minimal sets; for S
+        problems, a sequence of S samplers (sequence s draws from its own).
       pts_curr: [N,3] triangulated points in the current camera frame.
       pts_prev: [N,3] the matched points in the previous camera frame.
       obs_curr/obs_prev: [N,4] stereo pixel observations (u_l,v_l,u_r,v_r).
       valid: [N] bool pair mask.
       weights: [N] per-pair weights (all ones in the reference, :175).
-      P_l, P_r: [3,4] stereo projection matrices.
-    """
-    n_valid = torch.sum(valid.to(torch.int32))
-    sets = sampler(valid).long()  # [K,3]
+      P_l, P_r: [3,4] stereo projection matrices ([S, 3, 4] for one rig per
+        sequence).
 
-    src = pts_curr[sets]  # [K,3,3]
-    Ts = kabsch(src, pts_prev[sets])  # [K,4,4]
+    With S problems every per-pair input has a leading S axis, and so has
+    every field of the result.
+    """
+    if pts_curr.dim() == 2:
+        out = _solve([sampler], pts_curr[None], pts_prev[None], obs_prev[None], valid[None],
+                     weights[None], P_l, P_r, inlier_threshold_px, min_pairs, min_inliers,
+                     final_model_fitting)
+        return RansacResult(*(x[0] for x in out))
+    return _solve(list(sampler), pts_curr, pts_prev, obs_prev, valid, weights, P_l, P_r,
+                  inlier_threshold_px, min_pairs, min_inliers, final_model_fitting)
+
+
+def _solve(samplers, pts_curr, pts_prev, obs_prev, valid, weights, P_l, P_r,
+           inlier_threshold_px, min_pairs, min_inliers, final_model_fitting) -> RansacResult:
+    """`solve` over S problems, every input with its leading S axis."""
+    S = pts_curr.shape[0]
+    if len(samplers) != S:
+        raise ValueError(f"{len(samplers)} samplers for {S} problems")
+    seq = torch.arange(S, device=pts_curr.device)
+    n_valid = torch.sum(valid.to(torch.int32), dim=-1)
+    sets = torch.stack([smp(v) for smp, v in zip(samplers, valid)]).long()  # [S,K,3]
+
+    src = pts_curr[seq[:, None, None], sets]  # [S,K,3,3]
+    Ts = kabsch(src, pts_prev[seq[:, None, None], sets])  # [S,K,4,4]
     # Degeneracy guard: collinear minimal sets give unstable rotations.
     areas = torch.linalg.vector_norm(
-        torch.linalg.cross(src[:, 1] - src[:, 0], src[:, 2] - src[:, 0]), dim=-1)
+        torch.linalg.cross(src[..., 1, :] - src[..., 0, :], src[..., 2, :] - src[..., 0, :]),
+        dim=-1)
     nondegenerate = areas > 1e-6
 
     def score(T):
         res = _stereo_residuals(T, pts_curr, obs_prev, P_l, P_r)
         err = torch.amax(torch.abs(res), dim=-1)
-        inl = (err < inlier_threshold_px) & valid
-        loss = torch.where(valid, torch.clamp(err, max=inlier_threshold_px) * weights, 0.0)
+        inl = (err < inlier_threshold_px) & valid[:, None]
+        loss = torch.where(valid[:, None],
+                           torch.clamp(err, max=inlier_threshold_px) * weights[:, None], 0.0)
         return torch.sum(inl.to(torch.int32), dim=-1), torch.sum(loss, dim=-1), err, inl
 
     counts, losses_sum, errs, inls = score(Ts)
     counts = torch.where(nondegenerate, counts, -1)
     order_key = counts.to(torch.float32) - 1e-6 * losses_sum
-    best = torch.argmax(order_key)
+    best = torch.argmax(order_key, dim=-1)
 
-    T_best = Ts[best]
-    mask = inls[best]
-    err_best = errs[best]
-    num_inl = counts[best]
+    T_best = Ts[seq, best]
+    mask = inls[seq, best]
+    err_best = errs[seq, best]
+    num_inl = counts[seq, best]
 
     if final_model_fitting:
         w = mask.to(torch.float32) * weights
         T_refit = kabsch(pts_curr, pts_prev, w)
-        cnt_r, _, err_r, inl_r = score(T_refit)
+        cnt_r, _, err_r, inl_r = (x[:, 0] for x in score(T_refit[:, None]))
         # Keep the refit only if it does not lose inliers.
         better = cnt_r >= num_inl
-        T_best = torch.where(better, T_refit, T_best)
-        mask = torch.where(better, inl_r, mask)
-        err_best = torch.where(better, err_r, err_best)
+        T_best = torch.where(better[:, None, None], T_refit, T_best)
+        mask = torch.where(better[:, None], inl_r, mask)
+        err_best = torch.where(better[:, None], err_r, err_best)
         num_inl = torch.maximum(num_inl, cnt_r)
 
     success = (n_valid >= min_pairs) & (num_inl >= min_inliers)
     eye = torch.eye(4, dtype=T_best.dtype, device=T_best.device)
     return RansacResult(
-        transform=torch.where(success, T_best, eye),
-        inlier_mask=mask & success,
+        transform=torch.where(success[:, None, None], T_best, eye),
+        inlier_mask=mask & success[:, None],
         losses=torch.where(valid, err_best, 0.0),
         num_inliers=num_inl,
         success=success,

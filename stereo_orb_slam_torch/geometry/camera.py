@@ -93,6 +93,22 @@ class StereoRig(NamedTuple):
         return self.left.fx * self.baseline
 
 
+def stack_rigs(rigs) -> StereoRig:
+    """S rigs as one, every tensor field with a leading sequence axis ([S]
+    scalars, [S, 3, 4] projections). All must share the triangulation path
+    (`rectified`) and one device."""
+    rigs = list(rigs)
+    flags = {r.rectified for r in rigs}
+    if len(flags) != 1:
+        raise ValueError("all rigs must share the triangulation path (rectified)")
+
+    def stack(cams):
+        return Pinhole(*(torch.stack(fs) for fs in zip(*cams)))
+
+    return StereoRig(left=stack([r.left for r in rigs]), right=stack([r.right for r in rigs]),
+                     rectified=flags.pop(), baseline=torch.stack([r.baseline for r in rigs]))
+
+
 def project(P, pts):
     """Project [..., N, 3] points through a [3,4] projection. -> [..., N, 2]."""
     ph = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
@@ -103,12 +119,14 @@ def project(P, pts):
 
 
 def undistort_points(cam: Pinhole, uv, iterations: int = 8):
-    """Distorted pixel coords -> undistorted pixel coords
+    """Distorted pixel coords [..., N, 2] -> undistorted pixel coords (a
+    stacked camera, fields [S], takes [S, N, 2])
     (ref `src/camera_model.cpp:72-90`): fixed-point inversion of the
     distortion in normalized coordinates, then back through K."""
-    x0 = (uv[..., 0] - cam.cx) / cam.fx
-    y0 = (uv[..., 1] - cam.cy) / cam.fy
-    k1, k2, p1, p2, k3 = (cam.dist[i] for i in range(5))
+    fx, fy, cx, cy = (f[..., None] for f in (cam.fx, cam.fy, cam.cx, cam.cy))
+    x0 = (uv[..., 0] - cx) / fx
+    y0 = (uv[..., 1] - cy) / fy
+    k1, k2, p1, p2, k3 = (cam.dist[..., i, None] for i in range(5))
     x, y = x0, y0
     for _ in range(iterations):
         r2 = x * x + y * y
@@ -116,7 +134,7 @@ def undistort_points(cam: Pinhole, uv, iterations: int = 8):
         dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
         dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
         x, y = (x0 - dx) / radial, (y0 - dy) / radial
-    return torch.stack([cam.fx * x + cam.cx, cam.fy * y + cam.cy], dim=-1)
+    return torch.stack([fx * x + cx, fy * y + cy], dim=-1)
 
 
 def triangulate_dlt(P1, P2, uv1, uv2):
@@ -127,8 +145,8 @@ def triangulate_dlt(P1, P2, uv1, uv2):
     value; its sign is arbitrary and cancels when dehomogenising.
     """
     def rows(P, uv):
-        r1 = uv[..., 0:1] * P[2] - P[0]
-        r2 = uv[..., 1:2] * P[2] - P[1]
+        r1 = uv[..., 0:1] * P[..., 2, :] - P[..., 0, :]
+        r2 = uv[..., 1:2] * P[..., 2, :] - P[..., 1, :]
         return torch.stack([r1, r2], dim=-2)  # [N,2,4]
 
     A = torch.cat([rows(P1, uv1), rows(P2, uv2)], dim=-2)  # [N,4,4]
@@ -141,17 +159,19 @@ def triangulate_dlt(P1, P2, uv1, uv2):
 
 def triangulate_rectified(rig: StereoRig, uv_l, uv_r, max_depth: float = 100.0):
     """Closed-form rectified triangulation with validity mask
-    (ref `src/camera_model.cpp:195-228`, 0 < z < max_depth gate)."""
-    fx = rig.left.fx
-    cx = rig.left.cx
-    cy = rig.left.cy
+    (ref `src/camera_model.cpp:195-228`, 0 < z < max_depth gate). uv_l,
+    uv_r [..., N, 2]; a stacked rig (`stack_rigs`, fields [S]) triangulates
+    sequence s's [S, N, 2] pixels with rig s."""
+    fx = rig.left.fx[..., None]
+    cx = rig.left.cx[..., None]
+    cy = rig.left.cy[..., None]
     u = uv_l[..., 0]
     v = uv_l[..., 1]
     d = uv_l[..., 0] - uv_r[..., 0]
     # z = fx * b / (d - (cx - cx_r)): accounts for differing principal points.
-    dd = d - (cx - rig.right.cx)
+    dd = d - (cx - rig.right.cx[..., None])
     safe_dd = torch.where(torch.abs(dd) < 1e-6, 1e-6, dd)
-    z = fx * rig.baseline / safe_dd
+    z = fx * rig.baseline[..., None] / safe_dd
     x = (u - cx) * z / fx
     y = (v - cy) * z / fx  # the rectified model assumes fx == fy
     pts = torch.stack([x, y, z], dim=-1)
@@ -162,10 +182,14 @@ def triangulate_rectified(rig: StereoRig, uv_l, uv_r, max_depth: float = 100.0):
 def triangulate_ideal(rig: StereoRig, uv_l, uv_r, max_depth: float = 100.0,
                       rectified: bool = True):
     """Triangulate already-undistorted (ideal pinhole) pixel observations:
-    closed-form disparity when rectified, else DLT without re-undistorting."""
+    closed-form disparity when rectified, else DLT without re-undistorting.
+    A stacked rig takes [S, N, 2] pixels, sequence s with rig s."""
     if rectified:
         return triangulate_rectified(rig, uv_l, uv_r, max_depth)
-    pts = triangulate_dlt(rig.left.projection, rig.right.projection, uv_l, uv_r)
+    P1, P2 = rig.left.projection, rig.right.projection
+    if P1.dim() == 3:  # stacked: one [3, 4] per sequence, for its N points
+        P1, P2 = P1[:, None], P2[:, None]
+    pts = triangulate_dlt(P1, P2, uv_l, uv_r)
     local = se3.transform_points(se3.inverse(rig.left.pose), pts)
     valid = (local[..., 2] > 0.0) & (local[..., 2] < max_depth)
     return pts, valid

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from stereo_orb_slam_torch.ops import orb
+from stereo_orb_slam_torch.ops.detect import top_k_stable
 from stereo_orb_slam_torch.ops.kernels import hamming
 
 NO_WORD_DIST = hamming.BIG  # 257: the distance of an invalid query row
@@ -160,14 +161,6 @@ def l1_scores(query_vec, database):
     return torch.sum(torch.minimum(query_vec[None, :], database), dim=1)
 
 
-def top_k_stable(scores, k: int):
-    """The k largest entries of each row, ties to the lower index, as
-    `lax.top_k` orders them (`torch.topk` fixes no order among ties, and
-    equal BoW scores are common: identical frames, the -1 padding)."""
-    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k]
-
-
 def batch_score_update(desc, valid, recorded, centroids, idf, database, db_size,
                        query_size: int = 4):
     """K frames of BoW scoring + database append, with no host sync.
@@ -214,6 +207,8 @@ def batch_score_update(desc, valid, recorded, centroids, idf, database, db_size,
     all_scores = torch.cat([torch.where(db_valid, db_scores, -1.0),
                             torch.where(batch_valid, cross, -1.0)], dim=1)
     all_ids = torch.cat([col.expand(K, cap), rows[None, :].expand(K, K)], dim=1)
+    # `lax.top_k`'s order (torch.topk fixes none among ties, and equal BoW
+    # scores are common: identical frames, the -1 padding).
     top_scores, top_idx = top_k_stable(all_scores, query_size)
     top_ids = torch.gather(all_ids, 1, top_idx)
     top_ids = torch.where(top_scores >= 0.0, top_ids, -1).to(torch.int32)

@@ -9,6 +9,10 @@ the response map, and with it the corner slots, match the JAX package.
 Slot order is part of the result (downstream code indexes by slot), so the
 top-K keeps `lax.top_k`'s order: descending, ties to the lower index. A
 stable descending sort gives exactly that; `torch.topk` does not promise it.
+
+Every function takes one image [H, W] or a batch [S, H, W] of images of
+one shape (the sequences of a multi-sequence step, where the JAX package
+vmaps); each image's values are those it gets alone.
 """
 
 from __future__ import annotations
@@ -17,20 +21,22 @@ import torch
 
 
 def _shift_y(img, d):
-    """img shifted so out[y] = img[y+d], edge-replicated."""
+    """img shifted so out[y] = img[y+d], edge-replicated (rows are dim -2)."""
     if d == 0:
         return img
     if d > 0:
-        return torch.cat([img[d:], img[-1:].expand(d, -1)], 0)
-    return torch.cat([img[:1].expand(-d, -1), img[:d]], 0)
+        edge = img[..., -1:, :].expand(img.shape[:-2] + (d, img.shape[-1]))
+        return torch.cat([img[..., d:, :], edge], -2)
+    edge = img[..., :1, :].expand(img.shape[:-2] + (-d, img.shape[-1]))
+    return torch.cat([edge, img[..., :d, :]], -2)
 
 
 def _shift_x(img, d):
     if d == 0:
         return img
     if d > 0:
-        return torch.cat([img[:, d:], img[:, -1:].expand(-1, d)], 1)
-    return torch.cat([img[:, :1].expand(-1, -d), img[:, :d]], 1)
+        return torch.cat([img[..., d:], img[..., -1:].expand(img.shape[:-1] + (d,))], -1)
+    return torch.cat([img[..., :1].expand(img.shape[:-1] + (-d,)), img[..., :d]], -1)
 
 
 def sobel_gradients(img):
@@ -94,15 +100,22 @@ def nms(response, radius: int):
     return response >= pooled
 
 
+def _gather2d(img, ys, xs):
+    """img[..., ys, xs] per image: img [S, H, W], ys/xs [S, N] -> [S, N]."""
+    W = img.shape[-1]
+    return torch.gather(img.reshape(img.shape[0], -1), 1, ys * W + xs)
+
+
 def subpixel_refine(response, ys, xs):
     """Quadratic-fit subpixel offset from the 3x3 response neighbourhood;
-    the peak offset -H^-1 g is clamped to [-0.5, 0.5] per axis."""
-    H, W = response.shape
+    the peak offset -H^-1 g is clamped to [-0.5, 0.5] per axis. response
+    [S, H, W], ys/xs [S, N] (int64)."""
+    H, W = response.shape[-2:]
     ys_c = torch.clamp(ys, 1, H - 2)
     xs_c = torch.clamp(xs, 1, W - 2)
 
     def at(dy, dx):
-        return response[ys_c + dy, xs_c + dx]
+        return _gather2d(response, ys_c + dy, xs_c + dx)
 
     gx = 0.5 * (at(0, 1) - at(0, -1))
     gy = 0.5 * (at(1, 0) - at(-1, 0))
@@ -120,10 +133,10 @@ def subpixel_refine(response, ys, xs):
 
 
 def top_k_stable(values, k: int):
-    """`lax.top_k` on a 1-D tensor: the k largest, descending, ties to the
-    lower index."""
-    vals, idx = torch.sort(values, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """`lax.top_k` over the last axis: the k largest, descending, ties to
+    the lower index."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def detect_corners(
@@ -138,16 +151,18 @@ def detect_corners(
     """Detect up to `num_features` Shi-Tomasi corners.
 
     Args:
-      img: [H, W] float32 grayscale.
+      img: [H, W] float32 grayscale, or [S, H, W] (each image on its own).
       border: exclusion margin so descriptor patches stay in bounds.
 
-    Returns:
+    Returns (with the leading S axis for a batch):
       xy:    [num_features, 2] float32 (x, y) subpixel coords.
       score: [num_features] response values.
       valid: [num_features] bool mask (score above quality gate).
     """
-    resp_raw = shi_tomasi_response(img, block_size)
-    H, W = resp_raw.shape
+    batched = img.dim() == 3
+    imgs = img if batched else img[None]
+    resp_raw = shi_tomasi_response(imgs, block_size)
+    S, H, W = resp_raw.shape
     dev = img.device
 
     # Deterministic tie-breaking jitter for NMS and ordering only; the
@@ -155,7 +170,8 @@ def detect_corners(
     yy = torch.arange(H, dtype=torch.int32, device=dev)[:, None].expand(H, W)
     xx = torch.arange(W, dtype=torch.int32, device=dev)[None, :].expand(H, W)
     hash_pat = ((yy * 7919 + xx * 104729) % 65521).to(torch.float32) * (1.0 / 65521.0)
-    resp = resp_raw + hash_pat * (1e-5 * torch.clamp(torch.max(resp_raw), min=1e-12))
+    peak = torch.amax(resp_raw, dim=(-2, -1), keepdim=True)
+    resp = resp_raw + hash_pat * (1e-5 * torch.clamp(peak, min=1e-12))
 
     nms_radius = max(1, min_distance // 2)
     keep = nms(resp, nms_radius)
@@ -171,25 +187,25 @@ def detect_corners(
         padded = torch.nn.functional.pad(
             masked, (0, Wp - W, 0, Hp - H), value=-torch.inf
         )
-        tiles = padded.reshape(Hp // tile, tile, Wp // tile, tile)
-        tiles = tiles.permute(0, 2, 1, 3).reshape(-1, tile * tile)
-        tile_max = torch.amax(tiles, dim=1)
+        tiles = padded.reshape(S, Hp // tile, tile, Wp // tile, tile)
+        tiles = tiles.permute(0, 1, 3, 2, 4).reshape(S, -1, tile * tile)
+        tile_max = torch.amax(tiles, dim=-1)
         # argmax returns the first maximum, as jnp.argmax does.
-        tile_arg = torch.argmax(tiles, dim=1)
+        tile_arg = torch.argmax(tiles, dim=-1)
         top_vals, tidx = top_k_stable(tile_max, num_features)
         n_wt = Wp // tile
         ty = tidx // n_wt
         tx = tidx % n_wt
-        within = tile_arg[tidx]
+        within = torch.gather(tile_arg, 1, tidx)
         ys = ty * tile + within // tile
         xs = tx * tile + within % tile
     else:
-        top_vals, idx = top_k_stable(masked.reshape(-1), num_features)
+        top_vals, idx = top_k_stable(masked.reshape(S, -1), num_features)
         ys = idx // W
         xs = idx % W
-    scores = resp_raw[ys, xs]
+    scores = _gather2d(resp_raw, ys, xs)
 
-    max_resp = torch.max(torch.where(keep & in_border, resp_raw, 0.0))
+    max_resp = torch.amax(torch.where(keep & in_border, resp_raw, 0.0), dim=(-2, -1))[:, None]
     valid = (
         torch.isfinite(top_vals)
         & (scores > quality_level * max_resp)
@@ -203,5 +219,6 @@ def detect_corners(
         dy = dx = torch.zeros_like(scores)
 
     xy = torch.stack([xs.to(torch.float32) + dx, ys.to(torch.float32) + dy], dim=-1)
-    xy = torch.where(valid[:, None], xy, 0.0)
-    return xy, torch.where(valid, scores, 0.0), valid
+    xy = torch.where(valid[..., None], xy, 0.0)
+    out = xy, torch.where(valid, scores, 0.0), valid
+    return out if batched else tuple(x[0] for x in out)

@@ -11,7 +11,8 @@ tap table (`tap_table`) instead of multiplying by the dense table.
 `orb_describe` takes the plain version (the patch cut, the float32 product
 with the dense table, the compare and `pack_bits`) for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; it raises for
-anything else. `LAUNCHES` counts kernel launches.
+anything else. It also takes a batch of images of one shape ([B, Hp, Wp]
+with [B, N] corners) in one launch. `LAUNCHES` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from stereo_orb_slam_torch.ops.kernels import _build, patches
 LAUNCHES = 0
 TAPS = 4  # nonzero bilinear weights per sample point, at most
 _NAME = "orb_describe"
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p)
 _taps: dict = {}
@@ -56,24 +57,27 @@ def tap_table(table):
 
 def orb_describe_plain(padded, xy, valid, table):
     """The plain version: the bf16 patch cut at the rounded corners, the
-    float32 product with the dense table, the compare and the packing."""
-    n = xy.shape[0]
+    float32 product with the dense table, the compare and the packing, for
+    one image or a batch ([B, Hp, Wp] with [B, N] corners, the rows of all
+    images in one product)."""
+    lead = xy.shape[:-1]
     flat = patches.extract_patches_plain(padded, *orb.window_starts(xy), orb.PATCH)
-    vals = flat.reshape(n, -1).float() @ table[0].float()
-    bits = vals[:, :orb.N_TESTS] < vals[:, orb.N_TESTS:]
-    return torch.where(valid[:, None], orb.pack_bits(bits), 0)
+    vals = flat.reshape(-1, orb.PATCH * orb.PATCH).float() @ table[0].float()
+    bits = (vals[:, :orb.N_TESTS] < vals[:, orb.N_TESTS:]).reshape(lead + (orb.N_TESTS,))
+    return torch.where(valid[..., None], orb.pack_bits(bits), 0)
 
 
 def _launch(padded, xy, valid, table):
+    """One launch over the [B, Hp, Wp] images and their [B, N] corners."""
     global LAUNCHES
-    n = xy.shape[0]
-    out = torch.empty((n, orb.N_WORDS), dtype=torch.int32, device=xy.device)
-    if n == 0:
+    b, n = valid.shape
+    out = torch.empty((b, n, orb.N_WORDS), dtype=torch.int32, device=xy.device)
+    if n == 0 or b == 0:
         return out
     idx, weights = tap_table(table)
-    H, W = padded.shape
+    H, W = padded.shape[-2:]
     fn = _build.function(_NAME, "orb_describe_launch", _ARGTYPES)
-    err = fn(padded.data_ptr(), H, W, xy.data_ptr(), valid.data_ptr(), n, idx.data_ptr(),
+    err = fn(padded.data_ptr(), b, H, W, xy.data_ptr(), valid.data_ptr(), n, idx.data_ptr(),
              weights.data_ptr(), out.data_ptr(),
              torch.cuda.current_stream(xy.device).cuda_stream)
     if err != 0:
@@ -87,25 +91,29 @@ def orb_describe(padded, xy, valid, table):
 
     Args:
       padded: [H + 2 PATCH_R, W + 2 PATCH_R] float32 smoothed image padded
-        by PATCH_R.
-      xy: [N, 2] float32 corner coordinates (x, y) in the unpadded frame;
-        window starts are their round-half-to-even values.
-      valid: [N] bool; invalid corners get 0 words.
+        by PATCH_R, or [B, ., .] for a batch of B images (one launch).
+      xy: [N, 2] float32 corner coordinates (x, y) in the unpadded frame
+        ([B, N, 2]); window starts are their round-half-to-even values.
+      valid: [N] bool ([B, N]); invalid corners get 0 words.
       table: the upright bf16 sampling table [1, P^2, 512]
         (`orb.steer_table(False)`).
 
-    Returns [N, 8] int32 packed descriptors (bit j of word w = test 32w + j).
+    Returns [N, 8] ([B, N, 8]) int32 packed descriptors (bit j of word w =
+    test 32w + j).
     """
     P = orb.PATCH
-    if padded.dim() != 2 or padded.dtype != torch.float32:
-        raise ValueError(f"padded must be a 2-D float32 tensor, got {padded.dtype} "
-                         f"{tuple(padded.shape)}")
-    if padded.shape[0] < P or padded.shape[1] < P:
+    batched = padded.dim() == 3
+    if padded.dim() not in (2, 3) or padded.dtype != torch.float32:
+        raise ValueError(f"padded must be a [H, W] or [B, H, W] float32 tensor, got "
+                         f"{padded.dtype} {tuple(padded.shape)}")
+    if padded.shape[-2] < P or padded.shape[-1] < P:
         raise ValueError(f"image {tuple(padded.shape)} is smaller than a {P}x{P} patch")
-    if xy.dim() != 2 or xy.shape[1] != 2 or xy.dtype != torch.float32:
-        raise ValueError("xy must be a float32 [N, 2] tensor")
-    if valid.shape != (xy.shape[0],) or valid.dtype != torch.bool:
-        raise ValueError("valid must be a bool [N] tensor")
+    if xy.dim() != 2 + batched or xy.shape[-1] != 2 or xy.dtype != torch.float32:
+        raise ValueError("xy must be a float32 [N, 2] tensor, [B, N, 2] for a batch")
+    if batched and xy.shape[0] != padded.shape[0]:
+        raise ValueError("xy needs one row of corners per image")
+    if valid.shape != xy.shape[:-1] or valid.dtype != torch.bool:
+        raise ValueError("valid must be a bool tensor of xy's corners")
     if table.shape != (1, P * P, 2 * orb.N_TESTS) or table.dtype != torch.bfloat16:
         raise ValueError(f"table must be the bf16 [1, {P * P}, {2 * orb.N_TESTS}] upright table")
     tensors = (padded, xy, valid, table)
@@ -116,4 +124,6 @@ def orb_describe(padded, xy, valid, table):
         raise ValueError(f"tensors on mixed or unsupported devices: {devices}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("padded, xy, valid and table must be contiguous")
-    return _launch(padded, xy, valid, table)
+    if batched:
+        return _launch(padded, xy, valid, table)
+    return _launch(padded[None], xy[None], valid[None], table)[0]

@@ -132,71 +132,80 @@ def _disc_masks(radius: int, device):
 
 
 def pad_edge(img, r: int = PATCH_R):
-    """Pad a [H, W] image by r on every side, replicating the edge."""
-    return torch.nn.functional.pad(img[None, None], (r, r, r, r), mode="replicate")[0, 0]
+    """Pad a [..., H, W] image (or batch of images) by r on every side,
+    replicating the edge."""
+    H, W = img.shape[-2:]
+    flat = img.reshape(-1, 1, H, W)
+    out = torch.nn.functional.pad(flat, (r, r, r, r), mode="replicate")
+    return out.reshape(img.shape[:-2] + out.shape[-2:])
 
 
 def window_starts(xy):
     """(ys, xs) int32 top-left corners, in the image padded by PATCH_R, of
-    the windows centred on the corners xy (original image frame): the
-    coordinates rounded half to even, as `jnp.round` rounds."""
-    return torch.round(xy[:, 1]).to(torch.int32), torch.round(xy[:, 0]).to(torch.int32)
+    the windows centred on the corners xy [..., N, 2] (original image
+    frame): the coordinates rounded half to even, as `jnp.round` rounds."""
+    return torch.round(xy[..., 1]).to(torch.int32), torch.round(xy[..., 0]).to(torch.int32)
 
 
 def extract_patches(smoothed_padded, xy):
-    """[N, PATCH, PATCH] bf16 patches at the rounded corner positions.
+    """[..., N, PATCH, PATCH] bf16 patches at the rounded corner positions.
 
-    `smoothed_padded` is the float32 smoothed image padded by PATCH_R; xy
-    are coordinates in the original image frame.
+    `smoothed_padded` is the float32 smoothed image padded by PATCH_R (or a
+    batch of them); xy are coordinates in the original image frame.
     """
     return patch_kernel.extract_patches(smoothed_padded, *window_starts(xy), PATCH)
 
 
 def pack_bits(bits):
-    """[N, 256] bool -> [N, 8] int32 words holding the uint32 bit patterns
-    (bit j of word w = test 32w + j). Built in int64, so bit 31 cannot
-    overflow, then narrowed to the same 32-bit pattern."""
-    n = bits.shape[0]
+    """[..., 256] bool -> [..., 8] int32 words holding the uint32 bit
+    patterns (bit j of word w = test 32w + j). Built in int64, so bit 31
+    cannot overflow, then narrowed to the same 32-bit pattern."""
     weights = torch.ones(32, dtype=torch.int64, device=bits.device) << torch.arange(
         32, dtype=torch.int64, device=bits.device)
-    words = torch.sum(bits.reshape(n, N_WORDS, 32).to(torch.int64) * weights, dim=-1)
+    words = torch.sum(bits.reshape(bits.shape[:-1] + (N_WORDS, 32)).to(torch.int64) * weights,
+                      dim=-1)
     words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
     return words.to(torch.int32)
 
 
 def unpack_bits(words):
-    """[N, 8] int32 words -> [N, 256] {0,1} float32. Arithmetic shifts keep
-    bit 31's value, so the int32 view of a uint32 word unpacks to its bits."""
+    """[..., 8] int32 words -> [..., 256] {0,1} float32. Arithmetic shifts
+    keep bit 31's value, so the int32 view of a uint32 word unpacks to its
+    bits."""
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
-    bits = (words[:, :, None] >> shifts) & 1
-    return bits.reshape(words.shape[0], N_TESTS).to(torch.float32)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(words.shape[:-1] + (N_TESTS,)).to(torch.float32)
 
 
 def compute_descriptors(img, xy, valid, smoothing_ksize: int = 7,
                         orientation_radius: int = 15, steer=None):
-    """ORB descriptors at the given corners.
+    """ORB descriptors at the given corners, of one image or a batch of
+    images of one shape (a leading axis on every argument); a batch takes
+    one describe launch on the card.
 
     Args:
-      img:   [H, W] float32 grayscale.
-      xy:    [N, 2] float32 corner coords (x, y).
-      valid: [N] bool.
+      img:   [H, W] float32 grayscale, or [S, H, W].
+      xy:    [N, 2] float32 corner coords (x, y), or [S, N, 2].
+      valid: [N] bool, or [S, N].
       steer: the sampling table of `steer_table` (upright when None); a
         one-bin table takes the fused upright describe.
 
     Returns:
-      desc:  [N, 8] int32 packed 256-bit descriptors (0 where invalid).
-      angle: [N] float32 orientation (radians; 0 when upright).
+      desc:  [..., N, 8] int32 packed 256-bit descriptors (0 where invalid).
+      angle: [..., N] float32 orientation (radians; 0 when upright).
     """
     if steer is None:
         steer = steer_table(False, img.device)
-    n = xy.shape[0]
+    lead = xy.shape[:-1]
     padded = pad_edge(smooth_image(img, smoothing_ksize))
     k_bins = steer.shape[0]
     if k_bins == 1:
-        theta = torch.zeros(n, dtype=torch.float32, device=img.device)
+        theta = torch.zeros(lead, dtype=torch.float32, device=img.device)
         return describe_kernel.orb_describe(padded, xy, valid, steer), theta
 
-    flat16 = extract_patches(padded, xy).reshape(n, PATCH * PATCH)
+    # Every image's corners as rows of one product (one image: [N, P^2]).
+    flat16 = extract_patches(padded, xy).reshape(-1, PATCH * PATCH)
+    n = flat16.shape[0]
     # Orientation from intensity-centroid moments over a disc; the moment
     # weights are small integers, exact in bf16.
     mom_k = _disc_masks(orientation_radius, img.device)
@@ -215,5 +224,5 @@ def compute_descriptors(img, xy, valid, smoothing_ksize: int = 7,
         vals = vals + (flat16 * wk[:, None]).float() @ steer[k].float()
 
     bits = vals[:, :N_TESTS] < vals[:, N_TESTS:]
-    desc = pack_bits(bits)
-    return torch.where(valid[:, None], desc, 0), theta
+    desc = pack_bits(bits).reshape(lead + (N_WORDS,))
+    return torch.where(valid[..., None], desc, 0), theta.reshape(lead)

@@ -1,0 +1,92 @@
+"""Distributed pose-graph Gauss-Newton over the ranks of a mesh.
+
+PyTorch counterpart of the JAX package's `parallel/dist_pose_graph.py`:
+edges sharded over the ranks, vertex state replicated; the per-edge
+Hessian and gradient contributions and the vertex sum inside each CG
+matvec are summed over the ranks (backend/pose_graph.py with `group`).
+Every rank runs the same steps on the same replicated vertices, so all
+ranks end with the same poses.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from stereo_orb_slam_torch.backend.pose_graph import PoseGraphProblem, gn_step, pg_solve
+from stereo_orb_slam_torch.config import PoseGraphConfig
+from stereo_orb_slam_torch.parallel.mesh import Mesh
+
+
+def _shard(mesh: Mesh, prob: PoseGraphProblem) -> PoseGraphProblem:
+    """This rank's slice of the edge arrays (whose length the mesh size
+    divides); vertex state whole."""
+    E = prob.edge_a.shape[0]
+    if E % mesh.size:
+        raise ValueError(f"{E} edges do not split over {mesh.size} ranks")
+    k = E // mesh.size
+    lo, hi = mesh.rank * k, (mesh.rank + 1) * k
+    return prob._replace(edge_a=prob.edge_a[lo:hi], edge_b=prob.edge_b[lo:hi],
+                         edge_meas=prob.edge_meas[lo:hi], edge_weight=prob.edge_weight[lo:hi])
+
+
+def sharded_gn_step(mesh: Mesh, cfg: PoseGraphConfig):
+    """fn(prob) -> (prob', cost): one GN step with prob's edges split over
+    the mesh (prob holds all edges; each rank keeps its slice)."""
+    def step(prob):
+        new, cost = gn_step(_shard(mesh, prob), cfg, group=mesh.group)
+        return prob._replace(poses=new.poses), cost
+    return step
+
+
+def sharded_pg_solve(mesh: Mesh, cfg: PoseGraphConfig):
+    """fn(prob) -> (prob', cost0, cost_final): all GN iterations
+    (backend.pose_graph.pg_solve) with prob's edges split over the mesh."""
+    def run(prob):
+        new, c0, c1 = pg_solve(_shard(mesh, prob), cfg, group=mesh.group)
+        return prob._replace(poses=new.poses), c0, c1
+    return run
+
+
+def padded_problem(poses, edge_a, edge_b, edge_meas, mesh: Mesh,
+                   fixed_vertex: int = 0) -> PoseGraphProblem:
+    """The whole graph on the mesh's device, its edges padded to a
+    multiple of the mesh size with zero-weight identity edges and
+    `fixed_vertex` held fixed (the gauge)."""
+    n_dev = mesh.size
+    E = len(edge_a)
+    E_pad = -(-max(E, 1) // n_dev) * n_dev
+
+    ea = np.zeros(E_pad, np.int64)
+    eb = np.zeros(E_pad, np.int64)
+    em = np.tile(np.eye(4, dtype=np.float32), (E_pad, 1, 1))
+    ew = np.zeros(E_pad, np.float32)
+    ea[:E] = edge_a
+    eb[:E] = edge_b
+    em[:E] = edge_meas
+    ew[:E] = 1.0
+
+    vmask = np.ones(len(poses), np.float32)
+    vmask[fixed_vertex] = 0.0
+    dev = mesh.device
+    return PoseGraphProblem(
+        poses=torch.as_tensor(np.asarray(poses, np.float32), device=dev),
+        edge_a=torch.as_tensor(ea, device=dev), edge_b=torch.as_tensor(eb, device=dev),
+        edge_meas=torch.as_tensor(em, device=dev), edge_weight=torch.as_tensor(ew, device=dev),
+        vertex_mask=torch.as_tensor(vmask, device=dev),
+    )
+
+
+def solve(poses, edge_a, edge_b, edge_meas, mesh: Mesh,
+          cfg: Optional[PoseGraphConfig] = None, fixed_vertex: int = 0):
+    """Standalone distributed pose-graph solve, called on every rank with
+    the same graph: poses [N,4,4], edges as arrays (see padded_problem).
+    Returns (poses_new [N,4,4] as NumPy, the same on every rank,
+    [cost_initial, cost_final])."""
+    cfg = cfg or PoseGraphConfig()
+    prob = padded_problem(poses, edge_a, edge_b, edge_meas, mesh, fixed_vertex)
+    prob, c0, c_last = sharded_pg_solve(mesh, cfg)(prob)
+    costs = torch.stack([c0, c_last]).cpu().numpy()
+    return prob.poses.cpu().numpy(), [float(costs[0]), float(costs[1])]

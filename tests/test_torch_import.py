@@ -38,12 +38,18 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     for name in ("backend.ba", "backend.schur_dense", "backend.residuals",
                  "geometry.se3_np", "io.checkpoint", "apps.refine",
                  "loop", "loop.vocab", "loop.detector", "backend.pose_graph",
-                 "apps.slam", "apps.train_vocab", "utils.viz", "utils.profiling"):
+                 "apps.slam", "apps.train_vocab", "utils.viz", "utils.profiling",
+                 "parallel", "parallel.mesh", "parallel.multihost", "parallel.multi_seq",
+                 "parallel.dist_ba", "parallel.dist_pose_graph", "apps.scaling_bench"):
         assert "stereo_orb_slam_torch." + name in report["modules"]
 
 
 def _sources(with_smoke):
-    files = [os.path.join(ROOT, "chip_smoke.py")] if with_smoke else []
+    # With the smoke: also the JAX-free test helpers that spawned ranks and
+    # the smoke import.
+    files = ([os.path.join(ROOT, name) for name in
+              ("chip_smoke.py", "tests/dist_workers.py", "tests/synth_ba.py")]
+             if with_smoke else [])
     for dirpath, _, names in os.walk(os.path.join(ROOT, "stereo_orb_slam_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith((".py", ".cu"))]
     return [(f, open(f, encoding="utf-8").read()) for f in files]
@@ -61,6 +67,7 @@ def test_port_package_does_not_name_the_jax_package():
 
 def test_entry_points_default_to_cuda():
     from stereo_orb_slam_torch import convert
+    from stereo_orb_slam_torch.apps import scaling_bench
     from stereo_orb_slam_torch.frontend import odometer
     from stereo_orb_slam_torch.geometry import camera
     from stereo_orb_slam_torch.io import calib, datasets
@@ -72,5 +79,7 @@ def test_entry_points_default_to_cuda():
                convert.ba_problem_from_numpy, odometer.empty_banks,
                datasets.DeviceBatchReader, OrbVocabulary, OrbVocabulary.train,
                OrbVocabulary.load, convert.vocabulary_from_numpy,
-               convert.loop_database_from_numpy):
+               convert.loop_database_from_numpy, convert.point_aligned_from_numpy,
+               convert.pose_graph_problem_from_numpy, scaling_bench.make_problem,
+               scaling_bench.run):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn

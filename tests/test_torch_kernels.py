@@ -129,6 +129,79 @@ def test_patch_kernel_matches_plain(rng, cuda, n):
     assert torch.equal(got.cpu(), pk.extract_patches(img, ys, xs, 32))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,ma,mb", [(3, 1024, 1024, 1024), (2, 37, 300, 8), (5, 1, 2, 3)])
+def test_batched_hamming_kernel_matches_plain_and_slices(rng, cuda, B, n, ma, mb):
+    """One launch for B problems: bit for bit against the batched plain
+    version and against a B = 1 launch on each slice."""
+    q = convert.desc_to_tensor(rng.integers(0, 2 ** 32, (B, n, 8), dtype=np.uint32), cuda)
+    sets = []
+    for m in (ma, mb):
+        t = convert.desc_to_tensor(rng.integers(0, 2 ** 32, (B, m, 8), dtype=np.uint32), cuda)
+        sets.append((t, torch.from_numpy(rng.random((B, m)) >= 0.25).to(cuda)))
+    before = hk.LAUNCHES
+    got = hk.hamming_top2_pair(q, *sets[0], *sets[1])
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES == before + 1
+    for g_set, (t, v) in zip(got, sets):
+        for g, w in zip(g_set, hk.hamming_top2_plain(q, t, v)):
+            assert g.shape == (B, n) and torch.equal(g, w)
+    for b in range(B):
+        one = hk.hamming_top2_pair(q[b], sets[0][0][b], sets[0][1][b], sets[1][0][b],
+                                   sets[1][1][b])
+        for g_set, o_set in zip(got, one):
+            for g, o in zip(g_set, o_set):
+                assert torch.equal(g[b], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(3, 1024), (2, 37)])
+def test_batched_describe_and_patch_kernels_match_plain_and_slices(rng, cuda, B, n):
+    """One launch for B images: bit for bit against the batched plain
+    versions (the patch cut always; the describe at most 1e-4 of the bits,
+    as the unbatched test) and against a B = 1 launch on each image."""
+    H, W = 406, 1271
+    img = torch.from_numpy(rng.uniform(0, 255, (B, H, W)).astype(np.float32)).to(cuda)
+    xy = np.stack([rng.uniform(-3, W - 28, (B, n)), rng.uniform(-3, H - 28, (B, n))], -1)
+    xy = torch.from_numpy(xy.astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.random((B, n)) >= 0.25).to(cuda)
+    table = orb.steer_table(False, cuda)
+    ys, xs = orb.window_starts(xy)
+    before = (dk.LAUNCHES, pk.LAUNCHES)
+    words = dk.orb_describe(img, xy, valid, table)
+    cut = pk.extract_patches(img, ys, xs, 32)
+    torch.cuda.synchronize()
+    assert (dk.LAUNCHES, pk.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(cut, pk.extract_patches_plain(img, ys, xs, 32))
+    want = dk.orb_describe_plain(img, xy, valid, table)
+    assert int((orb.unpack_bits(words) != orb.unpack_bits(want)).sum()) <= 1e-4 * B * n * 256
+    for b in range(B):
+        assert torch.equal(words[b], dk.orb_describe(img[b], xy[b], valid[b], table))
+        assert torch.equal(cut[b], pk.extract_patches(img[b], ys[b], xs[b], 32))
+
+
+def test_batched_wrappers_check_their_batch():
+    d = torch.zeros((2, 4, 8), dtype=torch.int32)
+    v = torch.ones((2, 4), dtype=torch.bool)
+    d1, i1, d2 = hk.hamming_top2(d, d, v)
+    assert d1.shape == i1.shape == d2.shape == (2, 4)
+    with pytest.raises(ValueError):
+        hk.hamming_top2(d, d[:1], v[:1])          # batch sizes differ
+    with pytest.raises(ValueError):
+        hk.hamming_top2(d, d[0], v[0])            # batched query, unbatched train
+    img = torch.zeros((2, 40, 50))
+    xy = torch.zeros((2, 3, 2))
+    ok = torch.ones((2, 3), dtype=torch.bool)
+    table = orb.steer_table(False, "cpu")
+    assert dk.orb_describe(img, xy, ok, table).shape == (2, 3, 8)
+    with pytest.raises(ValueError):
+        dk.orb_describe(img, xy[:1], ok[:1], table)
+    idx = torch.zeros((2, 3), dtype=torch.int32)
+    assert pk.extract_patches(img, idx, idx, 32).shape == (2, 3, 32, 32)
+    with pytest.raises(ValueError):
+        pk.extract_patches(img, idx[:1], idx[:1], 32)
+
+
 def test_wrappers_reject_bad_input():
     d = torch.zeros((4, 8), dtype=torch.int32)
     v = torch.ones(4, dtype=torch.bool)
