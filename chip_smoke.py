@@ -5,7 +5,7 @@
 Phases, each of which fails the run when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
      no CUDA device means exit 1 with no result;
-  2. build: the three CUDA kernels of stereo_orb_slam_torch/csrc, compiled
+  2. build: the four CUDA kernels of stereo_orb_slam_torch/csrc, compiled
      by nvcc for sm_90a in parallel;
   3. the launch floor (a one-element in-place add), then each kernel
      against its plain PyTorch version at the main path's shapes, with
@@ -14,18 +14,31 @@ Phases, each of which fails the run when it fails:
      ties) and against one, bit for bit; the patch cut at N = 1024 on a
      406 x 1271 image, bit for bit; the fused upright describe
      (orb_describe) at N = 1024 on that image with a quarter of the corners
-     invalid, at most 1e-4 of the bits differing; then the CUDA path against
-     the CPU path on one full-size frame (corners and descriptors);
+     invalid, at most 1e-4 of the bits differing; the fused oriented
+     describe (orb_describe_oriented) at N = 1024 on a smoothed, padded
+     406 x 1271 image, a quarter invalid and some corners at .5: at most
+     1e-4 of the bits differing from its plain chain, every angle within
+     ORIENTED_THETA_ATOL of the chain's and within its order's float32
+     bound of the float64 moments' angle, timed beside its bound, the plain
+     chain and the chain the oriented path ran before (the cut kernel and
+     the products); and on the unsmoothed noise, bits against the plain
+     chain and angles within that float64 bound (the plain chain's distance
+     recorded beside);
+     then the CUDA path against the CPU path on one full-size frame
+     (corners and descriptors);
   4. the main path at full width: 60 synthetic KITTI-sized stereo frames
      (376 x 1241, KITTI 00-02 intrinsics) through
      `stereo_orb_slam_torch.apps.visual_odometry.main` on the card with the
      default configs (1024 features, upright descriptors, 128 RANSAC
      hypotheses). It needs ATE < 0.01 m and exactly 1 hamming_top2, 2
-     orb_describe and 0 extract_patches launches per frame;
-  5. the oriented describe, the patch cut's path: 10 of those frames through
-     `VisualOdometer` with `FrontendConfig(oriented=True)`; finite poses and
-     exactly 2 extract_patches and 1 hamming_top2 launches per frame (ATE
-     printed);
+     orb_describe and 0 orb_describe_oriented and extract_patches launches
+     per frame (UPRIGHT_PER_FRAME);
+  5. the oriented describe: frame 0 on the card against the CPU path (bits,
+     angles), then 10 of those frames through `VisualOdometer` with
+     `FrontendConfig(oriented=True)`; finite poses and exactly 1
+     hamming_top2, 2 orb_describe_oriented and 0 orb_describe and
+     extract_patches launches per frame (ORIENTED_PER_FRAME; ATE printed),
+     and its ms per frame beside upright VO on the same frames;
   6. windowed bundle adjustment (`stereo_orb_slam_torch.backend.ba`, torch
      ops, no kernel of its own):
      a. the 60 frames through `VisualOdometer` + `BundleAdjuster(BAConfig())`
@@ -66,8 +79,9 @@ Phases, each of which fails the run when it fails:
      pg_solve on the final graph, the last two with a TF32-on control, and
      the time of the first forward-mode use in a process;
   8. multi-sequence tracking (BASELINE.json config 4): first the
-     three kernels at batch 3 in one launch each, bit for bit against
-     their batched plain versions and against B = 1 launches (phase 3);
+     four kernels at batch 3 in one launch each, bit for bit against B = 1
+     launches and against their batched plain versions (the oriented
+     describe within its phase 3 bounds);
      then `MultiSequenceSLAM` over S = 3 rendered sequences of 60 frames
      at 376 x 1241 (MULTI_SEQ), against each sequence tracked alone by
      `VisualOdometer` on the card: poses within MULTI_SEQ_POSE_ATOL, ATE
@@ -86,7 +100,8 @@ Phases, each of which fails the run when it fails:
      peak memory per rank. Then `apps.refine --distributed` under
      torchrun (1 NCCL rank) and `apps.scaling_bench` at 1 NCCL rank;
   10. with --profile PATH: a torch.profiler breakdown of 20 main-path
-     frames (to PATH), of 3 LM iterations of the last window and of the
+     frames (to PATH), of 10 oriented frames with the fused kernel and with
+     the chain it replaced swapped in (_oriented), of 3 LM iterations of the last window and of the
      map problem with device syncs counted (to PATH with _ba before the
      extension), of 20 SLAM frames and one pose-graph solve (_slam), of 20
      multi-sequence steps (_multi_seq) and of the distributed map solve
@@ -116,6 +131,13 @@ INT8_TENSOR_OPS_PER_S = 1.979e15
 F32_OPS_PER_S = 67e12        # float32 outside the tensor cores
 N_FRAMES = 60
 ORIENTED_FRAMES = 10
+# Kernel launches per frame (per step of the multi-sequence phase).
+UPRIGHT_PER_FRAME = {"hamming_top2": 1, "orb_describe": 2, "orb_describe_oriented": 0,
+                     "extract_patches": 0}
+ORIENTED_PER_FRAME = {"hamming_top2": 1, "orb_describe": 0, "orb_describe_oriented": 2,
+                      "extract_patches": 0}
+EXTRACT_PATCHES_NOTE = ("launched by no path: both describes fuse the cut; kept as the direct "
+                        "port of the TPU kernel")
 KITTI = dict(fx=718.856, cx=607.19, cy=185.22, baseline=0.537, h=376, w=1241)
 
 
@@ -301,7 +323,8 @@ def phase_kernels(rng):
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=library_ms, match=True, call_ms=call_ms, shape=f"N=1024 img={H}x{W}",
-        library_call="one advanced-index gather img[rows, cols] (float32 out)"))
+        library_call="one advanced-index gather img[rows, cols] (float32 out)",
+        note=EXTRACT_PATCHES_NOTE))
 
     # The fused upright describe at the same shape, a quarter of the corners
     # invalid, fractional positions (some exactly at .5, rounded half to even).
@@ -337,12 +360,175 @@ def phase_kernels(rng):
         shape=f"N=1024 (256 invalid) img={H}x{W}",
         replaces_note="the patch cut on the upright path, fused with its caller's "
                       "bf16 cast, sampling product, compare and bit packing"))
+
+    # The fused oriented describe at the same shape, on the describe's own
+    # input (a random image smoothed and padded as compute_descriptors does),
+    # a quarter of the corners invalid, some exactly at .5.
+    raw = torch.from_numpy(rng.uniform(0, 255, (KITTI["h"], KITTI["w"])).astype(np.float32))
+    smooth = orb.pad_edge(orb.smooth_image(raw.to(dev))).contiguous()
+    records.append(_oriented_record("orb_describe_oriented", smooth, xy, valid))
+    records[-1].update(_raw_noise_angles(img, xy, valid))
     for r in records:
         log(f"kernel {r['name']}: match {r['match']}, device {r['ms'] * 1e3:.2f} us "
             f"(bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}), per call "
             f"{r['call_ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
             f"library {r['library_ms']}")
     return records, floor_ms
+
+
+# The fused oriented describe against its plain chain: at most 1e-4 of the
+# bits may differ (0 expected: each sample's <= 4 exact products are added in
+# ascending pixel index, the dense products in their own order), and every
+# corner's angle within ORIENTED_THETA_ATOL of the plain chain's on smoothed
+# images (there every moment sum is exact in any order). Against the float64
+# moments' angle, every corner within the float32 error bound of the kernel's
+# order (`_f64_angles`): each moment term passes at most 32 + 5 roundings.
+ORIENTED_THETA_ATOL = 1e-5
+ORIENTED_SUM_ROUNDINGS = 32 + 5
+
+
+def _oriented_bound(padded, valid, theta, radius=15):
+    """The least time of the oriented describe on these inputs (ms, bound
+    by): the padded images read once, the tap records (an int16 index and a
+    bf16 weight per tap) of the bins that the valid corners use, 9 bytes in
+    and 36 out per corner, against float32 operations: 4 per disc pixel per
+    corner for the two moments and 3 per tap (the bin weight's product, the
+    fma) for the valid corners' two bins."""
+    import torch
+
+    from stereo_orb_slam_torch.ops import orb
+    from stereo_orb_slam_torch.ops.kernels import describe
+
+    k0 = torch.remainder(torch.floor(theta * (orb.K_BINS / (2.0 * np.pi))).long(), orb.K_BINS)
+    k0 = k0[valid]
+    bins = int(torch.unique(torch.cat([k0, (k0 + 1) % orb.K_BINS])).numel())
+    n, n_valid = valid.numel(), int(valid.sum())
+    d = np.arange(orb.PATCH) - orb.PATCH_R
+    disc = int((d[:, None] ** 2 + d[None, :] ** 2 <= radius * radius).sum())
+    bytes_ = (padded.numel() * 4 + bins * 2 * orb.N_TESTS * describe.TAPS * (2 + 2)
+              + n * (8 + 1) + n * (32 + 4))
+    ops = n * 4 * disc + n_valid * 2 * orb.N_TESTS * 2 * describe.TAPS * 3
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), bins
+
+
+def _f64_angles(padded, xy, radius=15):
+    """The angles of the float64 moments of the bf16 windows (exact sums),
+    and the float32 error bound of the kernel's order for them: 1e-6 rad
+    (atan2f and rounding) + ORIENTED_SUM_ROUNDINGS * 2^-24 * S / |m|, with S
+    the sum of the moment terms' magnitudes and |m| the resultant moment."""
+    import torch
+
+    from stereo_orb_slam_torch.ops import orb
+    from stereo_orb_slam_torch.ops.kernels import patches
+
+    win = patches.extract_patches_plain(padded, *orb.window_starts(xy), orb.PATCH).double()
+    win = win.reshape(-1, orb.PATCH * orb.PATCH)
+    masks = orb._disc_masks(radius, padded.device).double()
+    mom = win @ masks
+    size = win.abs() @ masks.abs().sum(1)
+    spread = torch.where(size > 0, size / mom.norm(dim=1), 0.0)
+    bound = 1e-6 + ORIENTED_SUM_ROUNDINGS * 2.0 ** -24 * spread
+    return (torch.atan2(mom[:, 1], mom[:, 0]).reshape(xy.shape[:-1]),
+            bound.reshape(xy.shape[:-1]))
+
+
+def _f64_gap(theta, exact, bound):
+    """(largest distance from the float64 angle, largest share of its bound)."""
+    gap = (theta.double() - exact).abs()
+    return float(gap.max()), float((gap / bound).max())
+
+
+def _raw_noise_angles(padded, xy, valid):
+    """The oriented describe on unsmoothed uniform noise, harsher than its
+    real input: dark pixels' bf16 values are finer than the moment sums'
+    ulp, so the order of the sums shows. Bits against the plain chain (at
+    most 1e-4 differing), and each angle's distance from the float64
+    moments' angle: the kernel's held to its order's bound, the plain
+    chain's recorded beside it."""
+    from stereo_orb_slam_torch.ops import orb
+    from stereo_orb_slam_torch.ops.kernels import describe
+
+    table = orb.steer_table(True, padded.device)
+    words, theta = describe.orb_describe_oriented(padded, xy, valid, table)
+    want, plain = describe.orb_describe_oriented_plain(padded, xy, valid, table)
+    exact, bound = _f64_angles(padded, xy)
+    flips = int((orb.unpack_bits(words) != orb.unpack_bits(want)).sum())
+    kernel_err, kernel_share = _f64_gap(theta, exact, bound)
+    plain_err, plain_share = _f64_gap(plain, exact, bound)
+    log(f"orb_describe_oriented on raw noise: {flips} bits differ from the plain chain; "
+        f"angles within {kernel_err:.3g} rad of the float64 moments' angle ({kernel_share:.3g}"
+        f" of the bound), the plain chain's within {plain_err:.3g} rad ({plain_share:.3g})")
+    if flips > valid.numel() * orb.N_TESTS * 1e-4 or kernel_share > 1.0:
+        raise AssertionError(f"orb_describe_oriented on raw noise: {flips} bits differ, "
+                             f"angles at {kernel_share} of their float64 bound")
+    return {"raw_noise_bits_differing": flips, "raw_noise_theta_f64_err_rad": kernel_err,
+            "raw_noise_plain_theta_f64_err_rad": plain_err}
+
+
+def _oriented_record(name, padded, xy, valid):
+    """orb_describe_oriented on [.., Hp, Wp] images against its plain chain
+    (and, for a batch, bit for bit against B = 1 launches), timed beside its
+    bound, the plain chain and the chain the oriented path ran before it
+    (the patch-cut kernel, then the same moments, per-bin products, compare
+    and pack)."""
+    import torch
+
+    from stereo_orb_slam_torch.ops import orb
+    from stereo_orb_slam_torch.ops.kernels import describe, patches
+
+    table = orb.steer_table(True, padded.device)
+    words, theta = describe.orb_describe_oriented(padded, xy, valid, table)
+    want, want_theta = describe.orb_describe_oriented_plain(padded, xy, valid, table)
+    exact, bound = _f64_angles(padded, xy)
+    torch.cuda.synchronize()
+    diff = (orb.unpack_bits(words) - orb.unpack_bits(want)).abs()
+    flips, bits = int(diff.sum()), valid.numel() * orb.N_TESTS
+    theta_err = float((theta - want_theta).abs().max())
+    theta_f64_err, theta_f64_share = _f64_gap(theta, exact, bound)
+    log(f"{name}: {flips} of {bits} bits differ from the plain chain; angle within "
+        f"{theta_err:.3g} rad of it and {theta_f64_err:.3g} rad of the float64 moments' angle "
+        f"({theta_f64_share:.3g} of its bound)")
+    if words.shape != want.shape or flips > bits * 1e-4:
+        raise AssertionError(f"{name} differs from its plain chain in {flips} bits")
+    if theta_err > ORIENTED_THETA_ATOL or theta_f64_share > 1.0:
+        raise AssertionError(f"{name}: angles off by {theta_err} rad (plain chain), "
+                             f"{theta_f64_err} rad (float64, {theta_f64_share} of the bound)")
+    if torch.any(words[~valid] != 0):
+        raise AssertionError(f"{name}: an invalid corner got a descriptor")
+    if padded.dim() == 3:
+        for b in range(padded.shape[0]):
+            _check_equal(f"{name} (image {b}) against B = 1", (words[b], theta[b]),
+                         describe.orb_describe_oriented(padded[b], xy[b], valid[b], table))
+
+    def parent_chain():
+        cut = patches.extract_patches(padded, *orb.window_starts(xy), orb.PATCH)
+        return describe.steered_words_from_patches(cut.reshape(-1, orb.PATCH * orb.PATCH),
+                                                   valid, table)
+
+    ms = time_device(lambda: describe.orb_describe_oriented(padded, xy, valid, table))
+    call_ms = time_call(lambda: describe.orb_describe_oriented(padded, xy, valid, table))
+    plain_ms = time_device(
+        lambda: describe.orb_describe_oriented_plain(padded, xy, valid, table), reps=10)
+    parent_ms = time_device(parent_chain, reps=10)
+    bound_ms, bound_by, bins = _oriented_bound(padded, valid, want_theta)
+    B = padded.shape[0] if padded.dim() == 3 else 1
+    H, W = padded.shape[-2:]
+    return _record(
+        name, "stereo_orb_slam_torch/csrc/orb_describe_oriented.cu",
+        "stereo_orb_slam_tpu/ops/pallas/patches.py:63", "oriented",
+        max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, match=flips == 0, bits_differing=flips,
+        theta_max_err_rad=theta_err, theta_f64_max_err_rad=theta_f64_err,
+        theta_f64_share_of_bound=theta_f64_share, call_ms=call_ms,
+        parent_chain_ms=parent_ms, bins_used=bins, batch=B,
+        shape=f"B={B} smoothed images of {H}x{W}, N={xy.shape[-2]} each "
+              f"({int((~valid).sum())} invalid in all), one launch",
+        replaces_note="the patch cut on the oriented path, fused with its caller's bf16 "
+                      "cast, moments, atan2, 30 per-bin sampling products, compare and "
+                      "bit packing",
+        plain_note="parent_chain_ms: the patch-cut kernel and the same products, the "
+                   "oriented path before the fused kernel")
 
 
 def _render_sequence(root, n, steps=None):
@@ -387,17 +573,20 @@ def _render_sequence(root, n, steps=None):
     return seq, gt_path
 
 
-def phase_cuda_vs_cpu(seq):
+def phase_cuda_vs_cpu(seq, oriented=False, frame=3):
     """One full-size frame through detection and description on the card
-    and on the CPU: the same corners, and descriptor bits that agree."""
+    and on the CPU: the same corners, and descriptor bits that agree; with
+    `oriented`, the steered describe, and the angles of the CPU's corners
+    on both devices within ORIENTED_THETA_ATOL."""
     import torch
 
     from stereo_orb_slam_torch.config import FrontendConfig
     from stereo_orb_slam_torch.frontend.odometer import detect_and_describe
     from stereo_orb_slam_torch.io.datasets import read_grayscale
+    from stereo_orb_slam_torch.ops import orb
 
-    img = read_grayscale(os.path.join(seq, "image_0", "000003.png"))
-    fe = FrontendConfig()
+    img = read_grayscale(os.path.join(seq, "image_0", f"{frame:06d}.png"))
+    fe = FrontendConfig(oriented=oriented)
     out = {}
     for dev in ("cpu", "cuda"):
         xy, v, d = detect_and_describe(torch.from_numpy(img).to(dev), fe)
@@ -408,10 +597,23 @@ def phase_cuda_vs_cpu(seq):
     xy_err = float(np.abs(xy_c - xy_g).max())
     flips = int(np.unpackbits((d_c ^ d_g).view(np.uint8)).sum())
     bits = int(v_c.sum()) * 256
-    log(f"cuda vs cpu, one 376x1241 frame: {int(v_c.sum())} corners, xy max diff "
-        f"{xy_err:.3g} px, descriptor bits differing {flips} of {bits}")
-    if xy_err > 1e-3 or flips > bits * 1e-4:
+    theta_err = 0.0
+    if oriented:
+        theta = {}
+        for dev in ("cpu", "cuda"):
+            _, t = orb.compute_descriptors(
+                torch.from_numpy(img).to(dev), torch.from_numpy(xy_c).to(dev),
+                torch.from_numpy(v_c).to(dev), fe.smoothing_ksize, fe.orientation_radius,
+                orb.steer_table(True, dev))
+            theta[dev] = t.cpu()
+        theta_err = float((theta["cpu"] - theta["cuda"]).abs().max())
+    log(f"cuda vs cpu, {'oriented' if oriented else 'upright'} describe, frame {frame} "
+        f"(376x1241): {int(v_c.sum())} corners, xy max diff {xy_err:.3g} px, descriptor bits "
+        f"differing {flips} of {bits}" + (f", angle max diff {theta_err:.3g} rad"
+                                          if oriented else ""))
+    if xy_err > 1e-3 or flips > bits * 1e-4 or theta_err > ORIENTED_THETA_ATOL:
         raise AssertionError("the card and the CPU disagree beyond the stated bounds")
+    return {"corners": int(v_c.sum()), "bits_differing": flips, "theta_max_err_rad": theta_err}
 
 
 def _reset_launches():
@@ -419,13 +621,15 @@ def _reset_launches():
 
     for mod in (hamming, patches, describe):
         mod.LAUNCHES = 0
+    describe.ORIENTED_LAUNCHES = 0
 
 
 def _read_launches():
     from stereo_orb_slam_torch.ops.kernels import describe, hamming, patches
 
     return {"hamming_top2": hamming.LAUNCHES, "extract_patches": patches.LAUNCHES,
-            "orb_describe": describe.LAUNCHES}
+            "orb_describe": describe.LAUNCHES,
+            "orb_describe_oriented": describe.ORIENTED_LAUNCHES}
 
 
 def _check_launches(path, launches, per_frame, frames):
@@ -458,13 +662,17 @@ def phase_main_path(seq, gt, out_dir):
     if not summary["ate_m"] < 0.01:
         raise AssertionError(f"ATE {summary['ate_m']} m is not below 0.01 m")
     _check_launches("main path", launches,
-                    {"hamming_top2": 1, "orb_describe": 2, "extract_patches": 0}, n)
+                    UPRIGHT_PER_FRAME, n)
     return summary, launches
 
 
 def phase_oriented(seq, gt, frames=ORIENTED_FRAMES):
-    """The oriented describe (`FrontendConfig(oriented=True)`): the patch cut
-    kernel's own path. `frames` frames through `VisualOdometer.track`."""
+    """The oriented describe (`FrontendConfig(oriented=True)`), the fused
+    oriented kernel's path: frame 0's descriptors on the card against the
+    CPU path, then `frames` frames through `VisualOdometer.track` with
+    finite poses and exactly ORIENTED_PER_FRAME launches per frame (ATE
+    printed); its ms per frame beside upright VO's on the same frames, both
+    warmed first (host clock, each run ending in a sync)."""
     import torch
 
     from stereo_orb_slam_torch.config import FrontendConfig
@@ -473,25 +681,44 @@ def phase_oriented(seq, gt, frames=ORIENTED_FRAMES):
     from stereo_orb_slam_torch.utils import evaluate
     from stereo_orb_slam_torch.worldmap import WorldMap
 
+    devices = phase_cuda_vs_cpu(seq, oriented=True, frame=0)
     pairs = datasets.load_dataset("kitti", seq)[:frames]
     imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    rig = calib.load_camera(os.path.join(seq, "calib.txt"))
+    # The first frames of each path pay for tables and plans once per process.
+    for fe in (FrontendConfig(oriented=True), FrontendConfig()):
+        warm = VisualOdometer(WorldMap(), rig, fe=fe)
+        for il, ir in imgs[:2]:
+            warm.track(il, ir)
+    torch.cuda.synchronize()
+
     world = WorldMap()
-    vo = VisualOdometer(world, calib.load_camera(os.path.join(seq, "calib.txt")),
-                        fe=FrontendConfig(oriented=True))
+    vo = VisualOdometer(world, rig, fe=FrontendConfig(oriented=True))
     _reset_launches()
+    t0 = time.perf_counter()
     for il, ir in imgs:
         vo.track(il, ir)
-    launches = _read_launches()
     torch.cuda.synchronize()
+    oriented_s = time.perf_counter() - t0
+    launches = _read_launches()
+    upright = VisualOdometer(WorldMap(), rig)
+    t0 = time.perf_counter()
+    for il, ir in imgs:
+        upright.track(il, ir)
+    torch.cuda.synchronize()
+    upright_s = time.perf_counter() - t0
     poses = world.pose_global[: world.num_frames]
     if not (np.isfinite(poses).all() and poses.shape == (frames, 4, 4)):
         raise AssertionError("oriented path: poses are not finite [frames, 4, 4]")
     ate = evaluate.ate_rmse(poses, evaluate.load_kitti_gt(gt)[:frames])
-    log(f"oriented path: {frames} frames, ATE {ate:.5f} m, {world.num_points} points, "
-        f"launches {launches}")
-    _check_launches("oriented path", launches,
-                    {"hamming_top2": 1, "orb_describe": 0, "extract_patches": 2}, frames)
-    return launches
+    rec = {"frames": frames, "ms_per_frame": oriented_s * 1e3 / frames,
+           "upright_ms_per_frame": upright_s * 1e3 / frames, "ate_m": ate,
+           "points": world.num_points, "launches": launches, "cuda_vs_cpu": devices}
+    log(f"oriented path: {frames} frames, {rec['ms_per_frame']:.2f} ms/frame against upright VO "
+        f"{rec['upright_ms_per_frame']:.2f} ms/frame on the same frames, ATE {ate:.5f} m, "
+        f"{world.num_points} points, launches {launches}")
+    _check_launches("oriented path", launches, ORIENTED_PER_FRAME, frames)
+    return rec
 
 
 MAP_SIZE = dict(C=1000, P=100_000, opc=200)   # tests/test_f32_scale.py's generator
@@ -622,7 +849,7 @@ def phase_ba_tracking(seq, gt, device="cuda", frames=N_FRAMES):
         raise AssertionError(f"tracking with BA: ATE {ate} m is not below 0.01 m")
     if _is_cuda(device):
         _check_launches("tracking with BA", launches,
-                        {"hamming_top2": 1, "orb_describe": 2, "extract_patches": 0}, n)
+                        UPRIGHT_PER_FRAME, n)
     return world, summary, last_window
 
 
@@ -1177,7 +1404,7 @@ def phase_slam(seq, gt, out_dir, batch_frames):
         "live_stall_splits": splits, "ba_log": system.ba_log[-3:],
         "timers": system.timers.summary(), "launches": launches,
         "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
-                              "extract_patches": 0},
+                              "orb_describe_oriented": 0, "extract_patches": 0},
         "bow_batches": system.fused_score_batches + system.loop.score_batches,
         "edges_measured": edges,
     }
@@ -1488,6 +1715,62 @@ def phase_slam_profile(seq, path, warm=40, frames=20):
     log(f"SLAM profile breakdown in {path}")
 
 
+def phase_oriented_profile(seq, path, frames=ORIENTED_FRAMES, warm=2):
+    """Where an oriented frame's time goes, with the fused kernel and with
+    the chain the oriented path ran before it (the patch-cut kernel, then
+    the moments, the 30 per-bin products, compare and pack) swapped in for
+    it: `frames` track() calls each under torch.profiler, after `warm` off
+    the record. Launches, device ms and wall ms per frame to `path`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_orb_slam_torch.config import FrontendConfig
+    from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.ops import orb
+    from stereo_orb_slam_torch.ops.kernels import describe, patches
+    from stereo_orb_slam_torch.worldmap import WorldMap
+
+    pairs = datasets.load_dataset("kitti", seq)[: warm + frames]
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    rig = calib.load_camera(os.path.join(seq, "calib.txt"))
+
+    def parent_describe(padded, xy, valid, table, orientation_radius=15):
+        cut = patches.extract_patches(padded, *orb.window_starts(xy), orb.PATCH)
+        return describe.steered_words_from_patches(cut.reshape(-1, orb.PATCH * orb.PATCH),
+                                                   valid, table, orientation_radius)
+
+    fused = describe.orb_describe_oriented
+    report = {}
+    try:
+        for name, fn in (("fused", fused), ("parent_chain", parent_describe)):
+            describe.orb_describe_oriented = fn
+            vo = VisualOdometer(WorldMap(), rig, fe=FrontendConfig(oriented=True))
+            for il, ir in imgs[:warm]:
+                vo.track(il, ir)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for il, ir in imgs[warm:]:
+                    vo.track(il, ir)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            rep = _device_summary(prof, wall_ms, frames, unit="frame")
+            rep["wall_ms_per_frame"] = wall_ms / frames
+            rep["device_busy_ms_per_frame"] = rep["device_busy_ms"] / frames
+            report[name] = rep
+            log(f"oriented profile ({name}): {rep['wall_ms_per_frame']:.2f} ms/frame wall, "
+                f"device busy {rep['device_busy_ms_per_frame']:.3f} ms/frame (idle share "
+                f"{rep['device_idle_share']:.3f}), {rep['device_launches_per_frame']:.0f} "
+                f"launches/frame")
+    finally:
+        describe.orb_describe_oriented = fused
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1)
+    log(f"oriented profile breakdown in {path}")
+    return report
+
+
 BATCH = 3   # the multi-sequence phase's sequences: KITTI 00, 02, 05 stand-ins
 
 
@@ -1595,9 +1878,14 @@ def phase_batched_kernels(rng, batch=BATCH):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=library_ms, match=True, batch=B,
         shape=f"B={B} images of {H}x{W}, N={n} each, one launch",
-        library_call="one advanced-index gather img[image, rows, cols] (float32 out)"))
+        library_call="one advanced-index gather img[image, rows, cols] (float32 out)",
+        note=EXTRACT_PATCHES_NOTE))
+
+    raw = torch.from_numpy(rng.uniform(0, 255, (B, KITTI["h"], KITTI["w"])).astype(np.float32))
+    smooth = orb.pad_edge(orb.smooth_image(raw.to(dev))).contiguous()
+    records.append(_oriented_record(f"orb_describe_oriented (B={B})", smooth, xy, valid))
     for r in records:
-        log(f"kernel {r['name']}: bit for bit against the batched plain version and B = 1 "
+        log(f"kernel {r['name']}: held against the batched plain version and B = 1 "
             f"launches; device {r['ms'] * 1e3:.2f} us per launch (bound {r['bound_ms'] * 1e3:.3f}"
             f" us by {r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us, library "
             f"{r['library_ms']}")
@@ -1701,7 +1989,7 @@ def phase_multi_seq(seq, frames=N_FRAMES):
     if not max(ates) < 0.01:
         raise AssertionError(f"multi-sequence: ATE {ates} m, not all below 0.01 m")
     _check_launches("multi-sequence", launches,
-                    {"hamming_top2": 1, "orb_describe": 2, "extract_patches": 0}, frames)
+                    UPRIGHT_PER_FRAME, frames)
     return rec, (multi, imgs_l, imgs_r)
 
 
@@ -2057,9 +2345,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile 20 frames of the main path (breakdown written to "
-                         "PATH), 3 LM iterations of a window and of the map problem "
-                         "(PATH with _ba before the extension) and 20 SLAM frames and a "
-                         "pose-graph solve (_slam)")
+                         "PATH), 10 oriented frames with the fused kernel and with the "
+                         "chain it replaced (_oriented before the extension), 3 LM "
+                         "iterations of a window and of the map problem (_ba) and 20 SLAM "
+                         "frames and a pose-graph solve (_slam)")
     args = ap.parse_args(argv)
     phase_card()
     sys.path.insert(0, os.path.join(ROOT, "tests"))  # synth, synth_ba
@@ -2120,13 +2409,16 @@ def main(argv=None):
         if args.profile:
             root, ext = os.path.splitext(args.profile)
             timed("profile", phase_profile, seq, args.profile)
+            timed("profile_oriented", phase_oriented_profile, seq,
+                  f"{root}_oriented{ext or '.json'}")
             timed("profile_multi_seq", phase_multi_seq_profile, multi_state,
                   f"{root}_multi_seq{ext or '.json'}")
             timed("profile_dist", phase_dist_profile, f"{root}_dist{ext or '.json'}")
             timed("profile_ba", phase_ba_profile, seq, window, f"{root}_ba{ext or '.json'}")
             timed("profile_slam", phase_slam_profile, slam_seq,
                   f"{root}_slam{ext or '.json'}")
-    paths = {"main": launches, "oriented": oriented, "multi_seq": multi_seq["launches"],
+    paths = {"main": launches, "oriented": oriented["launches"],
+             "multi_seq": multi_seq["launches"],
              "ba_tracking": tracking["launches"], "slam": slam_runs[1]["launches"],
              "slam_batch4": slam_runs[4]["launches"]}
     for r in records:
@@ -2136,6 +2428,7 @@ def main(argv=None):
     log(json.dumps({"main_path": {k: summary[k] for k in ("frames", "fps", "median_ms",
                                                           "ate_m")},
                     "launch_floor_ms": floor_ms}))
+    log(json.dumps({"oriented": oriented}))
     log(json.dumps({"ba": ba}))
     log(json.dumps({"slam": {str(k): {key: v for key, v in r.items() if key != "timers"}
                              for k, r in slam_runs.items()},

@@ -20,6 +20,11 @@
 // 64 contiguous bytes. The cast rounds to nearest even (__float2bfloat16_rn),
 // as torch's and XLA's float -> bf16 conversions do.
 //
+// No path of the port launches it: the upright and the oriented describe
+// each fuse the cut into their own kernel (orb_describe.cu,
+// orb_describe_oriented.cu). It stays as the direct port of the TPU kernel,
+// held against its plain version by the card tests and chip_smoke.py.
+//
 // Batch: B images of one shape in one launch (gridDim.y is the image).
 // Image b is img[b * h * w ...], its starts ys/xs[b * n ...], its patches
 // out[b * n * P * P ...]. B = 1 is the unbatched launch.

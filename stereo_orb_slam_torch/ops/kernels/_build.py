@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("hamming_top2", "extract_patches", "orb_describe")
+KERNEL_SOURCES = ("hamming_top2", "extract_patches", "orb_describe", "orb_describe_oriented")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -12,9 +12,13 @@ cv::ORB::compute on the detected corners, ref
   seeded NumPy pattern) and packs the bits. On the card that is one CUDA
   kernel; on the CPU its plain version: the patch cut, one
   [N, P^2] @ [P^2, 512] product, the compare and `pack_bits`,
-- oriented (`oriented=True`): the patch cut (`kernels/patches.py`, a CUDA
-  kernel on the card), the intensity-centroid angle and 30 per-bin
-  products with the steered tables,
+- oriented (`oriented=True`): `kernels/describe.py::orb_describe_oriented`
+  cuts the same window, takes the intensity-centroid angle over a disc,
+  soft-bins it between two of the K_BINS steered tables, reads the 256
+  tests through those two bins' taps and packs the bits. On the card that
+  is one CUDA kernel; on the CPU its plain version: the patch cut, the
+  moments product, atan2 and 30 per-bin products with the dense steered
+  tables, the compare and `pack_bits`,
 - bits are packed into 8 words per descriptor (bit j of word w = test
   32w + j). torch's uint32 cannot shift, so the words are int32 tensors
   holding the uint32 bit patterns; `.view(np.uint32)` converts at the
@@ -121,14 +125,22 @@ def smooth_image(img, ksize: int = 7):
     return out
 
 
+_masks: dict = {}
+
+
 def _disc_masks(radius: int, device):
-    """Moment kernels over the patch grid, centred at (PATCH_R, PATCH_R)."""
-    ys, xs = np.mgrid[0:PATCH, 0:PATCH]
-    ys = ys - PATCH_R
-    xs = xs - PATCH_R
-    disc = (xs * xs + ys * ys) <= radius * radius
-    mom = np.stack([(xs * disc).reshape(-1), (ys * disc).reshape(-1)], axis=1)
-    return torch.from_numpy(mom.astype(np.float32)).to(device)
+    """Moment kernels over the patch grid, centred at (PATCH_R, PATCH_R):
+    [P^2, 2] float32 (dx and dy inside the disc, 0 outside), built once per
+    radius and device (so that no host copy runs inside a CUDA graph)."""
+    key = (int(radius), torch.device(device))
+    if key not in _masks:
+        ys, xs = np.mgrid[0:PATCH, 0:PATCH]
+        ys = ys - PATCH_R
+        xs = xs - PATCH_R
+        disc = (xs * xs + ys * ys) <= radius * radius
+        mom = np.stack([(xs * disc).reshape(-1), (ys * disc).reshape(-1)], axis=1)
+        _masks[key] = torch.from_numpy(mom.astype(np.float32)).to(device)
+    return _masks[key]
 
 
 def pad_edge(img, r: int = PATCH_R):
@@ -188,7 +200,8 @@ def compute_descriptors(img, xy, valid, smoothing_ksize: int = 7,
       xy:    [N, 2] float32 corner coords (x, y), or [S, N, 2].
       valid: [N] bool, or [S, N].
       steer: the sampling table of `steer_table` (upright when None); a
-        one-bin table takes the fused upright describe.
+        one-bin table takes the fused upright describe, the steered table
+        the fused oriented describe.
 
     Returns:
       desc:  [..., N, 8] int32 packed 256-bit descriptors (0 where invalid).
@@ -196,33 +209,8 @@ def compute_descriptors(img, xy, valid, smoothing_ksize: int = 7,
     """
     if steer is None:
         steer = steer_table(False, img.device)
-    lead = xy.shape[:-1]
     padded = pad_edge(smooth_image(img, smoothing_ksize))
-    k_bins = steer.shape[0]
-    if k_bins == 1:
-        theta = torch.zeros(lead, dtype=torch.float32, device=img.device)
+    if steer.shape[0] == 1:
+        theta = torch.zeros(xy.shape[:-1], dtype=torch.float32, device=img.device)
         return describe_kernel.orb_describe(padded, xy, valid, steer), theta
-
-    # Every image's corners as rows of one product (one image: [N, P^2]).
-    flat16 = extract_patches(padded, xy).reshape(-1, PATCH * PATCH)
-    n = flat16.shape[0]
-    # Orientation from intensity-centroid moments over a disc; the moment
-    # weights are small integers, exact in bf16.
-    mom_k = _disc_masks(orientation_radius, img.device)
-    moments = flat16.float() @ mom_k
-    theta = torch.atan2(moments[:, 1], moments[:, 0])
-    # Soft bin interpolation between the two adjacent steered tables.
-    bin_f = theta * (k_bins / (2.0 * np.pi))
-    k0f = torch.floor(bin_f)
-    frac = bin_f - k0f
-    k0 = torch.remainder(k0f.to(torch.int32), k_bins)
-    k1 = torch.remainder(k0 + 1, k_bins)
-    vals = torch.zeros((n, 2 * N_TESTS), dtype=torch.float32, device=img.device)
-    for k in range(k_bins):
-        wk = (torch.where(k0 == k, 1.0 - frac, 0.0)
-              + torch.where(k1 == k, frac, 0.0)).to(torch.bfloat16)
-        vals = vals + (flat16 * wk[:, None]).float() @ steer[k].float()
-
-    bits = vals[:, :N_TESTS] < vals[:, N_TESTS:]
-    desc = pack_bits(bits).reshape(lead + (N_WORDS,))
-    return torch.where(valid[..., None], desc, 0), theta.reshape(lead)
+    return describe_kernel.orb_describe_oriented(padded, xy, valid, steer, orientation_radius)

@@ -5,8 +5,12 @@ indices) and the patch cut (a copy and a round-to-nearest-even cast); for
 the fused upright describe at most 1e-4 of the bits may differ (0
 expected): it adds each sample's <= 4 exact products in ascending pixel
 index, cuBLAS in its own order, so only a pair tied to the last bit could
-flip. The comparisons need a CUDA device and skip
-without one; on the card, run them with
+flip; the same for the fused oriented describe, whose angle is held
+within 1e-5 rad of the plain chain's on its real input, a smoothed image
+(see tests/test_torch_orb_oriented.py), and to the float64 moments'
+angle within the float32 error bound of the kernel's order. The
+comparisons need a CUDA device and skip without one; on the card, run
+them with
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -178,6 +182,75 @@ def test_batched_describe_and_patch_kernels_match_plain_and_slices(rng, cuda, B,
     for b in range(B):
         assert torch.equal(words[b], dk.orb_describe(img[b], xy[b], valid[b], table))
         assert torch.equal(cut[b], pk.extract_patches(img[b], ys[b], xs[b], 32))
+
+
+def _oriented_case(rng, device, B, n, H=376, W=1241):
+    """B smoothed, padded random images (the describe's own input) with n
+    corners each, a quarter invalid, some at .5 and some at negative
+    starts."""
+    img = torch.from_numpy(rng.uniform(0, 255, (B, H, W)).astype(np.float32)).to(device)
+    padded = orb.pad_edge(orb.smooth_image(img)).contiguous()
+    xy = np.stack([rng.uniform(-3, W + 2, (B, n)), rng.uniform(-3, H + 2, (B, n))], -1)
+    xy[:, ::3] = np.floor(xy[:, ::3]) + 0.5
+    xy = torch.from_numpy(xy.astype(np.float32)).to(device)
+    valid = torch.from_numpy(rng.random((B, n)) >= 0.25).to(device)
+    return padded, xy, valid
+
+
+def _assert_oriented_close(padded, xy, valid, table, words, theta):
+    want, want_theta = dk.orb_describe_oriented_plain(padded, xy, valid, table)
+    assert words.dtype == torch.int32 and words.shape == want.shape
+    assert theta.dtype == torch.float32 and theta.shape == want_theta.shape
+    flips = int((orb.unpack_bits(words) != orb.unpack_bits(want)).sum())
+    assert flips <= 1e-4 * valid.numel() * 256
+    assert torch.all(words[~valid] == 0)
+    if theta.numel():
+        assert float((theta - want_theta).abs().max()) <= 1e-5
+        win = pk.extract_patches_plain(padded, *orb.window_starts(xy), 32).double()
+        win = win.reshape(-1, 32 * 32)
+        masks = orb._disc_masks(15, xy.device).double()
+        mom = win @ masks
+        exact = torch.atan2(mom[:, 1], mom[:, 0]).reshape(theta.shape)
+        # 1e-6 rad for atan2f and rounding, plus (32 + 5) roundings of each
+        # moment term, relative to the resultant moment.
+        size = win.abs() @ masks.abs().sum(1)
+        spread = torch.where(size > 0, size / mom.norm(dim=1), 0.0).reshape(theta.shape)
+        assert torch.all((theta.double() - exact).abs() <= 1e-6 + 37 * 2.0 ** -24 * spread)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kind", [(1024, "masked"), (37, "masked"), (1, "masked"),
+                                    (0, "masked"), (300, "all_invalid")])
+def test_oriented_describe_kernel_matches_plain(rng, cuda, n, kind):
+    padded, xy, valid = (x[0] for x in _oriented_case(rng, cuda, 1, n))
+    if kind == "all_invalid":
+        valid[:] = False
+    table = orb.steer_table(True, cuda)
+    before = dk.ORIENTED_LAUNCHES
+    words, theta = dk.orb_describe_oriented(padded, xy, valid, table)
+    torch.cuda.synchronize()
+    assert dk.ORIENTED_LAUNCHES == before + (n > 0)
+    assert words.shape == (n, 8) and theta.shape == (n,)
+    _assert_oriented_close(padded, xy, valid, table, words, theta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(3, 1024), (2, 37)])
+def test_batched_oriented_describe_kernel_matches_plain_and_slices(rng, cuda, B, n):
+    """One launch for B images: against the batched plain version (at most
+    1e-4 of the bits, angles within 1e-5 rad) and bit for bit against a
+    B = 1 launch on each image."""
+    padded, xy, valid = _oriented_case(rng, cuda, B, n)
+    table = orb.steer_table(True, cuda)
+    before = dk.ORIENTED_LAUNCHES
+    words, theta = dk.orb_describe_oriented(padded, xy, valid, table)
+    torch.cuda.synchronize()
+    assert dk.ORIENTED_LAUNCHES == before + 1
+    assert words.shape == (B, n, 8) and theta.shape == (B, n)
+    _assert_oriented_close(padded, xy, valid, table, words, theta)
+    for b in range(B):
+        one_words, one_theta = dk.orb_describe_oriented(padded[b], xy[b], valid[b], table)
+        assert torch.equal(words[b], one_words) and torch.equal(theta[b], one_theta)
 
 
 def test_batched_wrappers_check_their_batch():
