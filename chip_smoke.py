@@ -100,12 +100,32 @@ Phases, each of which fails the run when it fails:
      peak memory per rank. Then `apps.refine --distributed` under
      torchrun (1 NCCL rank) and `apps.scaling_bench` at 1 NCCL rank;
   10. with --profile PATH: a torch.profiler breakdown of 20 main-path
-     frames (to PATH), of 10 oriented frames with the fused kernel and with
+     frames (to PATH), of 20 frames of the general rig (_general), of 10
+     oriented frames with the fused kernel and with
      the chain it replaced swapped in (_oriented), of 3 LM iterations of the last window and of the
      map problem with device syncs counted (to PATH with _ba before the
      extension), of 20 SLAM frames and one pose-graph solve (_slam), of 20
      multi-sequence steps (_multi_seq) and of the distributed map solve
-     at 1 NCCL rank (_dist).
+     at 1 NCCL rank (_dist);
+  11. the general rig (run after phase 5): EuRoC MAV's cam0 model (752 x
+     480, fx = fy = 458.654, radial k1, k2; baseline 0.110 m,
+     non-rectified) through a textured plane at 2.52 m (20 px of
+     disparity), whole 8 px steps in undistorted coordinates, written as a
+     EuRoC mav0 tree with the reference's camera file: 60 frames through
+     `apps.visual_odometry.main --dataset EuRoc` (ATE < GENERAL_VO_ATE_M,
+     exactly UPRIGHT_PER_FRAME launches per frame, ms per frame beside
+     the rectified main path's); frame 1 on the card against the CPU
+     (GENERAL_* bounds, orb_describe's words and the temporal matches
+     included; the batched SVD's device time and syncs, and the
+     syncs of a distorted and a rectified VO frame); `apps.slam.main
+     --dataset EuRoc` at K = 1 over 119 frames out and back (ATE <
+     GENERAL_SLAM_ATE_M, a loop edge measured, exact launches);
+     `MultiSequenceSLAM` over 2 distorted sequences of GENERAL_MULTI_STEPS
+     steps with stacked rigs (each bit for bit its own VisualOdometer
+     run, exact launches per step); then hamming_top2 and orb_describe at
+     this path's shapes (510 x 782 padded images) on its own inputs, held
+     against their plain versions and timed (records with path
+     "general").
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -721,6 +741,507 @@ def phase_oriented(seq, gt, frames=ORIENTED_FRAMES):
     return rec
 
 
+# The general (distorted, non-rectified) rig, EuRoC MAV's cam0 model
+# (tests/synth_distorted.EUROC: 752x480, fx = fy = 458.654, k1, k2, baseline
+# 0.110 m), through a textured plane at the depth of 20 px of disparity
+# (2.52 m), moving in whole 8 px steps in undistorted coordinates (4.4 cm a
+# frame, a MAV's speed at 20 Hz). The SLAM run goes out over the 60
+# positions and back to the start (119 frames).
+GENERAL_FRAMES = 60
+GENERAL_STEP_PX = 8
+GENERAL_DISPARITY_PX = 20
+# ATE gates. The SLAM run's (BA on) is the general path's accuracy gate.
+# The VO app alone sits far above it, in both packages: corners are
+# detected in the distorted images, where the local warp moves each one's
+# detected position, so undistorted disparities scatter (the landmark depth
+# scatter is recorded in phase_general_devices; on the CPU test scene it is
+# 2.65 % in both packages against 1e-5 without distortion,
+# tests/test_torch_general_stereo.py), and the minimal-set RANSAC trades
+# rotation against translation on the one plane (ROADMAP queue 3), so the
+# error depends on the RANSAC draws. On this tree, on the CPU
+# (tests/general_vo_witness.py), the JAX package's VO app reaches 0.1197 m,
+# the port's 0.0388 m with its own draws and 0.1197 m with the JAX
+# package's (its trajectory within 2.9e-4 m of JAX's); on an H100 the port
+# reaches 0.13405 m, the same in every run (PERF.md). The VO gate sits
+# just above the card's reading.
+GENERAL_SLAM_ATE_M = 0.02
+GENERAL_VO_ATE_M = 0.15
+# Card against CPU on one distorted frame: the share of orb_describe's bits
+# that may differ (the kernel's bound against its plain version, phase 3),
+# then each bound a few times its reading on an H100 (PERF.md): undistorted
+# pixels, each device's float32
+# DLT against a float64 DLT of the same pixels (the two devices' points may
+# differ by twice that), the RANSAC transform from the same minimal sets.
+GENERAL_DESC_FLIPS = 1e-4
+GENERAL_UV_ATOL = 2.5e-4
+GENERAL_DLT_F64_ATOL = 5e-5
+GENERAL_T_ATOL = 2e-5
+
+
+def _render_general(root, frames=GENERAL_FRAMES, seed=42):
+    """The general rig's sequences as EuRoC mav0 trees (uint8 PNGs) with
+    the reference's camera file (type=Stereo, distortion, extrinsics) and
+    KITTI-format ground truth: `frames` positions for VO, and the SLAM
+    run's out-and-back over the same images (a tree of links)."""
+    from synth_distorted import (
+        euroc_scene, write_camera_file, write_euroc_replay, write_euroc_tree, write_gt,
+    )
+
+    scene = euroc_scene(np.random.default_rng(seed), GENERAL_DISPARITY_PX)
+    step = GENERAL_STEP_PX * scene.depth / scene.fx
+    xs = [i * step for i in range(frames)]
+    g = {"vo": os.path.join(root, "euroc_vo"), "slam": os.path.join(root, "euroc_slam"),
+         "camera": os.path.join(root, "euroc_camera.txt"), "step_m": step,
+         "depth_m": scene.depth, "size": (scene.h, scene.w)}
+    write_euroc_tree(g["vo"], scene, xs)
+    write_camera_file(g["camera"], scene)
+    write_gt(os.path.join(g["vo"], "gt.txt"), xs)
+    order = list(range(frames)) + list(range(frames - 2, -1, -1))
+    write_euroc_replay(g["slam"], g["vo"], order)
+    write_gt(os.path.join(g["slam"], "gt.txt"), [xs[i] for i in order])
+    return g
+
+
+def phase_general_vo(g, out_dir, rectified_ms, device="cuda"):
+    """The VO app on the general rig: `--dataset EuRoc` with the distorted
+    camera file, on the card. Needs the non-rectified rig, ATE <
+    GENERAL_VO_ATE_M and exactly UPRIGHT_PER_FRAME launches per frame (on the
+    card); prints ms per frame beside the rectified main path's (phase 4)."""
+    from stereo_orb_slam_torch.apps import visual_odometry
+    from stereo_orb_slam_torch.io import calib
+
+    if calib.load_camera(g["camera"], device="cpu").rectified:
+        raise AssertionError("general path: the camera file gives a rectified rig")
+    _reset_launches()
+    summary = visual_odometry.main([
+        "--dataset", "EuRoc", "--folder", g["vo"], "--camera", g["camera"],
+        "--output_dir", out_dir, "--gt", os.path.join(g["vo"], "gt.txt"), "--device", device,
+    ])
+    launches = _read_launches()
+    _sync(device)
+    world = summary["world"]
+    n = summary["frames"]
+    poses = world.pose_global[: world.num_frames]
+    rec = {"frames": n, "size": g["size"], "depth_m": g["depth_m"], "step_m": g["step_m"],
+           "fps": summary["fps"], "median_ms": summary["median_ms"],
+           "rectified_median_ms": rectified_ms, "ate_m": summary["ate_m"],
+           "points": world.num_points, "launches": launches}
+    log(f"general path (EuRoC cam0, distorted, non-rectified): {n} frames at "
+        f"{g['size'][0]}x{g['size'][1]}, {summary['fps']:.2f} frames/s, median "
+        f"{summary['median_ms']:.2f} ms/frame against the rectified main path's "
+        f"{rectified_ms:.2f}, ATE {summary['ate_m']:.5f} m, {world.num_points} points, "
+        f"launches {launches}")
+    if not (np.isfinite(poses).all() and poses.shape == (n, 4, 4)):
+        raise AssertionError("general path: poses are not finite [frames, 4, 4]")
+    if not summary["ate_m"] < GENERAL_VO_ATE_M:
+        raise AssertionError(f"general path: ATE {summary['ate_m']} m is not below "
+                             f"{GENERAL_VO_ATE_M} m")
+    if _is_cuda(device):
+        _check_launches("general path", launches, UPRIGHT_PER_FRAME, n)
+    return rec
+
+
+def _syncs_per_frame(vo, imgs, warm=2):
+    """Device syncs of one `track` call after `warm` frames."""
+    for il, ir in imgs[:warm]:
+        vo.track(il, ir)
+    return _syncs_per_call(lambda: vo.track(*imgs[warm]))[1]
+
+
+def _svd_call_us(A, reps=100):
+    """(µs of one torch.linalg.svd(A) between CUDA events over `reps` calls,
+    device syncs of one call). The call syncs the host, so the events also
+    hold the device's wait for the host between calls; the profile gives
+    the kernels' own time."""
+    import torch
+
+    for _ in range(5):
+        torch.linalg.svd(A)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        torch.linalg.svd(A)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps * 1e3, _syncs_per_call(lambda: torch.linalg.svd(A))[1]
+
+
+def phase_general_devices(g, seq, frame=1, device="cuda", reference_device="cpu"):
+    """The general path's own pieces, the card against the CPU, on frames
+    frame - 1 and frame of the distorted sequence (`frontend_step` on both
+    devices, the same RANSAC sets): the counts and slot validity equal,
+    undistorted pixels within GENERAL_UV_ATOL, the DLT points of valid slots
+    within 2 * GENERAL_DLT_F64_ATOL of each other (and each device's DLT of
+    the CPU's pixels within GENERAL_DLT_F64_ATOL of a float64 DLT), the
+    RANSAC transform within GENERAL_T_ATOL. Also: non-finite DLT points of
+    invalid slots on the card (masked afterwards), the batched 4x4 SVD's
+    time per call at the frame's shape (CUDA events) and its syncs, and the
+    syncs of one distorted and one rectified VO frame."""
+    import torch
+
+    from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
+    from stereo_orb_slam_torch.frontend.odometer import (
+        VisualOdometer, _to_host, empty_slots, frontend_step,
+    )
+    from stereo_orb_slam_torch.geometry import camera as cam_mod
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.ops import orb
+    from stereo_orb_slam_torch.worldmap import WorldMap
+    from synth_distorted import dlt_float64
+
+    fe, rc = FrontendConfig(), RansacConfig()
+    pairs = datasets.load_dataset("EuRoc", g["vo"])
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs[:3]]
+    out, rigs = {}, {}
+    for dev in (reference_device, device):
+        rig = rigs[dev] = calib.load_camera(g["camera"], device=dev)
+        prev, usable = empty_slots(fe.num_features, dev), False
+        for j, (il, ir) in enumerate(imgs[: frame + 1]):
+            res = frontend_step(torch.from_numpy(il).to(dev), torch.from_numpy(ir).to(dev),
+                                prev, torch.tensor(usable, device=dev),
+                                _edge_sampler(j, rc.num_hypotheses), rig,
+                                rig.max_sensible_distance(), fe, rc, rectified=False,
+                                steer=orb.steer_table(fe.oriented, dev))
+            prev, usable = res.slots, True
+        out[dev] = _to_host(res)
+    ref, got = out[reference_device], out[device]
+    counts = {k: (int(getattr(ref, k)), int(getattr(got, k)))
+              for k in ("num_stereo", "num_temporal", "num_inliers", "ransac_success")}
+    valid = ref.slots.valid
+    same_valid = bool(np.array_equal(valid, got.slots.valid))
+    uv_gap = max(float(np.abs(ref.slots.kp_l - got.slots.kp_l).max()),
+                 float(np.abs(ref.slots.kp_r - got.slots.kp_r)[valid].max()))
+    pts_gap = float(np.abs(ref.slots.pts - got.slots.pts)[valid].max())
+    t_gap = float(np.abs(ref.transform - got.transform).max())
+    # The kernels' own outputs at this path's shapes: orb_describe's words
+    # of every slot (the card's kernel against the CPU's plain version, at
+    # most GENERAL_DESC_FLIPS of the bits) and hamming_top2's temporal
+    # matches, which then decide the RANSAC inliers (equal).
+    flips = int(np.unpackbits(np.bitwise_xor(ref.slots.desc, got.slots.desc)
+                              .view(np.uint8)).sum())
+    bits = ref.slots.desc.size * 32
+    same_matches = bool(np.array_equal(ref.prev_idx, got.prev_idx)
+                        and np.array_equal(ref.tracked, got.tracked))
+    # The landmarks' depth against the plane's: the scatter that the
+    # detector's positions in the distorted images leave (see
+    # GENERAL_VO_ATE_M), and the stereo matches off by more than 10 %.
+    rel = np.abs(ref.slots.pts[valid, 2] / g["depth_m"] - 1.0)
+    depth_err = {"median_abs": float(np.median(rel)), "max_abs": float(rel.max()),
+                 "share_over_10pct": float((rel > 0.1).mean())}
+
+    # Each device's DLT of the CPU's ideal pixels against float64.
+    kp_l, kp_r = ref.slots.kp_l, ref.slots.kp_r
+    P_l, P_r = (rigs[reference_device].left.projection.numpy(),
+                rigs[reference_device].right.projection.numpy())
+    x64 = dlt_float64(P_l, P_r, kp_l[valid], kp_r[valid])
+    f64_gap, nonfinite = {}, 0
+    for dev, rig in rigs.items():
+        pts, _ = cam_mod.triangulate_ideal(rig, torch.from_numpy(kp_l).to(dev),
+                                           torch.from_numpy(kp_r).to(dev), rectified=False)
+        pts = pts.cpu().numpy()
+        f64_gap[dev] = float(np.abs(pts[valid] - x64).max())
+        if dev == device:
+            nonfinite = int((~np.isfinite(pts)).any(axis=1).sum())
+            if not np.isfinite(pts[valid]).all():
+                raise AssertionError("general path: the card's DLT of a valid slot is not "
+                                     "finite")
+
+    # The DLT's batched SVD at the frame's shape ([N, 4, 4]) on the card,
+    # and the syncs of one VO frame, distorted and rectified, counted alike.
+    svd_us = svd_syncs = general_syncs = rect_syncs = None
+    # The systems are built as triangulate_dlt builds them: rows
+    # u * P^3 - P^1 and v * P^3 - P^2 of both views.
+    A = torch.cat([torch.from_numpy(uv[:, c:c + 1]).to(device) * P[2] - P[c]
+                   for P, uv in ((rigs[device].left.projection, kp_l),
+                                 (rigs[device].right.projection, kp_r))
+                   for c in (0, 1)], dim=1).reshape(-1, 4, 4)
+    if _is_cuda(device):
+        svd_us, svd_syncs = _svd_call_us(A)
+        general_syncs = _syncs_per_frame(VisualOdometer(WorldMap(), rigs[device]), imgs)
+        kitti = datasets.load_dataset("kitti", seq)[:3]
+        kimgs = [(datasets.read_grayscale(p), datasets.read_grayscale(q)) for p, q in kitti]
+        rect_syncs = _syncs_per_frame(VisualOdometer(WorldMap(), calib.load_camera(
+            os.path.join(seq, "calib.txt"), device=device)), kimgs)
+
+    rec = {"frame": frame, "counts_cpu_card": counts, "valid_slots": int(valid.sum()),
+           "same_slot_validity": same_valid, "desc_bits_differing": flips,
+           "desc_bits": bits, "same_temporal_matches": same_matches,
+           "undistorted_px_max_diff": uv_gap,
+           "points_max_diff_m": pts_gap, "transform_max_diff": t_gap,
+           "dlt_vs_float64_m": f64_gap, "card_dlt_nonfinite_slots": nonfinite,
+           "depth_rel_err": depth_err,
+           "svd_call_us": svd_us, "svd_batch": list(A.shape),
+           "svd_syncs_per_call": svd_syncs, "syncs_per_frame_general": general_syncs,
+           "syncs_per_frame_rectified": rect_syncs,
+           "bounds": {"desc_bits_share": GENERAL_DESC_FLIPS, "uv_px": GENERAL_UV_ATOL, "dlt_f64_m": GENERAL_DLT_F64_ATOL,
+                      "points_m": 2 * GENERAL_DLT_F64_ATOL, "transform": GENERAL_T_ATOL}}
+    log(f"general path, card against CPU on frame {frame}: counts {counts}, "
+        f"{rec['valid_slots']} valid slots (validity equal: {same_valid}), descriptors "
+        f"{flips} of {bits} bits differ, temporal matches and inliers equal: {same_matches}, "
+        f"undistorted "
+        f"pixels {uv_gap:.3g} px (bound {GENERAL_UV_ATOL}), DLT points {pts_gap:.3g} m "
+        f"(bound {2 * GENERAL_DLT_F64_ATOL}), against float64 {f64_gap} (bound "
+        f"{GENERAL_DLT_F64_ATOL}), transform {t_gap:.3g} (bound {GENERAL_T_ATOL}); "
+        f"card DLT non-finite on {nonfinite} slots (all invalid); landmark depth against "
+        f"the plane's, relative: {depth_err}")
+    log(f"general path: batched SVD {list(A.shape)} {svd_us} us per call on the card, "
+        f"{svd_syncs} syncs per call; syncs per VO frame: distorted {general_syncs}, "
+        f"rectified {rect_syncs}")
+    if any(a != b for a, b in counts.values()) or not same_valid:
+        raise AssertionError(f"general path: the card and the CPU disagree on counts {counts} "
+                             f"or slot validity")
+    if flips > bits * GENERAL_DESC_FLIPS or not same_matches:
+        raise AssertionError(f"general path: orb_describe's words differ in {flips} of {bits} "
+                             f"bits, or the temporal matches differ ({same_matches})")
+    if not (uv_gap <= GENERAL_UV_ATOL and pts_gap <= 2 * GENERAL_DLT_F64_ATOL
+            and max(f64_gap.values()) <= GENERAL_DLT_F64_ATOL and t_gap <= GENERAL_T_ATOL):
+        raise AssertionError("general path: the card and the CPU disagree beyond the stated "
+                             "bounds")
+    return rec
+
+
+def phase_general_kernels(g, frame=1, device="cuda"):
+    """The general path's two kernels at its own shapes (752 x 480, padded
+    to 510 x 782; N = 1024), on the inputs that path gives them: the
+    wrappers' arguments are captured from `frontend_step` on frames
+    frame - 1 and frame of the distorted tree on the card (the left image's
+    describe and the frame's matching), then each kernel is held against
+    its plain version on them (hamming_top2 bit for bit, orb_describe at
+    most GENERAL_DESC_FLIPS of the bits) and timed as in phase 3."""
+    import torch
+
+    from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
+    from stereo_orb_slam_torch.frontend.odometer import empty_slots, frontend_step
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.ops import match, orb
+    from stereo_orb_slam_torch.ops.kernels import describe, hamming
+
+    dev = torch.device(device)
+    fe, rc = FrontendConfig(), RansacConfig()
+    rig = calib.load_camera(g["camera"], device=dev)
+    calls = {"orb_describe": [], "hamming_top2": []}
+    hooks = {(describe, "orb_describe"): "orb_describe",
+             (match, "hamming_top2_pair"): "hamming_top2"}
+    originals = {site: getattr(*site) for site in hooks}
+
+    def capture(key, fn):
+        def call(*args):
+            calls[key].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return fn(*args)
+        return call
+
+    try:
+        for site, key in hooks.items():
+            setattr(*site, capture(key, originals[site]))
+        prev, usable = empty_slots(fe.num_features, dev), False
+        for j, (a, b) in enumerate(datasets.load_dataset("EuRoc", g["vo"])[: frame + 1]):
+            res = frontend_step(torch.from_numpy(datasets.read_grayscale(a)).to(dev),
+                                torch.from_numpy(datasets.read_grayscale(b)).to(dev),
+                                prev, torch.tensor(usable, device=dev),
+                                _edge_sampler(j, rc.num_hypotheses), rig,
+                                rig.max_sensible_distance(), fe, rc, rectified=False,
+                                steer=orb.steer_table(fe.oriented, dev))
+            prev, usable = res.slots, True
+        _sync(device)
+    finally:
+        for site, fn in originals.items():
+            setattr(*site, fn)
+    if len(calls["orb_describe"]) != 2 * (frame + 1) or len(calls["hamming_top2"]) != frame + 1:
+        raise AssertionError(f"general kernels: captured {[len(c) for c in calls.values()]} "
+                             f"calls over {frame + 1} frames")
+    records = []
+
+    # hamming_top2: the frame's left descriptors against its right ones and
+    # the previous frame's slots, one launch.
+    args = calls["hamming_top2"][-1]
+    q, ta, va, tb, vb = args
+    got = hamming.hamming_top2_pair(*args)
+    plain = (hamming.hamming_top2_plain(q, ta, va), hamming.hamming_top2_plain(q, tb, vb))
+    _sync(device)
+    err = max(_check_equal("hamming_top2_pair (general, right image)", got[0], plain[0]),
+              _check_equal("hamming_top2_pair (general, previous frame)", got[1], plain[1]))
+    ms = time_device(lambda: hamming.hamming_top2_pair(*args))
+    call_ms = time_call(lambda: hamming.hamming_top2_pair(*args))
+    plain_ms = time_device(lambda: (hamming.hamming_top2_plain(q, ta, va),
+                                    hamming.hamming_top2_plain(q, tb, vb)))
+    B, n, m = q.shape[0], q.shape[-2], ta.shape[-2]
+    bytes_ = B * (n * 32 + 2 * (m * 32 + m + n * 12))
+    ops = B * 2 * 2 * n * m * 256
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / INT8_TENSOR_OPS_PER_S * 1e3
+    records.append(_record(
+        "hamming_top2 (general)", "stereo_orb_slam_torch/csrc/hamming_top2.cu",
+        "stereo_orb_slam_tpu/ops/pallas/hamming.py:74", "general",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes > t_ops else "operations", library_ms=None, match=True,
+        call_ms=call_ms, valid_train=[int(va.sum()), int(vb.sum())],
+        shape=f"N={n} against the right image's M={m} and the previous frame's {m} "
+              f"(distorted frame {frame}, one launch)"))
+
+    # orb_describe: the frame's left image, smoothed and padded, and its
+    # corners.
+    padded, xy, valid, table = calls["orb_describe"][-2]
+    got = describe.orb_describe(padded, xy, valid, table)
+    want = describe.orb_describe_plain(padded, xy, valid, table)
+    _sync(device)
+    diff = (orb.unpack_bits(got) - orb.unpack_bits(want)).abs()
+    flips, bits = int(diff.sum()), diff.numel()
+    if got.shape != want.shape or flips > bits * GENERAL_DESC_FLIPS:
+        raise AssertionError(f"orb_describe (general) differs from its plain version in "
+                             f"{flips} of {bits} bits")
+    ms = time_device(lambda: describe.orb_describe(padded, xy, valid, table))
+    call_ms = time_call(lambda: describe.orb_describe(padded, xy, valid, table))
+    plain_ms = time_device(lambda: describe.orb_describe_plain(padded, xy, valid, table))
+    (H, W), n = padded.shape[-2:], xy.shape[-2]
+    B = padded.numel() // (H * W)
+    bytes_ = B * (H * W * 4 + n * (8 + 1) + n * 32)
+    fmas = B * n * 2 * orb.N_TESTS * describe.TAPS
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, 2 * fmas / F32_OPS_PER_S * 1e3
+    records.append(_record(
+        "orb_describe (general)", "stereo_orb_slam_torch/csrc/orb_describe.cu",
+        "stereo_orb_slam_tpu/ops/pallas/patches.py:63", "general",
+        max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes > t_ops else "operations", library_ms=None,
+        match=flips == 0, bits_differing=flips, call_ms=call_ms,
+        valid_corners=int(valid.sum()),
+        shape=f"N={n} ({int(valid.sum())} valid) img={H}x{W} (distorted frame {frame}, "
+              f"left image)"))
+    for r in records:
+        log(f"kernel {r['name']}: {r['shape']}; match {r['match']}, device "
+            f"{r['ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}), "
+            f"per call {r['call_ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us")
+    return records
+
+
+GENERAL_MULTI_STEPS = 20
+
+
+def phase_general_multi_seq(g, steps=GENERAL_MULTI_STEPS, seed=7, device="cuda"):
+    """MultiSequenceSLAM over S = 2 distorted sequences at 752 x 480 with
+    their rigs stacked, on the card: the first `steps` frames of the tree
+    and a second plane (texture seed `seed`, the same rig and depth) that
+    the camera passes the other way. Each sequence's poses bit for bit its
+    own VisualOdometer run on the card, ATE < GENERAL_VO_ATE_M, and exactly
+    UPRIGHT_PER_FRAME launches per step."""
+    from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.parallel.multi_seq import MultiSequenceSLAM
+    from stereo_orb_slam_torch.utils import evaluate
+    from stereo_orb_slam_torch.worldmap import WorldMap
+    from synth_distorted import euroc_scene
+
+    scene = euroc_scene(np.random.default_rng(seed), GENERAL_DISPARITY_PX)
+    xs = [[i * g["step_m"] for i in range(steps)], [-i * g["step_m"] for i in range(steps)]]
+    pairs = datasets.load_dataset("EuRoc", g["vo"])[:steps]
+    imgs = [[(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs],
+            [tuple(np.clip(scene.render(x, right=r), 0, 255).astype(np.uint8)
+                   for r in (False, True)) for x in xs[1]]]
+    imgs_l = np.stack([[seq[i][0] for seq in imgs] for i in range(steps)])
+    imgs_r = np.stack([[seq[i][1] for seq in imgs] for i in range(steps)])
+    S = imgs_l.shape[1]
+    rigs = [calib.load_camera(g["camera"], device=device) for _ in range(S)]
+    warm = MultiSequenceSLAM(rigs)
+    for i in range(2):
+        warm.process(imgs_l[i], imgs_r[i])
+    _sync(device)
+
+    multi = MultiSequenceSLAM(rigs)
+    if multi.rig_batch.rectified is not False:
+        raise AssertionError("general multi-sequence: the stacked rig is rectified")
+    _reset_launches()
+    t0 = time.perf_counter()
+    multi_T = np.stack([np.stack(multi.process(imgs_l[i], imgs_r[i])) for i in range(steps)])
+    _sync(device)
+    multi_s = time.perf_counter() - t0
+    launches = _read_launches()
+
+    gaps, ates = [], []
+    for s in range(S):
+        vo = VisualOdometer(WorldMap(), rigs[s], seed=s)
+        alone = np.stack([vo.track(imgs_l[i, s], imgs_r[i, s]) for i in range(steps)])
+        gaps.append(float(np.abs(multi_T[:, s] - alone).max()))
+        w = multi.worlds[s]
+        poses = w.pose_global[: w.num_frames]
+        if not (np.isfinite(poses).all() and w.num_frames == steps
+                and np.array_equal(poses, vo.world.pose_global[: vo.world.num_frames])):
+            raise AssertionError(f"general multi-sequence: sequence {s} lost frames, is not "
+                                 f"finite or differs from its own VisualOdometer run")
+        gt = np.tile(np.eye(4), (steps, 1, 1))
+        gt[:, 0, 3] = xs[s]
+        ates.append(evaluate.ate_rmse(poses, gt))
+    rec = {"sequences": S, "steps": steps, "size": g["size"],
+           "ms_per_step": multi_s * 1e3 / steps, "pose_gap_to_single": gaps, "ate_m": ates,
+           "points": [w.num_points for w in multi.worlds], "launches": launches}
+    log(f"general multi-sequence (S = {S} distorted sequences, {steps} steps at "
+        f"{g['size'][0]}x{g['size'][1]}): {rec['ms_per_step']:.2f} ms per step, pose gaps to "
+        f"each sequence alone {gaps}, ATE {ates} m, launches {launches}")
+    if any(gaps):
+        raise AssertionError(f"general multi-sequence: poses differ from each sequence "
+                             f"tracked alone by {gaps}")
+    if not max(ates) < GENERAL_VO_ATE_M:
+        raise AssertionError(f"general multi-sequence: ATE {ates} m, not all below "
+                             f"{GENERAL_VO_ATE_M} m")
+    if _is_cuda(device):
+        _check_launches("general multi-sequence", launches, UPRIGHT_PER_FRAME, steps)
+    return rec
+
+
+def phase_general_slam(g, out_dir, device="cuda"):
+    """The SLAM app on the general rig (`--dataset EuRoc`, K = 1, the
+    shipped SlamConfig) over the out-and-back: every frame tracked, ATE
+    after finish < GENERAL_SLAM_ATE_M, at least one loop edge measured
+    (`measure_edge` on the general branch: the DLT of stored ideal
+    observations), the exact launches of _slam_launches_expected (on the
+    card); loop events reported."""
+    from stereo_orb_slam_torch.apps import slam
+
+    _reset_launches()
+    summary = slam.main([
+        "--dataset", "EuRoc", "--folder", g["slam"], "--camera", g["camera"],
+        "--output_dir", out_dir, "--gt", os.path.join(g["slam"], "gt.txt"),
+        "--batch_frames", "1", "--device", device,
+    ])
+    launches = _read_launches()
+    _sync(device)
+    system = summary["system"]
+    n, world = summary["frames"], system.world
+    ids = np.arange(world.num_points, dtype=np.int32)
+    expected, bow_batches, edges = _slam_launches_expected(system, n, 1)
+    rec = {"frames": n, "tracked": world.num_frames, "live_fps": summary["live_fps"],
+           "median_ms": summary["median_ms"], "finish_seconds": summary["finish_seconds"],
+           "ate_m": summary["ate_m"], "live_ate_m": summary["live_ate_m"],
+           "points": world.num_points,
+           "merged_points": int((world.canonical(ids) != ids).sum()),
+           "max_loop_probability": max(system.loop.probabilities, default=0.0),
+           "closures": [{k: h[k] for k in ("live", "loop_edges_measured", "num_loop_edges")}
+                        for h in system.pgo.history],
+           "edges_measured": edges, "launches": launches,
+           "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
+                                 "orb_describe_oriented": 0, "extract_patches": 0}}
+    log(f"general SLAM (--dataset EuRoc, K = 1): {n} frames, {world.num_frames} tracked, live "
+        f"{rec['live_fps']:.2f} fps, finish {rec['finish_seconds']:.2f} s, ATE "
+        f"{rec['ate_m']:.5f} m (live {rec['live_ate_m']:.5f}), max loop probability "
+        f"{rec['max_loop_probability']:.4f}, closures {rec['closures']}, {edges} loop edges "
+        f"measured, {rec['merged_points']} landmarks merged, launches {launches}, expected "
+        f"{rec['launches_expected']}")
+    poses = world.pose_global[: world.num_frames]
+    if not (np.isfinite(poses).all() and world.num_frames == n):
+        raise AssertionError("general SLAM: poses are not finite, or frames were lost")
+    if not rec["ate_m"] < GENERAL_SLAM_ATE_M:
+        raise AssertionError(f"general SLAM: ATE {rec['ate_m']} m is not below "
+                             f"{GENERAL_SLAM_ATE_M} m")
+    if not edges >= 1:
+        raise AssertionError("general SLAM: no loop edge was measured on the general rig")
+    bow = system.fused_score_batches + system.loop.score_batches
+    if bow != bow_batches:
+        raise AssertionError(f"general SLAM: {bow} BoW scoring batches, the trajectory gives "
+                             f"{bow_batches}")
+    if _is_cuda(device) and launches != rec["launches_expected"]:
+        raise AssertionError(f"general SLAM: launches {launches}, expected "
+                             f"{rec['launches_expected']}")
+    return rec
+
+
 MAP_SIZE = dict(C=1000, P=100_000, opc=200)   # tests/test_f32_scale.py's generator
 MAP_LM_ITERATIONS = 6
 # Card against CPU on a BA problem (phase 6b), each bound between the
@@ -1281,10 +1802,11 @@ def phase_ba_profile(seq, window, path, iters=3):
     log(f"BA profile breakdown in {path}")
 
 
-def phase_profile(seq, path, frames=20, warm=5):
+def phase_profile(seq, path, frames=20, warm=5, dataset="kitti", camera=None):
     """Where a frame's time goes: `frames` track() calls on the card under
-    torch.profiler, after `warm` calls off the record. Writes the breakdown
-    to `path` as JSON and prints a summary."""
+    torch.profiler, after `warm` calls off the record, on the KITTI
+    sequence `seq` (or another dataset's folder with its camera file).
+    Writes the breakdown to `path` as JSON and prints a summary."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1292,9 +1814,9 @@ def phase_profile(seq, path, frames=20, warm=5):
     from stereo_orb_slam_torch.io import calib, datasets
     from stereo_orb_slam_torch.worldmap import WorldMap
 
-    pairs = datasets.load_dataset("kitti", seq)[: warm + frames]
+    pairs = datasets.load_dataset(dataset, seq)[: warm + frames]
     imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
-    vo = VisualOdometer(WorldMap(), calib.load_camera(os.path.join(seq, "calib.txt")))
+    vo = VisualOdometer(WorldMap(), calib.load_camera(camera or os.path.join(seq, "calib.txt")))
     for il, ir in imgs[:warm]:
         vo.track(il, ir)
     torch.cuda.synchronize()
@@ -1319,10 +1841,12 @@ def phase_profile(seq, path, frames=20, warm=5):
     }
     with open(path, "w") as f:
         json.dump(report, f, indent=1)
-    log(f"profile: {report['wall_ms_per_frame']:.2f} ms/frame wall, device busy "
+    log(f"profile ({dataset}): {report['wall_ms_per_frame']:.2f} ms/frame wall, device busy "
         f"{report['device_busy_ms_per_frame']:.3f} ms/frame (idle share "
         f"{report['device_idle_share']:.3f}), {report['device_launches_per_frame']:.0f} "
-        f"device launches/frame; breakdown in {path}")
+        f"device launches/frame; top: "
+        + ", ".join(f"{k['name'][:40]} {k['device_us_per_frame']:.1f} us"
+                    for k in report["kernels"][:6]) + f"; breakdown in {path}")
 
 
 # The SLAM phase's trajectory, in whole 14 px steps of x (see
@@ -2345,7 +2869,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile 20 frames of the main path (breakdown written to "
-                         "PATH), 10 oriented frames with the fused kernel and with the "
+                         "PATH) and of the general rig (_general before the extension), "
+                         "10 oriented frames with the fused kernel and with the "
                          "chain it replaced (_oriented before the extension), 3 LM "
                          "iterations of a window and of the map problem (_ba) and 20 SLAM "
                          "frames and a pose-graph solve (_slam)")
@@ -2374,6 +2899,16 @@ def main(argv=None):
         summary, launches = timed("main_path", phase_main_path, seq, gt,
                                   os.path.join(tmp, "vo_out"))
         oriented = timed("oriented", phase_oriented, seq, gt)
+        general_data = timed("render_general", _render_general, tmp)
+        general = {"vo": timed("general", phase_general_vo, general_data,
+                               os.path.join(tmp, "general_out"), summary["median_ms"]),
+                   "cuda_vs_cpu": timed("general_devices", phase_general_devices, general_data,
+                                        seq),
+                   "slam": timed("general_slam", phase_general_slam, general_data,
+                                 os.path.join(tmp, "general_slam_out")),
+                   "multi_seq": timed("general_multi_seq", phase_general_multi_seq,
+                                      general_data)}
+        records += timed("general_kernels", phase_general_kernels, general_data)
         multi_seq, multi_state = timed("multi_seq", phase_multi_seq, seq)
         ba_world, tracking, window = timed("ba_tracking", phase_ba_tracking, seq, gt)
         dist_world = copy.deepcopy(ba_world)
@@ -2409,6 +2944,9 @@ def main(argv=None):
         if args.profile:
             root, ext = os.path.splitext(args.profile)
             timed("profile", phase_profile, seq, args.profile)
+            timed("profile_general", phase_profile, general_data["vo"],
+                  f"{root}_general{ext or '.json'}", dataset="EuRoc",
+                  camera=general_data["camera"])
             timed("profile_oriented", phase_oriented_profile, seq,
                   f"{root}_oriented{ext or '.json'}")
             timed("profile_multi_seq", phase_multi_seq_profile, multi_state,
@@ -2418,6 +2956,8 @@ def main(argv=None):
             timed("profile_slam", phase_slam_profile, slam_seq,
                   f"{root}_slam{ext or '.json'}")
     paths = {"main": launches, "oriented": oriented["launches"],
+             "general": general["vo"]["launches"], "slam_general": general["slam"]["launches"],
+             "multi_seq_general": general["multi_seq"]["launches"],
              "multi_seq": multi_seq["launches"],
              "ba_tracking": tracking["launches"], "slam": slam_runs[1]["launches"],
              "slam_batch4": slam_runs[4]["launches"]}
@@ -2429,6 +2969,7 @@ def main(argv=None):
                                                           "ate_m")},
                     "launch_floor_ms": floor_ms}))
     log(json.dumps({"oriented": oriented}))
+    log(json.dumps({"general": general}, default=float))
     log(json.dumps({"ba": ba}))
     log(json.dumps({"slam": {str(k): {key: v for key, v in r.items() if key != "timers"}
                              for k, r in slam_runs.items()},

@@ -8,6 +8,14 @@ renormalization, txt + PLY export. Same flags and output files, plus
 
     python -m stereo_orb_slam_torch.apps.visual_odometry --dataset kitti \
         --folder SEQ --camera SEQ/calib.txt --output_dir OUT [--gt GT]
+    python -m stereo_orb_slam_torch.apps.visual_odometry --dataset EuRoc \
+        --folder ROOT --camera camera.txt --output_dir OUT [--debug_viz DIR]
+
+With `--dataset EuRoc`, ROOT holds `mav0/cam{0,1}/data.csv`, and the
+reference's key=value camera file carries the distortion and extrinsics:
+`type=Stereo` selects the general rig (undistortion + DLT triangulation).
+`--debug_viz DIR` writes the reference's Stereo/Temporal/Tracking views as
+PNGs every `--debug_viz_every` frames (utils/viz.save_frame_debug).
 
 The process keeps TF32 off for float32 matrix products
 (`torch.backends.cuda.matmul.allow_tf32 = False`, PyTorch's default, set
@@ -25,7 +33,7 @@ import torch
 
 from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
 from stereo_orb_slam_torch.io import calib, datasets, export
-from stereo_orb_slam_torch.utils import evaluate, logging as slog
+from stereo_orb_slam_torch.utils import evaluate, logging as slog, viz
 from stereo_orb_slam_torch.worldmap import WorldMap
 
 
@@ -40,6 +48,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--output_suffix", default="vo")
     ap.add_argument("--max_frames", type=int, default=0)
     ap.add_argument("--gt", default=None)
+    ap.add_argument("--debug_viz", default=None, metavar="DIR",
+                    help="write Stereo/Temporal/Tracking debug PNGs "
+                         "(the reference's three imshow windows, "
+                         "ref visual_odometer.cpp:31-33)")
+    ap.add_argument("--debug_viz_every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
@@ -58,12 +71,20 @@ def main(argv=None) -> dict:
     reader = datasets.PrefetchingReader(pairs)
     t_start = time.perf_counter()
     times = []
+    prev_img, prev_slots = None, None
     for i, (img_l, img_r) in enumerate(reader):
+        if args.debug_viz:
+            prev_slots = vo.prev  # the matching state before this frame's swap
         t0 = time.perf_counter()
         vo.track(img_l, img_r)
         dt = time.perf_counter() - t0
         times.append(dt)
         slog.info(f"frame #{i}: {dt * 1e3:.1f} ms")
+        if args.debug_viz and i % max(1, args.debug_viz_every) == 0:
+            viz.save_frame_debug(args.debug_viz, i, img_l, img_r, vo.last_result,
+                                 prev_img=prev_img, prev_slots=prev_slots)
+        if args.debug_viz and vo.success:
+            prev_img = img_l  # the temporal view matches against the swapped frame
     total = time.perf_counter() - t_start
 
     n = world.num_frames

@@ -118,6 +118,18 @@ def project(P, pts):
     return uvw[..., :2] / safe_w
 
 
+def distort_normalized(cam: Pinhole, xy):
+    """Apply the 5-coefficient radial-tangential model to normalized
+    coordinates [..., N, 2] (a stacked camera, fields [S], takes [S, N, 2])."""
+    k1, k2, p1, p2, k3 = (cam.dist[..., i, None] for i in range(5))
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
 def undistort_points(cam: Pinhole, uv, iterations: int = 8):
     """Distorted pixel coords [..., N, 2] -> undistorted pixel coords (a
     stacked camera, fields [S], takes [S, N, 2])
@@ -177,6 +189,26 @@ def triangulate_rectified(rig: StereoRig, uv_l, uv_r, max_depth: float = 100.0):
     pts = torch.stack([x, y, z], dim=-1)
     valid = (z > 0.0) & (z < max_depth)
     return pts, valid
+
+
+def triangulate_general(rig: StereoRig, uv_l, uv_r, max_depth: float = 100.0):
+    """General stereo path on raw (distorted) pixels: undistort (ref
+    `src/camera_model.cpp:128-132`), then DLT; valid where the depth in the
+    left camera frame lies in (0, max_depth). A stacked rig takes
+    [S, N, 2] pixels, sequence s with rig s."""
+    return triangulate_ideal(rig, undistort_points(rig.left, uv_l),
+                             undistort_points(rig.right, uv_r), max_depth, rectified=False)
+
+
+def triangulate(rig: StereoRig, uv_l, uv_r, max_depth: float = 100.0, rectified=None):
+    """Rectified or general triangulation of raw pixels; both return
+    (pts, valid). `rectified` is a Python bool, or None to take the rig's
+    own flag (a host bool, so the branch is taken in Python)."""
+    if rectified is None:
+        rectified = rig.rectified
+    if rectified:
+        return triangulate_rectified(rig, uv_l, uv_r, max_depth)
+    return triangulate_general(rig, uv_l, uv_r, max_depth)
 
 
 def triangulate_ideal(rig: StereoRig, uv_l, uv_r, max_depth: float = 100.0,

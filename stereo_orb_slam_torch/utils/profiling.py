@@ -1,9 +1,10 @@
-"""Per-stage wall-clock timers.
+"""Per-stage wall-clock timers and optional profiler regions.
 
-A copy of the JAX package's `utils/profiling.py`. The reference's only
-instrumentation is a per-frame elapsed-ms print (ref src/slam.cpp:136-138);
-here every pipeline stage accumulates into a registry that the apps print
-at exit.
+The PyTorch counterpart of the JAX package's `utils/profiling.py`. The
+reference's only instrumentation is a per-frame elapsed-ms print (ref
+src/slam.cpp:136-138); here every pipeline stage accumulates into a
+registry that the apps print at exit, and `trace()` names a region in a
+torch.profiler trace (`torch.profiler.record_function`).
 
 The timers read the host clock and add no device sync: device work is
 asynchronous, so a stage that ends in a readback (`vo.collect`,
@@ -33,6 +34,12 @@ class StageTimers:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 
+    def reset(self):
+        """Zero all accumulators (a harness calls this between its warm-up
+        and its timed frames)."""
+        self.totals.clear()
+        self.counts.clear()
+
     def summary(self) -> dict:
         return {
             name: {
@@ -52,3 +59,15 @@ class StageTimers:
             )
         return "\n".join(lines)
 
+
+@contextlib.contextmanager
+def trace(name: str, enabled: bool = False):
+    """A named torch.profiler region (`record_function`); no-op unless
+    enabled."""
+    if not enabled:
+        yield
+        return
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield

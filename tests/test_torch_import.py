@@ -48,7 +48,8 @@ def _sources(with_smoke):
     # With the smoke: also the JAX-free test helpers that spawned ranks and
     # the smoke import.
     files = ([os.path.join(ROOT, name) for name in
-              ("chip_smoke.py", "tests/dist_workers.py", "tests/synth_ba.py")]
+              ("chip_smoke.py", "tests/dist_workers.py", "tests/synth_ba.py",
+               "tests/synth_distorted.py")]
              if with_smoke else [])
     for dirpath, _, names in os.walk(os.path.join(ROOT, "stereo_orb_slam_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith((".py", ".cu"))]
