@@ -72,12 +72,14 @@ Phases, each of which fails the run when it fails:
      (pose graph + deferred polish) and at finish, merged landmarks, ATE <
      0.01 m for both and within 1e-3 m of each other, and exact launches
      (hamming_top2 one per frame, per BoW scoring batch, per vocabulary
-     assignment and per loop edge; orb_describe 2 per frame;
+     assignment and per loop-edge batch; orb_describe 2 per frame;
      extract_patches 0). Then the path's pieces, the card against the CPU
      (SLAM_* bounds): the vocabulary assignment bit for bit,
      batch_score_update, the loop-edge batch with the same RANSAC sets and
-     pg_solve on the final graph, the last two with a TF32-on control, and
-     the time of the first forward-mode use in a process;
+     pg_solve on the final graph, the last two with a TF32-on control, the
+     loop-edge batch's ms and hamming_top2 launches (one) at E = 1, 8 and
+     all of the final graph's committed edges, and the time of the first
+     forward-mode use in a process;
   8. multi-sequence tracking (BASELINE.json config 4): first the
      four kernels at batch 3 in one launch each, bit for bit against B = 1
      launches and against their batched plain versions (the oriented
@@ -125,7 +127,27 @@ Phases, each of which fails the run when it fails:
      run, exact launches per step); then hamming_top2 and orb_describe at
      this path's shapes (510 x 782 padded images) on its own inputs, held
      against their plain versions and timed (records with path
-     "general").
+     "general");
+  12. the canyon (after phase 7): benchmarks/canyon_drive.py's production
+     drive in the port, its tree written by tests/synth_canyon.py (a
+     376 x 1241 CanyonScene: continuous multi-plane texture, sensor noise
+     sigma 1, sub-pixel motion; 192 frames of one circuit of a 3 m square
+     and its revisit) through `apps.slam.main` with the drive's flags
+     (--batch_frames 32, 1024 features, --loop_query_size 8,
+     --ransac_refit, --live_ba_iterations 20, --finish_seconds 150,
+     --preload_device): the loop probability past is_loop_thresh, a live
+     closure with loop edges for every loop exit (the trajectory ends in
+     its revisit, so there is none here, nor in the JAX package's run) and
+     loop edges at finish, ATE < CANYON_SLAM_ATE_M (1.5 x the JAX
+     package's ATE on the same tree, tests/canyon_witness.py, + 0.01 m),
+     exact launches (loop edges one hamming_top2 per batch); live fps,
+     median ms per frame, closure stalls, finish seconds, loop episodes and
+     exits and edges per closure recorded. Frame 1 on the card against the CPU
+     (counts, slot validity, orb_describe's words within CANYON_DESC_FLIPS
+     of the bits, the temporal matches); 60 frames through VisualOdometer
+     with RansacConfig() and with final_model_fitting=True (both ATEs); and
+     hamming_top2 and orb_describe on frame 1's own inputs against their
+     plain versions and timed (records with path "canyon").
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1001,14 +1023,15 @@ def phase_general_devices(g, seq, frame=1, device="cuda", reference_device="cpu"
     return rec
 
 
-def phase_general_kernels(g, frame=1, device="cuda"):
-    """The general path's two kernels at its own shapes (752 x 480, padded
-    to 510 x 782; N = 1024), on the inputs that path gives them: the
-    wrappers' arguments are captured from `frontend_step` on frames
-    frame - 1 and frame of the distorted tree on the card (the left image's
+def phase_path_kernels(path, dataset, folder, camera, rectified, desc_flips, frame=1,
+                       device="cuda"):
+    """A path's two kernels at its own shapes, on the inputs that path gives
+    them: the wrappers' arguments are captured from `frontend_step` on
+    frames frame - 1 and frame of the tree on the card (the left image's
     describe and the frame's matching), then each kernel is held against
     its plain version on them (hamming_top2 bit for bit, orb_describe at
-    most GENERAL_DESC_FLIPS of the bits) and timed as in phase 3."""
+    most `desc_flips` of the bits) and timed as in phase 3. Records are
+    named "... (path)"."""
     import torch
 
     from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
@@ -1019,7 +1042,7 @@ def phase_general_kernels(g, frame=1, device="cuda"):
 
     dev = torch.device(device)
     fe, rc = FrontendConfig(), RansacConfig()
-    rig = calib.load_camera(g["camera"], device=dev)
+    rig = calib.load_camera(camera, device=dev)
     calls = {"orb_describe": [], "hamming_top2": []}
     hooks = {(describe, "orb_describe"): "orb_describe",
              (match, "hamming_top2_pair"): "hamming_top2"}
@@ -1035,12 +1058,12 @@ def phase_general_kernels(g, frame=1, device="cuda"):
         for site, key in hooks.items():
             setattr(*site, capture(key, originals[site]))
         prev, usable = empty_slots(fe.num_features, dev), False
-        for j, (a, b) in enumerate(datasets.load_dataset("EuRoc", g["vo"])[: frame + 1]):
+        for j, (a, b) in enumerate(datasets.load_dataset(dataset, folder)[: frame + 1]):
             res = frontend_step(torch.from_numpy(datasets.read_grayscale(a)).to(dev),
                                 torch.from_numpy(datasets.read_grayscale(b)).to(dev),
                                 prev, torch.tensor(usable, device=dev),
                                 _edge_sampler(j, rc.num_hypotheses), rig,
-                                rig.max_sensible_distance(), fe, rc, rectified=False,
+                                rig.max_sensible_distance(), fe, rc, rectified=rectified,
                                 steer=orb.steer_table(fe.oriented, dev))
             prev, usable = res.slots, True
         _sync(device)
@@ -1048,7 +1071,7 @@ def phase_general_kernels(g, frame=1, device="cuda"):
         for site, fn in originals.items():
             setattr(*site, fn)
     if len(calls["orb_describe"]) != 2 * (frame + 1) or len(calls["hamming_top2"]) != frame + 1:
-        raise AssertionError(f"general kernels: captured {[len(c) for c in calls.values()]} "
+        raise AssertionError(f"{path} kernels: captured {[len(c) for c in calls.values()]} "
                              f"calls over {frame + 1} frames")
     records = []
 
@@ -1059,8 +1082,8 @@ def phase_general_kernels(g, frame=1, device="cuda"):
     got = hamming.hamming_top2_pair(*args)
     plain = (hamming.hamming_top2_plain(q, ta, va), hamming.hamming_top2_plain(q, tb, vb))
     _sync(device)
-    err = max(_check_equal("hamming_top2_pair (general, right image)", got[0], plain[0]),
-              _check_equal("hamming_top2_pair (general, previous frame)", got[1], plain[1]))
+    err = max(_check_equal(f"hamming_top2_pair ({path}, right image)", got[0], plain[0]),
+              _check_equal(f"hamming_top2_pair ({path}, previous frame)", got[1], plain[1]))
     ms = time_device(lambda: hamming.hamming_top2_pair(*args))
     call_ms = time_call(lambda: hamming.hamming_top2_pair(*args))
     plain_ms = time_device(lambda: (hamming.hamming_top2_plain(q, ta, va),
@@ -1070,13 +1093,13 @@ def phase_general_kernels(g, frame=1, device="cuda"):
     ops = B * 2 * 2 * n * m * 256
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / INT8_TENSOR_OPS_PER_S * 1e3
     records.append(_record(
-        "hamming_top2 (general)", "stereo_orb_slam_torch/csrc/hamming_top2.cu",
-        "stereo_orb_slam_tpu/ops/pallas/hamming.py:74", "general",
+        f"hamming_top2 ({path})", "stereo_orb_slam_torch/csrc/hamming_top2.cu",
+        "stereo_orb_slam_tpu/ops/pallas/hamming.py:74", path,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes > t_ops else "operations", library_ms=None, match=True,
         call_ms=call_ms, valid_train=[int(va.sum()), int(vb.sum())],
         shape=f"N={n} against the right image's M={m} and the previous frame's {m} "
-              f"(distorted frame {frame}, one launch)"))
+              f"({path} frame {frame}, one launch)"))
 
     # orb_describe: the frame's left image, smoothed and padded, and its
     # corners.
@@ -1086,8 +1109,8 @@ def phase_general_kernels(g, frame=1, device="cuda"):
     _sync(device)
     diff = (orb.unpack_bits(got) - orb.unpack_bits(want)).abs()
     flips, bits = int(diff.sum()), diff.numel()
-    if got.shape != want.shape or flips > bits * GENERAL_DESC_FLIPS:
-        raise AssertionError(f"orb_describe (general) differs from its plain version in "
+    if got.shape != want.shape or flips > bits * desc_flips:
+        raise AssertionError(f"orb_describe ({path}) differs from its plain version in "
                              f"{flips} of {bits} bits")
     ms = time_device(lambda: describe.orb_describe(padded, xy, valid, table))
     call_ms = time_call(lambda: describe.orb_describe(padded, xy, valid, table))
@@ -1098,13 +1121,13 @@ def phase_general_kernels(g, frame=1, device="cuda"):
     fmas = B * n * 2 * orb.N_TESTS * describe.TAPS
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, 2 * fmas / F32_OPS_PER_S * 1e3
     records.append(_record(
-        "orb_describe (general)", "stereo_orb_slam_torch/csrc/orb_describe.cu",
-        "stereo_orb_slam_tpu/ops/pallas/patches.py:63", "general",
+        f"orb_describe ({path})", "stereo_orb_slam_torch/csrc/orb_describe.cu",
+        "stereo_orb_slam_tpu/ops/pallas/patches.py:63", path,
         max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes > t_ops else "operations", library_ms=None,
         match=flips == 0, bits_differing=flips, call_ms=call_ms,
         valid_corners=int(valid.sum()),
-        shape=f"N={n} ({int(valid.sum())} valid) img={H}x{W} (distorted frame {frame}, "
+        shape=f"N={n} ({int(valid.sum())} valid) img={H}x{W} ({path} frame {frame}, "
               f"left image)"))
     for r in records:
         log(f"kernel {r['name']}: {r['shape']}; match {r['match']}, device "
@@ -1190,7 +1213,7 @@ def phase_general_slam(g, out_dir, device="cuda"):
     """The SLAM app on the general rig (`--dataset EuRoc`, K = 1, the
     shipped SlamConfig) over the out-and-back: every frame tracked, ATE
     after finish < GENERAL_SLAM_ATE_M, at least one loop edge measured
-    (`measure_edge` on the general branch: the DLT of stored ideal
+    (`measure_edges` on the general branch: the DLT of stored ideal
     observations), the exact launches of _slam_launches_expected (on the
     card); loop events reported."""
     from stereo_orb_slam_torch.apps import slam
@@ -1206,7 +1229,7 @@ def phase_general_slam(g, out_dir, device="cuda"):
     system = summary["system"]
     n, world = summary["frames"], system.world
     ids = np.arange(world.num_points, dtype=np.int32)
-    expected, bow_batches, edges = _slam_launches_expected(system, n, 1)
+    expected, bow_batches, edges, edge_batches = _slam_launches_expected(system, n, 1)
     rec = {"frames": n, "tracked": world.num_frames, "live_fps": summary["live_fps"],
            "median_ms": summary["median_ms"], "finish_seconds": summary["finish_seconds"],
            "ate_m": summary["ate_m"], "live_ate_m": summary["live_ate_m"],
@@ -1215,14 +1238,15 @@ def phase_general_slam(g, out_dir, device="cuda"):
            "max_loop_probability": max(system.loop.probabilities, default=0.0),
            "closures": [{k: h[k] for k in ("live", "loop_edges_measured", "num_loop_edges")}
                         for h in system.pgo.history],
-           "edges_measured": edges, "launches": launches,
+           "edges_measured": edges, "loop_edge_batches": edge_batches, "launches": launches,
            "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
                                  "orb_describe_oriented": 0, "extract_patches": 0}}
     log(f"general SLAM (--dataset EuRoc, K = 1): {n} frames, {world.num_frames} tracked, live "
         f"{rec['live_fps']:.2f} fps, finish {rec['finish_seconds']:.2f} s, ATE "
         f"{rec['ate_m']:.5f} m (live {rec['live_ate_m']:.5f}), max loop probability "
         f"{rec['max_loop_probability']:.4f}, closures {rec['closures']}, {edges} loop edges "
-        f"measured, {rec['merged_points']} landmarks merged, launches {launches}, expected "
+        f"measured in {edge_batches} batches, {rec['merged_points']} landmarks merged, "
+        f"launches {launches}, expected "
         f"{rec['launches_expected']}")
     poses = world.pose_global[: world.num_frames]
     if not (np.isfinite(poses).all() and world.num_frames == n):
@@ -1239,6 +1263,228 @@ def phase_general_slam(g, out_dir, device="cuda"):
     if _is_cuda(device) and launches != rec["launches_expected"]:
         raise AssertionError(f"general SLAM: launches {launches}, expected "
                              f"{rec['launches_expected']}")
+    return rec
+
+
+# ------------------------------------------------------------------ canyon
+# The canyon drive (tests/synth_canyon.py: benchmarks/canyon_drive.py's
+# scene and flags at 376x1241, 192 frames of one circuit of a 3 m square
+# and its revisit). Its ATE gate rests on tests/canyon_witness.py, which
+# runs the JAX package's SLAM CLI on the CPU over the same tree with the
+# same flags: ATE 0.429 m (live 0.802 m), 5 loop episodes, no loop exit.
+CANYON_JAX_ATE_M = 0.429
+CANYON_SLAM_ATE_M = 1.5 * CANYON_JAX_ATE_M + 0.01
+CANYON_DESC_FLIPS = 1e-4     # orb_describe's words, card against CPU (frame 1)
+CANYON_VO_FRAMES = 60
+
+
+def _render_canyon(root):
+    """The canyon drive's KITTI tree, rendered by `tests/synth_canyon.py`
+    (a pool of processes) in a child process that starts no device
+    runtime. Returns the tree's folder, ground truth and path length."""
+    import synth_canyon
+
+    folder = os.path.join(root, "canyon")
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "tests", "synth_canyon.py"),
+                          "--out", folder], check=True, capture_output=True, text=True,
+                         timeout=900)
+    info = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"canyon tree: {info['frames']} frames at {synth_canyon.CANYON['h']}x"
+        f"{synth_canyon.CANYON['w']}, path {info['path_m']:.3f} m, rendered in "
+        f"{info['seconds']:.1f} s by {os.cpu_count()} processes")
+    return {"folder": folder, "gt": info["gt"], "path_m": info["path_m"],
+            "frames": info["frames"], "camera": os.path.join(folder, "calib.txt")}
+
+
+def phase_canyon_slam(c, out_dir, device="cuda"):
+    """The SLAM app on the card over the canyon tree with the canyon drive's
+    flags (synth_canyon.CANYON_FLAGS: 1024 features, --batch_frames 32,
+    --loop_query_size 8, --ransac_refit, --live_ba_iterations 20,
+    --finish_seconds 150, --preload_device). Needs every frame tracked, the
+    loop probability past is_loop_thresh, a live closure with loop edges
+    measured for every loop exit in the trace, loop edges measured at
+    finish, ATE after finish below CANYON_SLAM_ATE_M, and the exact
+    launches of _slam_launches_expected (loop edges: one hamming_top2 per
+    batch). The trajectory ends inside its revisit, so the filter does not
+    leave the loop and the closure comes at finish: the JAX package's trace
+    on the same tree has no exit either (tests/canyon_witness.py: the
+    probability stays at or above 0.325 after its first entry, against
+    not_loop_thresh 0.1). Records live fps, median ms per frame, each
+    closure's stall and split, finish seconds, loop episodes (counted as
+    the drive counts them) and exits, and the edges measured per closure."""
+    import synth_canyon
+
+    from stereo_orb_slam_torch.apps import slam
+
+    _reset_launches()
+    summary = slam.main(["--dataset", "kitti", "--folder", c["folder"], "--camera",
+                         c["camera"], "--output_dir", out_dir, "--gt", c["gt"],
+                         *synth_canyon.CANYON_FLAGS, "--device", device])
+    launches = _read_launches()
+    _sync(device)
+    system = summary["system"]
+    n, world = summary["frames"], system.world
+    k = system.cfg.batch_frames
+    expected, bow_batches, edges, edge_batches = _slam_launches_expected(system, n, k)
+    thresh = system.cfg.loop.is_loop_thresh
+    events = synth_canyon.loop_events(os.path.join(out_dir, "loop_matches.txt"), thresh,
+                                      system.cfg.loop.not_loop_thresh)
+    hist = system.pgo.history
+    live = [h for h in hist if h["live"]]
+    rec = {
+        "frames": n, "tracked": world.num_frames, "batch_frames": k,
+        "live_fps": summary["live_fps"], "fps": summary["fps"],
+        "median_ms": summary["median_ms"], "finish_seconds": summary["finish_seconds"],
+        "ate_m": summary["ate_m"], "live_ate_m": summary["live_ate_m"], "rpe": summary["rpe"],
+        "ate_gate_m": CANYON_SLAM_ATE_M, "jax_witness_ate_m": CANYON_JAX_ATE_M,
+        "path_m": c["path_m"], "loop_events": events, "live_closures": len(live),
+        "closures": [{key: h[key] for key in ("live", "num_vertices", "loop_edges_measured",
+                                               "num_loop_edges", "wall_split_seconds",
+                                               "wall_seconds")} for h in hist],
+        "live_stall_seconds": system.pgo.live_stall_log,
+        "edges_per_closure": [h["loop_edges_measured"] for h in hist],
+        "edges_measured": edges, "loop_edge_batches": edge_batches,
+        "points": world.num_points, "timers": system.timers.summary(),
+        "launches": launches,
+        "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
+                              "orb_describe_oriented": 0, "extract_patches": 0},
+        "bow_batches": system.fused_score_batches + system.loop.score_batches,
+    }
+    log(f"canyon SLAM (--batch_frames {k}): {n} frames, {world.num_frames} tracked, live "
+        f"{rec['live_fps']:.2f} fps, overall {rec['fps']:.2f} fps, median "
+        f"{rec['median_ms']:.2f} ms/frame, finish {rec['finish_seconds']:.2f} s, ATE "
+        f"{rec['ate_m']:.5f} m (live {rec['live_ate_m']:.5f}; gate {CANYON_SLAM_ATE_M:.4f}, "
+        f"JAX on the CPU {CANYON_JAX_ATE_M}) over {c['path_m']:.3f} m, RPE {rec['rpe']}, "
+        f"loop events {events}, {len(live)} live closures, {world.num_points} points")
+    for h in rec["closures"]:
+        log(f"  pose graph ({'live' if h['live'] else 'finish'}): {h['num_vertices']} "
+            f"vertices, loop edges {h['num_loop_edges']} of {h['loop_edges_measured']} "
+            f"measured, split {h['wall_split_seconds']} s, total {h['wall_seconds']} s")
+    log(f"  launches {launches}, expected {rec['launches_expected']} ({rec['bow_batches']} "
+        f"BoW batches, {edges} loop edges in {edge_batches} batches)")
+    poses = world.pose_global[: world.num_frames]
+    if not (np.isfinite(poses).all() and world.num_frames == n == c["frames"]):
+        raise AssertionError("canyon SLAM: poses are not finite, or frames were lost")
+    if not events["max_probability"] > thresh:
+        raise AssertionError("canyon SLAM: the loop probability never passed is_loop_thresh")
+    if len(live) != events["exits"] or any(h["loop_edges_measured"] < 1 for h in live):
+        raise AssertionError(f"canyon SLAM: {len(live)} live closures for {events['exits']} "
+                             f"loop exits, or one measured no loop edge")
+    if not (hist and not hist[-1]["live"] and hist[-1]["num_loop_edges"] >= 1):
+        raise AssertionError("canyon SLAM: no loop edge was measured at finish")
+    if not rec["ate_m"] < CANYON_SLAM_ATE_M:
+        raise AssertionError(f"canyon SLAM: ATE {rec['ate_m']} m is not below "
+                             f"{CANYON_SLAM_ATE_M} m")
+    if rec["bow_batches"] != bow_batches:
+        raise AssertionError(f"canyon SLAM: {rec['bow_batches']} BoW scoring batches, the "
+                             f"trajectory gives {bow_batches}")
+    if _is_cuda(device) and launches != rec["launches_expected"]:
+        raise AssertionError(f"canyon SLAM: launches {launches}, expected "
+                             f"{rec['launches_expected']}")
+    return rec
+
+
+def phase_canyon_devices(c, frame=1, device="cuda", reference_device="cpu"):
+    """Frames frame - 1 and frame of the canyon tree through `frontend_step`
+    on the card and on the CPU (the drive's configs: 1024 features, the
+    RANSAC refit; the same RANSAC sets): the counts and slot validity equal,
+    orb_describe's words of every slot at most CANYON_DESC_FLIPS of the bits
+    apart (this frame carries sensor noise), hamming_top2's temporal matches
+    equal; the slot pixels, points and transform gaps recorded."""
+    import torch
+
+    from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
+    from stereo_orb_slam_torch.frontend.odometer import _to_host, empty_slots, frontend_step
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.ops import orb
+
+    fe, rc = FrontendConfig(), RansacConfig(final_model_fitting=True)
+    pairs = datasets.load_dataset("kitti", c["folder"])[: frame + 1]
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    out = {}
+    for dev in (reference_device, device):
+        rig = calib.load_camera(c["camera"], device=dev)
+        prev, usable = empty_slots(fe.num_features, dev), False
+        for j, (il, ir) in enumerate(imgs):
+            res = frontend_step(torch.from_numpy(il).to(dev), torch.from_numpy(ir).to(dev),
+                                prev, torch.tensor(usable, device=dev),
+                                _edge_sampler(j, rc.num_hypotheses), rig,
+                                rig.max_sensible_distance(), fe, rc, rectified=True,
+                                steer=orb.steer_table(fe.oriented, dev))
+            prev, usable = res.slots, True
+        out[dev] = _to_host(res)
+    ref, got = out[reference_device], out[device]
+    counts = {k: (int(getattr(ref, k)), int(getattr(got, k)))
+              for k in ("num_stereo", "num_temporal", "num_inliers", "ransac_success")}
+    valid = ref.slots.valid
+    same_valid = bool(np.array_equal(valid, got.slots.valid))
+    flips = int(np.unpackbits(np.bitwise_xor(ref.slots.desc, got.slots.desc)
+                              .view(np.uint8)).sum())
+    bits = ref.slots.desc.size * 32
+    same_matches = bool(np.array_equal(ref.prev_idx, got.prev_idx)
+                        and np.array_equal(ref.tracked, got.tracked))
+    rec = {"frame": frame, "counts_cpu_card": counts, "valid_slots": int(valid.sum()),
+           "same_slot_validity": same_valid, "desc_bits_differing": flips, "desc_bits": bits,
+           "same_temporal_matches": same_matches,
+           "px_max_diff": max(float(np.abs(ref.slots.kp_l - got.slots.kp_l).max()),
+                              float(np.abs(ref.slots.kp_r - got.slots.kp_r)[valid].max())),
+           "points_max_diff_m": float(np.abs(ref.slots.pts - got.slots.pts)[valid].max()),
+           "transform_max_diff": float(np.abs(ref.transform - got.transform).max()),
+           "bounds": {"desc_bits_share": CANYON_DESC_FLIPS}}
+    log(f"canyon, card against CPU on frame {frame}: counts {counts}, {rec['valid_slots']} "
+        f"valid slots (validity equal: {same_valid}), descriptors {flips} of {bits} bits "
+        f"differ, temporal matches equal: {same_matches}, pixels {rec['px_max_diff']:.3g} px, "
+        f"points {rec['points_max_diff_m']:.3g} m, transform {rec['transform_max_diff']:.3g}")
+    if any(a != b for a, b in counts.values()) or not same_valid:
+        raise AssertionError(f"canyon: the card and the CPU disagree on counts {counts} or "
+                             f"slot validity")
+    if flips > bits * CANYON_DESC_FLIPS or not same_matches:
+        raise AssertionError(f"canyon: orb_describe's words differ in {flips} of {bits} bits, "
+                             f"or the temporal matches differ ({same_matches})")
+    return rec
+
+
+def phase_canyon_vo(c, frames=CANYON_VO_FRAMES, device="cuda"):
+    """The fractional-pixel measurement (ROADMAP queue 3): the canyon tree's
+    first `frames` frames (sub-pixel motion, depth variation, sensor noise)
+    through `VisualOdometer` on the card with the shipped RansacConfig()
+    and with final_model_fitting=True; both ATEs, finite poses and exactly
+    UPRIGHT_PER_FRAME launches per frame."""
+    from stereo_orb_slam_torch.config import RansacConfig
+    from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.utils import evaluate
+    from stereo_orb_slam_torch.worldmap import WorldMap
+
+    pairs = datasets.load_dataset("kitti", c["folder"])[:frames]
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    gt = evaluate.load_kitti_gt(c["gt"])
+    rig = calib.load_camera(c["camera"], device=device)
+    rec = {"frames": frames}
+    for name, rc in (("shipped", RansacConfig()),
+                     ("refit", RansacConfig(final_model_fitting=True))):
+        world = WorldMap()
+        vo = VisualOdometer(world, rig, rc=rc)
+        _reset_launches()
+        fails = 0
+        for il, ir in imgs:
+            vo.track(il, ir)
+            fails += not vo.success
+        launches = _read_launches()
+        _sync(device)
+        poses = world.pose_global[: world.num_frames]
+        if not (np.isfinite(poses).all() and world.num_frames == frames):
+            raise AssertionError(f"canyon VO ({name}): poses are not finite, or frames lost")
+        if _is_cuda(device):
+            _check_launches(f"canyon VO ({name})", launches, UPRIGHT_PER_FRAME, frames)
+        t_rpe, r_rpe = evaluate.rpe(poses, gt[:frames])
+        rec[name] = {"ate_m": evaluate.ate_rmse(poses, gt[:frames]), "rpe_m": t_rpe,
+                     "rpe_rad": r_rpe, "ransac_failures": fails}
+    log(f"canyon VO over {frames} frames (fractional-pixel motion, depth variation, noise "
+        f"sigma 1): ATE shipped RansacConfig() {rec['shipped']['ate_m']:.5f} m, with "
+        f"final_model_fitting {rec['refit']['ate_m']:.5f} m; RPE {rec['shipped']['rpe_m']:.5f}"
+        f" / {rec['refit']['rpe_m']:.5f} m; failures {rec['shipped']['ransac_failures']} / "
+        f"{rec['refit']['ransac_failures']}")
     return rec
 
 
@@ -1875,15 +2121,21 @@ def _slam_launches_expected(system, frames, k):
     """hamming_top2 launches of a SLAM run from what the run did: one per
     frame (the front end's stereo + temporal pair), one per BoW scoring
     batch (fused into the chain, or LoopDetector.process_batch), the
-    vocabulary's iterations + 1 assignments and one per backfilled frame,
-    and one per loop edge measured. Returns (expected, the independent
-    count of BoW batches from the trajectory alone)."""
+    vocabulary's iterations + 1 assignments and one per frame backfilled
+    into the database (the frames recorded when it trained: the first
+    batches that hold SLAM_VOCAB_FRAMES), and one per loop-edge batch the
+    matcher measured (all edges of a closure in one launch). Returns
+    (expected, the independent count of BoW batches from the trajectory
+    alone, loop edges measured, loop-edge batches), for `frames` a multiple
+    of `k`."""
     cfg = system.cfg.loop
     edges = sum(h["loop_edges_measured"] for h in system.pgo.history)
+    edge_batches = system.pgo.loop_matcher.batches
     bow = system.fused_score_batches + system.loop.score_batches
-    vocab = cfg.vocab_iterations + 1 + SLAM_VOCAB_FRAMES
-    expected = frames + bow + vocab + edges
-    return expected, -(-(frames - SLAM_VOCAB_FRAMES) // k), edges
+    vocab_batches = -(-SLAM_VOCAB_FRAMES // k)
+    vocab = cfg.vocab_iterations + 1 + vocab_batches * k
+    expected = frames + bow + vocab + edge_batches
+    return expected, -(-frames // k) - vocab_batches, edges, edge_batches
 
 
 def phase_slam(seq, gt, out_dir, batch_frames):
@@ -1911,7 +2163,8 @@ def phase_slam(seq, gt, out_dir, batch_frames):
     live = [h for h in hist if h["live"]]
     ids = np.arange(world.num_points, dtype=np.int32)
     merged = int((world.canonical(ids) != ids).sum())
-    expected, bow_batches, edges = _slam_launches_expected(system, n, batch_frames)
+    expected, bow_batches, edges, edge_batches = _slam_launches_expected(system, n,
+                                                                         batch_frames)
     splits = system.pgo.live_stall_splits
     rec = {
         "batch_frames": batch_frames, "frames": n, "tracked": world.num_frames,
@@ -1930,7 +2183,7 @@ def phase_slam(seq, gt, out_dir, batch_frames):
         "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
                               "orb_describe_oriented": 0, "extract_patches": 0},
         "bow_batches": system.fused_score_batches + system.loop.score_batches,
-        "edges_measured": edges,
+        "edges_measured": edges, "loop_edge_batches": edge_batches,
     }
     log(f"SLAM (--batch_frames {batch_frames}): {n} frames at {KITTI['h']}x{KITTI['w']}, "
         f"live {rec['live_fps']:.2f} fps, overall {rec['fps']:.2f} fps, median "
@@ -1944,7 +2197,8 @@ def phase_slam(seq, gt, out_dir, batch_frames):
             f"{h['loop_edges_measured']} measured, split {h['wall_split_seconds']} s, "
             f"total {h['wall_seconds']} s")
     log(f"  launches {launches}, expected {rec['launches_expected']} ({rec['bow_batches']} "
-        f"BoW batches, {edges} loop edges); live closure stall splits {splits}")
+        f"BoW batches, {edges} loop edges in {edge_batches} batches); live closure stall "
+        f"splits {splits}")
     poses = world.pose_global[: world.num_frames]
     if not (np.isfinite(poses).all() and world.num_frames == n):
         raise AssertionError("SLAM: poses are not finite, or frames were lost")
@@ -2094,6 +2348,7 @@ def phase_slam_devices(system, device="cuda", reference_device="cpu"):
     if not (le["flags_equal"] and le["inliers_equal"] and le["merges_equal"]
             and le["z_err"] <= SLAM_EDGE_Z_ATOL):
         raise AssertionError("loop-edge batch: the card and the CPU disagree")
+    le["batched"] = _edge_batch_times(system, system.pgo.committed_edges, device)
 
     # pg_solve on the final graph (the finish() solve's input), its free
     # poses perturbed by 2 cm / 2 mrad (seeded): the tracked graph is
@@ -2151,6 +2406,52 @@ def phase_slam_devices(system, device="cuda", reference_device="cpu"):
             raise AssertionError(f"pg_solve ({iters} steps): the card and the CPU disagree "
                                  f"beyond {rb} / {tb}: {g}")
     return rec
+
+
+def _edge_batch_times(system, edges, device="cuda", reps=4):
+    """The loop-edge batch (`make_loop_matcher(...).batch`, one
+    `measure_edges` program) at E = 1, 8 and all of `edges`, fed from the
+    live loop's device rings with the matcher's own samplers, against the
+    same E edges measured as E single calls (the serial measurement the
+    batch replaced) in the same call: wall ms from a synced start to the
+    last readback (median of reps - 1 after a warm call, each on a fresh
+    copy of the world) and the hamming_top2 launches of each."""
+    from stereo_orb_slam_torch.apps import slam
+    from stereo_orb_slam_torch.ops.kernels import hamming
+
+    def run(sub, serial):
+        times, launches = [], set()
+        for _ in range(reps):
+            m = slam.make_loop_matcher(copy.deepcopy(system.world), system.rig, system.cfg,
+                                       bank_getter=lambda: system.vo.last_banks)
+            _sync(device)
+            h0 = hamming.LAUNCHES
+            t0 = time.perf_counter()
+            if serial:
+                for src, dst in sub:
+                    m(src, dst)
+            else:
+                m.batch(sub)
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches.add(hamming.LAUNCHES - h0)
+        return statistics.median(times[1:]), sorted(launches)
+
+    out = []
+    for e in sorted({1, min(8, len(edges)), len(edges)} - {0}):
+        ms, launches = run(edges[:e], False)
+        serial_ms, serial_launches = run(edges[:e], True)
+        out.append({"edges": e, "ms": ms, "ms_per_edge": ms / e, "hamming_launches": launches,
+                    "serial_ms": serial_ms, "serial_ms_per_edge": serial_ms / e,
+                    "serial_hamming_launches": serial_launches})
+    log("loop-edge batch against single calls (from the device rings): "
+        + "; ".join(f"E = {r['edges']}: {r['ms']:.2f} ms ({r['ms_per_edge']:.3f} ms per edge, "
+                    f"hamming_top2 launches {r['hamming_launches']}) against "
+                    f"{r['serial_ms']:.2f} ms ({r['serial_ms_per_edge']:.3f} ms per edge, "
+                    f"{r['serial_hamming_launches']})" for r in out))
+    if _is_cuda(device) and any(r["hamming_launches"] != [1]
+                                or r["serial_hamming_launches"] != [r["edges"]] for r in out):
+        raise AssertionError(f"loop-edge batch: not one hamming_top2 launch per batch: {out}")
+    return out
 
 
 def phase_slam_first_call(device="cuda"):
@@ -2908,7 +3209,8 @@ def main(argv=None):
                                  os.path.join(tmp, "general_slam_out")),
                    "multi_seq": timed("general_multi_seq", phase_general_multi_seq,
                                       general_data)}
-        records += timed("general_kernels", phase_general_kernels, general_data)
+        records += timed("general_kernels", phase_path_kernels, "general", "EuRoc",
+                         general_data["vo"], general_data["camera"], False, GENERAL_DESC_FLIPS)
         multi_seq, multi_state = timed("multi_seq", phase_multi_seq, seq)
         ba_world, tracking, window = timed("ba_tracking", phase_ba_tracking, seq, gt)
         dist_world = copy.deepcopy(ba_world)
@@ -2929,6 +3231,13 @@ def main(argv=None):
                 slam_devices = timed("slam_devices", phase_slam_devices, system)
                 slam_graph = _graph_numpy(system.pgo.last_problem)
             del system
+        canyon_data = timed("render_canyon", _render_canyon, tmp)
+        canyon = {"slam": timed("canyon_slam", phase_canyon_slam, canyon_data,
+                                os.path.join(tmp, "canyon_out")),
+                  "cuda_vs_cpu": timed("canyon_devices", phase_canyon_devices, canyon_data),
+                  "vo": timed("canyon_vo", phase_canyon_vo, canyon_data)}
+        records += timed("canyon_kernels", phase_path_kernels, "canyon", "kitti",
+                         canyon_data["folder"], canyon_data["camera"], True, CANYON_DESC_FLIPS)
         gap = abs(slam_runs[4]["ate_m"] - slam_runs[1]["ate_m"])
         log(f"SLAM --batch_frames 4 against 1: ATE {slam_runs[4]['ate_m']:.5f} / "
             f"{slam_runs[1]['ate_m']:.5f} m, gap {gap:.3g} m")
@@ -2960,7 +3269,7 @@ def main(argv=None):
              "multi_seq_general": general["multi_seq"]["launches"],
              "multi_seq": multi_seq["launches"],
              "ba_tracking": tracking["launches"], "slam": slam_runs[1]["launches"],
-             "slam_batch4": slam_runs[4]["launches"]}
+             "slam_batch4": slam_runs[4]["launches"], "canyon": canyon["slam"]["launches"]}
     for r in records:
         kernel = r["name"].split(" ")[0]
         r["launches"] = paths[r["path"]][kernel]
@@ -2975,6 +3284,7 @@ def main(argv=None):
                              for k, r in slam_runs.items()},
                     "slam_timers": slam_runs[1]["timers"], "slam_devices": slam_devices,
                     "slam_first_call": first_call}, default=float))
+    log(json.dumps({"canyon": canyon}, default=float))
     log(json.dumps({"multi_seq": multi_seq, "distributed": distributed}, default=float))
     log(json.dumps({"phase_seconds": seconds}))
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -12,10 +12,12 @@ holding the optimizer (optimize on loop exit, ref loop_detector.cpp:146).
 
 A loop edge is measured as the reference measures it (MatchPoints +
 CalcTransformation, ref pose_graph_optimizer.cpp:189,229): the stored
-descriptor banks of the two frames are re-matched (one `hamming_top2`
-launch per edge), the observations re-triangulated through the rig and a
-rigid transform fitted by RANSAC; matched landmark identities are merged in
-the world map.
+descriptor banks of the two frames are re-matched, the observations
+re-triangulated through the rig and a rigid transform fitted by RANSAC;
+matched landmark identities are merged in the world map. All edges pending
+at a closure are measured as one batched program (`measure_edges`: one
+`hamming_top2` launch and one RANSAC solve for E edges), as the JAX
+package's `_loop_edges_core` measures them.
 
     python -m stereo_orb_slam_torch.apps.slam --dataset kitti --folder SEQ \\
         --camera SEQ/calib.txt --output_dir OUT [--gt GT] [--device cpu]
@@ -55,26 +57,34 @@ def _edge_seed(seed: int, edge: int) -> int:
     return (seed * 0x9E3779B1 + 0x5851F42D + edge) % (1 << 63)
 
 
-def measure_edge(d_s, d_d, v_s, v_d, uv_s, uv_d, sampler, rig, fe, rc, rectified):
-    """One loop edge (src, dst): match dst's descriptors (queries) against
-    src's (train), as MatchPoints is called with (src, dst) at ref
-    pose_graph_optimizer.cpp:229; re-triangulate both frames' stored
-    observations (already ideal pinhole: the front end undistorted them);
-    RANSAC the transform T with X_dst = T @ X_src. Device tensors in, device
-    tensors out: (transform [4,4], idx [N] int32, inlier mask [N], success,
-    num_inliers)."""
+def measure_edges(d_s, d_d, v_s, v_d, uv_s, uv_d, samplers, rig, fe, rc, rectified):
+    """E loop edges (src, dst) as one batched program, the counterpart of the
+    JAX package's `_loop_edges_core`: every input carries a leading edge
+    axis ([E, N, 8] descriptors, [E, N] masks, [E, N, 4] observations) and
+    `samplers` holds one RANSAC sampler per edge.
+
+    Per edge, dst's descriptors (queries) are matched against src's (train),
+    as MatchPoints is called with (src, dst) at ref
+    pose_graph_optimizer.cpp:229: one `hamming_top2` launch for all E
+    (batch axis on the kernel's grid). Both frames' stored observations
+    (already ideal pinhole: the front end undistorted them) are
+    re-triangulated, and one RANSAC solve over the E problems fits T with
+    X_dst = T @ X_src. Device tensors in, device tensors out: (transform
+    [E, 4, 4], idx [E, N] int32, inlier mask [E, N], success [E],
+    num_inliers [E])."""
     idx, ok, _ = match_mod.match_descriptors(
         d_d, d_s, v_d, v_s, max_distance=fe.match_max_distance, ratio=fe.match_ratio)
-    uv_s_m = uv_s[idx.long()]
-    pts_d, tv_d = cam_mod.triangulate_ideal(rig, uv_d[:, :2], uv_d[:, 2:], rectified=rectified)
-    pts_s, tv_s = cam_mod.triangulate_ideal(rig, uv_s_m[:, :2], uv_s_m[:, 2:],
+    uv_s_m = torch.gather(uv_s, 1, idx.long()[..., None].expand(-1, -1, uv_s.shape[-1]))
+    pts_d, tv_d = cam_mod.triangulate_ideal(rig, uv_d[..., :2], uv_d[..., 2:],
+                                            rectified=rectified)
+    pts_s, tv_s = cam_mod.triangulate_ideal(rig, uv_s_m[..., :2], uv_s_m[..., 2:],
                                             rectified=rectified)
     pair_valid = ok & tv_d & tv_s
     # RANSAC's n_valid >= min_pairs gate covers the host pre-check of the
     # serial matcher (pair_valid <= ok everywhere).
     res = ransac_mod.solve(
-        sampler, pts_s, pts_d, uv_s_m, uv_d, pair_valid,
-        torch.ones(d_d.shape[0], dtype=torch.float32, device=d_d.device),
+        samplers, pts_s, pts_d, uv_s_m, uv_d, pair_valid,
+        torch.ones(d_d.shape[:2], dtype=torch.float32, device=d_d.device),
         rig.left.projection, rig.right.projection,
         inlier_threshold_px=rc.inlier_threshold_px, min_pairs=rc.min_pairs,
         min_inliers=rc.min_inliers,
@@ -88,8 +98,9 @@ def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
     """Loop-edge measurement: re-match stored frame features, RANSAC the
     relative transform, merge matched landmark identities.
 
-    Returns a callable (src, dst) -> (Z, ok) with a `.batch(edges)` method
-    that measures all pending edges with one readback. Edge i of the
+    Returns a callable (src, dst) -> (Z, ok), the E = 1 case of its
+    `.batch(edges)` method, which measures all pending edges as one
+    `measure_edges` program with one readback. Edge i of the
     matcher's life draws its RANSAC sets from `sampler_for_edge(i)`, by
     default a Gumbel sampler on a generator seeded from (seed, i); the
     counter advances once per edge in either mode, so E single calls and one
@@ -103,7 +114,8 @@ def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
 
     Z satisfies X_dst = Z @ X_src (T_dst^-1 T_src = Z), the reference's
     loop-edge convention. `.last` holds the last batch's per-edge ok flags
-    and inlier counts."""
+    and inlier counts, `.batches` the number of non-empty batches measured
+    (one Hamming launch each)."""
     counter = [0]
     fe, rc = cfg.frontend, cfg.ransac
     dev = rig.device
@@ -141,9 +153,10 @@ def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
                 (up(world.frame_feat_uv[src]), up(world.frame_feat_uv[dst])))
 
     def batch(edges):
-        """[(src, dst)] -> [(Z, ok)]: the E edges measured back to back on
-        the device, one readback; the landmark merges replay on the host in
-        edge order (merge_points touches only the union-find and count
+        """[(src, dst)] -> [(Z, ok)]: the E edges measured by one
+        `measure_edges` program on the device (one Hamming launch, one
+        RANSAC solve), one readback; the landmark merges replay on the host
+        in edge order (merge_points touches only the union-find and count
         tables, never the banks the matcher reads)."""
         E = len(edges)
         if E == 0:
@@ -151,9 +164,9 @@ def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
         samplers = [sampler_for(counter[0] + e) for e in range(E)]
         counter[0] += E
         (d_s, d_d), (v_s, v_d), (uv_s, uv_d) = _banks(edges)
-        outs = [measure_edge(d_s[e], d_d[e], v_s[e], v_d[e], uv_s[e], uv_d[e], samplers[e],
-                             rig, fe, rc, rectified) for e in range(E)]
-        Zs, idx, inl, ok, n_inl = (torch.stack(x).cpu().numpy() for x in zip(*outs))
+        outs = measure_edges(d_s, d_d, v_s, v_d, uv_s, uv_d, samplers, rig, fe, rc, rectified)
+        matcher.batches += 1
+        Zs, idx, inl, ok, n_inl = (x.cpu().numpy() for x in outs)
         matcher.last = {"ok": ok.tolist(), "num_inliers": n_inl.tolist()}
         out = []
         for e, (src, dst) in enumerate(edges):
@@ -169,6 +182,7 @@ def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
 
     matcher.batch = batch
     matcher.last = None
+    matcher.batches = 0
     return matcher
 
 

@@ -1,0 +1,182 @@
+"""The canyon drive's SLAM accuracy in the JAX package, on the CPU.
+
+Renders the KITTI tree of `chip_smoke.py`'s canyon phase
+(`synth_canyon.render_tree`: a 376x1241 `CanyonScene`, sensor noise sigma
+1, seed 7, 192 frames of one circuit of a 3 m square and its revisit) and
+runs the JAX package's SLAM CLI on it with the canyon drive's flags
+(`synth_canyon.CANYON_FLAGS`, those of benchmarks/canyon_drive.py), as its
+own process on the CPU. With `--port` it also runs the port's SLAM CLI
+(`--device cpu`) on the same tree, with its own RANSAC draws. It prints one
+JSON line per run: the live and final ATE (`utils.evaluate.ate_rmse` of
+the CLI's poses against the tree's ground truth, as the CLI prints them),
+the loop events of its `loop_matches.txt` (`synth_canyon.loop_events`:
+episodes counted as the drive counts them, loop exits, i.e. live
+closures, and the loop probability's largest value and its smallest after
+the first entry), and the wall seconds.
+
+It is the witness for the smoke's canyon gate (`chip_smoke.CANYON_SLAM_ATE_M`
+= 1.5 x the JAX package's ATE + 0.01 m): the error the port reaches on the
+card is held to the size the reference reaches on the same frames.
+
+    python tests/canyon_witness.py [--out DIR] [--frames 192] [--port]
+    python tests/canyon_witness.py --vo 60 [--seeds 4]
+
+With `--vo N` it runs, instead, the first N frames through both packages'
+VisualOdometer on the CPU, with the shipped RansacConfig() and with
+final_model_fitting=True (the JAX package at seed 0, the port at seeds 0
+to --seeds - 1), printing ATE and RPE per run and, for the port's seed 0,
+the median per-frame errors of frames with fewer and with at least 150
+stereo matches: the CPU side of the smoke's fractional-pixel measurement.
+
+It is a script, not a test: on an 8-core CPU the render takes about 30 s,
+the JAX package's run about 4 minutes and the port's about 8.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+sys.path[:0] = [HERE, ROOT]
+
+import synth_canyon  # noqa: E402
+
+
+def run_slam(package, folder, gt, out_dir, extra=()):
+    """The SLAM CLI of `package` over the tree; returns its summary."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT)
+    cmd = [sys.executable, "-m", f"{package}.apps.slam", "--dataset", "kitti",
+           "--folder", folder, "--camera", os.path.join(folder, "calib.txt"),
+           "--output_dir", out_dir, "--gt", gt, *synth_canyon.CANYON_FLAGS, *extra]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, check=True, cwd=ROOT, env=env, capture_output=True,
+                         text=True).stdout
+    seconds = time.perf_counter() - t0
+
+    def grab(pattern):
+        m = re.search(pattern, out)
+        return float(m.group(1)) if m else None
+
+    events = synth_canyon.loop_events(os.path.join(out_dir, "loop_matches.txt"))
+    return {"package": package, "ate_live_m": grab(r"live ATE RMSE: ([\d.]+) m"),
+            "ate_m": grab(r"(?<!live )ATE RMSE: ([\d.]+) m"),
+            "rpe_m": grab(r"RPE: ([\d.]+) m"), "loop_events": events, "seconds": seconds}
+
+
+def _relative_errors(poses, gt):
+    """Per-frame translation error (m) and rotation error (degrees) of each
+    relative pose against the ground truth's."""
+    def h(T):  # [3, 4] or [4, 4] -> [4, 4]
+        return np.vstack([np.asarray(T, np.float64)[:3], [0.0, 0.0, 0.0, 1.0]])
+
+    poses, gt = [h(T) for T in poses], [h(T) for T in gt]
+    out = []
+    for i in range(1, len(poses)):
+        d = np.linalg.inv(np.linalg.inv(gt[i - 1]) @ gt[i]) @ (
+            np.linalg.inv(poses[i - 1]) @ poses[i])
+        out.append((float(np.linalg.norm(d[:3, 3])), float(np.degrees(np.arccos(
+            np.clip((np.trace(d[:3, :3]) - 1.0) / 2.0, -1.0, 1.0))))))
+    return out
+
+
+def run_vo(folder, gt_path, frames, seeds):
+    """The first `frames` frames through each package's VisualOdometer (the
+    JAX package with seed 0, the port on the CPU with each of `seeds`), with
+    the shipped RansacConfig() and with final_model_fitting=True: ATE and
+    RPE per run; for the port's first seed with the shipped config, the
+    median per-frame errors of frames with fewer and with at least
+    150 stereo matches."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from stereo_orb_slam_tpu.config import RansacConfig as JRC
+    from stereo_orb_slam_tpu.frontend.odometer import VisualOdometer as JVO
+    from stereo_orb_slam_tpu.io import calib as jcalib
+    from stereo_orb_slam_tpu.worldmap import WorldMap as JWorld
+    from stereo_orb_slam_torch.config import RansacConfig
+    from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.utils import evaluate
+    from stereo_orb_slam_torch.worldmap import WorldMap
+
+    pairs = datasets.load_dataset("kitti", folder)[:frames]
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    gt = evaluate.load_kitti_gt(gt_path)[:frames]
+    camera = os.path.join(folder, "calib.txt")
+    runs = [("stereo_orb_slam_tpu", 0)] + [("stereo_orb_slam_torch", s) for s in seeds]
+    for package, seed in runs:
+        rec = {"package": package, "seed": seed, "frames": frames}
+        for name, refit in (("shipped", False), ("refit", True)):
+            if package == "stereo_orb_slam_tpu":
+                world = JWorld()
+                vo = JVO(world, jcalib.load_camera(camera),
+                         rc=JRC(final_model_fitting=refit), seed=seed)
+            else:
+                world = WorldMap()
+                vo = VisualOdometer(world, calib.load_camera(camera, device="cpu"),
+                                    rc=RansacConfig(final_model_fitting=refit), seed=seed)
+            stereo = []
+            for il, ir in imgs:
+                vo.track(il, ir)
+                stereo.append(int(vo.last_result.num_stereo))
+            poses = world.pose_global[: world.num_frames]
+            t_rpe, r_rpe = evaluate.rpe(poses, gt)
+            rec[name] = {"ate_m": evaluate.ate_rmse(poses, gt), "rpe_m": t_rpe,
+                         "rpe_rad": r_rpe}
+            if package == "stereo_orb_slam_torch" and seed == seeds[0] and not refit:
+                err = np.asarray(_relative_errors(poses, gt))
+                many = np.asarray(stereo[1:]) >= 150
+                rec["per_frame"] = {
+                    key: {"frames": int(sel.sum()),
+                          "median_m": float(np.median(err[sel, 0])),
+                          "median_deg": float(np.median(err[sel, 1])),
+                          "median_stereo": float(np.median(np.asarray(stereo[1:])[sel]))}
+                    for key, sel in (("stereo_below_150", ~many), ("stereo_150_up", many))}
+        print(json.dumps({"vo": rec}), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=synth_canyon.CANYON["frames"])
+    ap.add_argument("--out", default=None, help="a folder for the tree and the outputs "
+                                                "(default: a temporary one)")
+    ap.add_argument("--workers", type=int, default=0, help="render processes (0 = CPUs)")
+    ap.add_argument("--port", action="store_true",
+                    help="also run the port's SLAM CLI on the CPU")
+    ap.add_argument("--vo", type=int, default=0, metavar="N",
+                    help="instead of the SLAM runs: the first N frames through both "
+                         "packages' VisualOdometer, shipped RANSAC and with the refit")
+    ap.add_argument("--seeds", type=int, default=4, help="port seeds of --vo")
+    args = ap.parse_args(argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = args.out or tmp
+        folder = os.path.join(root, "canyon")
+        t0 = time.perf_counter()
+        _, traj, gt = synth_canyon.render_tree(folder, args.frames,
+                                               workers=args.workers or None)
+        tree = {"frames": len(traj), "path_m": synth_canyon.path_length(traj),
+                "render_seconds": time.perf_counter() - t0}
+        print(json.dumps({"tree": tree}), flush=True)
+        if args.vo:
+            run_vo(folder, gt, args.vo, list(range(args.seeds)))
+            return
+        runs = [("stereo_orb_slam_tpu", ())]
+        if args.port:
+            runs.append(("stereo_orb_slam_torch", ("--device", "cpu")))
+        for package, extra in runs:
+            rec = run_slam(package, folder, gt, os.path.join(root, f"out_{package}"), extra)
+            print(json.dumps(rec), flush=True)
+
+
+if __name__ == "__main__":
+    main()

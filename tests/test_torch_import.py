@@ -49,7 +49,7 @@ def _sources(with_smoke):
     # the smoke import.
     files = ([os.path.join(ROOT, name) for name in
               ("chip_smoke.py", "tests/dist_workers.py", "tests/synth_ba.py",
-               "tests/synth_distorted.py")]
+               "tests/synth_distorted.py", "tests/synth_canyon.py")]
              if with_smoke else [])
     for dirpath, _, names in os.walk(os.path.join(ROOT, "stereo_orb_slam_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith((".py", ".cu"))]
@@ -59,6 +59,18 @@ def _sources(with_smoke):
 def test_port_sources_do_not_import_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|stereo_orb_slam_tpu)\b", re.M)
     assert [f for f, text in _sources(True) if pattern.search(text)] == []
+
+
+def test_smoke_and_its_helpers_load_no_jax_in_a_fresh_interpreter():
+    # chip_smoke.py and the JAX-free test helpers it and the spawned ranks
+    # import (synth_canyon also renders the canyon tree in a child process).
+    probe = ("import json, sys; sys.path[:0] = ['tests', '.']; "
+             "import chip_smoke, dist_workers, synth, synth_ba, synth_canyon, synth_distorted; "
+             "print(json.dumps(sorted(k for k in sys.modules if k == 'jax' or "
+             "k.startswith(('jax.', 'jaxlib', 'stereo_orb_slam_tpu')))))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_port_package_does_not_name_the_jax_package():

@@ -11,6 +11,10 @@ i of the matcher those of fold_in(key(matcher seed), i).
   counts identical, Z within 1e-4 (float32 Horn fits in another order),
   the landmark merges (`point_parent`, `point_obs_count`) identical. Also the
   port's batch against its own serial calls, bit for bit.
+- The batch as one program (port only, on a world the port tracked): E = 5
+  edges call the Hamming wrapper once and RANSAC's solver once; E = 0
+  measures nothing and draws nothing; edges that fail inside a batch (too
+  few valid features) give the serial calls' flags, counts and merges.
 - The slice as a whole: `SlamSystem.process` over the 38-frame
   out-and-back-and-dwell trajectory of
   tests/test_loop_integration.py::test_slam_loop_closure_end_to_end (240x320,
@@ -22,6 +26,8 @@ i of the matcher those of fold_in(key(matcher seed), i).
   5.1e-6 relative); the same committed loop edges and the same
   number measured at finish; the final poses within 1e-3 m.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -159,3 +165,100 @@ def test_slam_system_matches_reference():
                                ref.world.pose_global[:n, :3, 3], rtol=0, atol=1e-3)
     ids = np.arange(got.world.num_points, dtype=np.int32)
     assert (got.world.canonical(ids) != ids).sum() > 10  # landmarks merged
+
+
+@pytest.fixture(scope="module")
+def port_loop_world():
+    """The out-and-back PlaneScene world of the matcher test, tracked by the
+    port's own SlamSystem on the CPU (no vocabulary, no BA)."""
+    scene = PlaneScene(np.random.default_rng(0))
+    cfg = convert.slam_config_from(JSlam(frontend=JFE(num_features=256),
+                                         ransac=JRC(num_hypotheses=K_HYP),
+                                         refine_interval=10 ** 6, per_frame_ba=False))
+    system = tslam.SlamSystem(port_rig(scene), cfg, vocab_train_frames=10 ** 9)
+    xs = [i * 0.2 for i in range(8)] + [(7 - i) * 0.2 for i in range(8)]
+    for x in xs:
+        system.process(scene.render(x), scene.render(x, right=True))
+    return system.world, port_rig(scene), cfg
+
+
+def _matchers(world, rig, cfg, n=2, seed=5):
+    worlds = [copy.deepcopy(world) for _ in range(n)]
+    return worlds, [tslam.make_loop_matcher(w, rig, cfg, seed=seed) for w in worlds]
+
+
+def test_loop_matcher_batch_is_one_hamming_launch_and_one_ransac(port_loop_world, monkeypatch):
+    """A batch of E = 5 edges calls the Hamming wrapper once (B = E on the
+    kernel's grid) and RANSAC's solver once, and equals the 5 single calls
+    bit for bit."""
+    from stereo_orb_slam_torch.frontend import ransac as transac
+    from stereo_orb_slam_torch.ops import match as tmatch
+
+    world, rig, cfg = port_loop_world
+    edges = [(0, 15), (1, 14), (2, 13), (3, 12), (4, 11)]
+    calls = {"hamming": 0, "ransac": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(tmatch, "hamming_top2", counted("hamming", tmatch.hamming_top2))
+    monkeypatch.setattr(transac, "_solve", counted("ransac", transac._solve))
+    (w_b, w_s), (m_b, m_s) = _matchers(world, rig, cfg)
+    batch = m_b.batch(edges)
+    assert calls == {"hamming": 1, "ransac": 1}
+    assert m_b.batches == 1
+    serial = [m_s(s, d) for s, d in edges]
+    assert calls == {"hamming": 1 + len(edges), "ransac": 1 + len(edges)}
+    assert m_s.batches == len(edges)
+    assert all(ok for _, ok in batch)
+    for (Zb, okb), (Zs, oks) in zip(batch, serial):
+        assert okb == oks
+        np.testing.assert_array_equal(Zb, Zs)
+    np.testing.assert_array_equal(w_b.point_parent, w_s.point_parent)
+    np.testing.assert_array_equal(w_b.point_obs_count, w_s.point_obs_count)
+
+
+def test_loop_matcher_empty_batch(port_loop_world):
+    """E = 0 measures nothing, launches nothing and leaves the edge counter
+    where it was: the next edge draws the sets it would have drawn."""
+    world, rig, cfg = port_loop_world
+    (w_a, w_b), (m_a, m_b) = _matchers(world, rig, cfg)
+    assert m_a.batch([]) == []
+    assert m_a.batches == 0 and m_a.last is None
+    Za, oka = m_a(0, 15)
+    Zb, okb = m_b(0, 15)
+    assert oka and okb
+    np.testing.assert_array_equal(Za, Zb)
+    np.testing.assert_array_equal(w_a.point_parent, w_b.point_parent)
+
+
+def test_loop_matcher_batch_with_failing_edges(port_loop_world):
+    """Edges whose frames keep too few valid features fail inside the batch
+    (identity, ok False, no merge) while the others are measured: the flags,
+    inlier counts, transforms and merges equal the serial calls'."""
+    world, rig, cfg = port_loop_world
+    world = copy.deepcopy(world)
+    for f in (5, 9):  # keep 4 valid slots: below min_pairs
+        keep = np.flatnonzero(world.frame_feat_valid[f])[:4]
+        world.frame_feat_valid[f] = False
+        world.frame_feat_valid[f][keep] = True
+    edges = [(0, 15), (5, 10), (2, 13), (6, 9), (3, 12)]
+    (w_b, w_s), (m_b, m_s) = _matchers(world, rig, cfg)
+    batch = m_b.batch(edges)
+    flags = m_b.last["ok"]
+    serial = []
+    inliers = []
+    for s, d in edges:
+        serial.append(m_s(s, d))
+        inliers += m_s.last["num_inliers"]
+    assert flags == [True, False, True, False, True]
+    assert [ok for _, ok in batch] == flags == [ok for _, ok in serial]
+    assert m_b.last["num_inliers"] == inliers
+    for (Zb, _), (Zs, _) in zip(batch, serial):
+        np.testing.assert_array_equal(Zb, Zs)
+    np.testing.assert_array_equal(batch[1][0], np.eye(4, dtype=np.float32))
+    np.testing.assert_array_equal(w_b.point_parent, w_s.point_parent)
+    np.testing.assert_array_equal(w_b.point_obs_count, w_s.point_obs_count)

@@ -8,13 +8,16 @@
   vocabulary trained at frame 8, distant_frame_thresh 10), with per-frame
   and window BA on (BAConfig(max_iterations=4), refine_interval 6), the
   port's RANSAC sets injected from the JAX keys (frames and loop edges).
-  Loop edges are measured on the general branch of `measure_edge` (the
-  stored ideal observations re-triangulated by the DLT). Held as
+  Loop edges are measured on the general branch of `measure_edges` (the
+  stored ideal observations of all E edges re-triangulated by one batched
+  DLT). Held as
   tests/test_torch_slam.py holds the rectified slice: every frame tracked
   in both; the vocabulary bit-identical; the loop trace's matched ids
   identical, its scores within 1e-6 and its probabilities within rtol
   1e-5; the same committed and loop edges, the same loop edges at finish;
   the final poses within 1e-3 m.
+- The loop-edge batch on the DLT branch (port only): 4 edges as one batch
+  equal the 4 single calls bit for bit.
 - `MultiSequenceSLAM` with S = 2 stacked distorted rigs (different
   distortion, 4 and 5 px steps): against the JAX package's, the port's sets
   injected, relative poses within test_torch_general_stereo.DLT_PAIR_ATOL
@@ -150,3 +153,31 @@ def test_multi_seq_general_rigs_equal_each_sequence_alone(sequences):
                                       world.pose_global[:world.num_frames])
         np.testing.assert_array_equal(mw.points[:mw.num_points], world.points[:world.num_points])
         np.testing.assert_array_equal(mw.obs_uv[:mw.num_obs], world.obs_uv[:world.num_obs])
+
+
+def test_loop_edge_batch_on_the_general_rig_equals_serial():
+    """`measure_edges` on the DLT branch: 4 edges of an out-and-back over
+    the distorted plane, measured as one batch (one batched DLT and one
+    RANSAC over the 4), equal the 4 single calls bit for bit, merges
+    included."""
+    import copy
+
+    scene = _scene()
+    step = 4 * scene.depth / scene.fx
+    cfg = convert.slam_config_from(JSlam(frontend=JFE(num_features=N_FEAT),
+                                         ransac=JRC(num_hypotheses=K_HYP),
+                                         refine_interval=10 ** 6, per_frame_ba=False))
+    system = tslam.SlamSystem(scene.make_rig("cpu"), cfg, vocab_train_frames=10 ** 9)
+    for x in [i * step for i in range(8)] + [(7 - i) * step for i in range(8)]:
+        system.process(scene.render(x), scene.render(x, right=True))
+    edges = [(0, 15), (1, 14), (2, 13), (3, 12)]
+    worlds = [copy.deepcopy(system.world) for _ in range(2)]
+    batch_m, serial_m = (tslam.make_loop_matcher(w, system.rig, cfg, seed=9) for w in worlds)
+    batch = batch_m.batch(edges)
+    serial = [serial_m(s, d) for s, d in edges]
+    assert all(ok for _, ok in batch)
+    for (Zb, okb), (Zs, oks) in zip(batch, serial):
+        assert okb == oks
+        np.testing.assert_array_equal(Zb, Zs)
+    np.testing.assert_array_equal(worlds[0].point_parent, worlds[1].point_parent)
+    np.testing.assert_array_equal(worlds[0].point_obs_count, worlds[1].point_obs_count)
