@@ -148,6 +148,23 @@ Phases, each of which fails the run when it fails:
      with RansacConfig() and with final_model_fitting=True (both ATEs); and
      hamming_top2 and orb_describe on frame 1's own inputs against their
      plain versions and timed (records with path "canyon").
+  13. the captured programs (stereo_orb_slam_torch/utils/programs.py,
+     through which every phase above runs its pose-graph
+     solves, LM solves and rectified front-end steps): each held bit for
+     bit against its eager function on the card (pg_solve on phase 7's
+     final graph; ba_solve on phase 6's last window and on the map
+     problem; 60 VO frames of `track` against one eager frontend_chain;
+     frontend_chain_program against frontend_chain at K = 4 and 32; the
+     multi-sequence step at S = 3 over 20 steps), with wall ms, kernels,
+     graph replays, kernels per body, capture ms and the map problem's
+     peak memory eager, at the capture and at a replay; then the main
+     path, the SLAM app at K = 1 and 4, the canyon drive and 30
+     multi-sequence steps again with every program run eagerly
+     (`_eager_programs`), their gates holding there too, for the figures
+     eager against captured; with --profile, 20 VO frames, a pose-graph
+     solve and 3 window LM iterations under torch.profiler, captured and
+     eager (_programs). The program cache's captures and replays per body
+     are printed at the end.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1890,8 +1907,10 @@ def phase_ba_map(device="cuda", reference_device="cpu", size=MAP_SIZE,
     Needs a falling, finite cost."""
     import torch
 
+    base = None
     if _is_cuda(device):
         torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()   # what the cached programs hold
         torch.cuda.reset_peak_memory_stats()
     carry, n_it, cost0, init_ms, ms_it = _map_solve(device, size, iters)
     peak = torch.cuda.max_memory_allocated() if _is_cuda(device) else None
@@ -1903,15 +1922,23 @@ def phase_ba_map(device="cuda", reference_device="cpu", size=MAP_SIZE,
     with _tf32_left_on():
         tf32 = _map_solve(device, size, iters)[0]
     rel_tf32 = abs(float(tf32.cost) - cost_ref) / cost_ref
+    if _is_cuda(device):
+        mem = _program_memory()
+        log(f"map BA: before it, the program cache held {len(mem['static_bytes'])} programs "
+            f"with {sum(b for _, b in mem['static_bytes']) / 2**20:.1f} MiB of static tensors "
+            f"(largest {[(n, round(b / 2**20, 1)) for n, b in mem['static_bytes'][:4]]} MiB); "
+            f"allocated {mem['allocated'] / 2**20:.1f} MiB, reserved "
+            f"{mem['reserved'] / 2**20:.1f} MiB after the solve")
     rec = {"C": size["C"], "P": size["P"], "O": size["C"] * size["opc"], "iterations": n_it,
            "cost_initial": cost0, "cost_final": cost, "cost_final_reference": cost_ref,
            "cost_rel_diff": rel, "cost_rel_diff_tf32_on": rel_tf32, "init_ms": init_ms,
            "ms_per_iteration": ms_it, "reference_ms_per_iteration": ms_ref,
-           "peak_bytes": peak, "path": "matrix-free"}
+           "peak_bytes": peak, "allocated_before_bytes": base, "path": "matrix-free"}
     log(f"map BA ({size['C']} cams, {size['P']} points, {size['C'] * size['opc']} obs, "
         f"matrix-free, cg 40): {n_it} LM iterations, cost {cost0:.6g} -> {cost:.6g}, "
         f"{ms_it:.2f} ms per LM iteration (init {init_ms:.2f} ms), peak "
-        f"{(peak or 0) / 2**20:.1f} MiB; {reference_device}: cost {cost_ref:.6g} "
+        f"{(peak or 0) / 2**20:.1f} MiB ({(base or 0) / 2**20:.1f} MiB allocated before); "
+        f"{reference_device}: cost {cost_ref:.6g} "
         f"(rel diff {rel:.3g}; with TF32 left on {rel_tf32:.3g}), {ms_ref:.1f} ms per "
         f"LM iteration")
     if not (finite and cost < cost0 and n_it == iters == n_ref and rel <= BA_MAP_COST_RTOL):
@@ -2844,6 +2871,483 @@ def phase_multi_seq_profile(state, path, steps=20):
     return rep
 
 
+# Phase 13: the captured programs (stereo_orb_slam_torch/utils/programs.py)
+# held bit for bit against the eager functions they replace, and the
+# eager-against-captured figures of this call.
+PROGRAM_CHAIN_KS = (4, 32)
+PROGRAM_MULTI_STEPS = 20
+PROGRAM_WINDOW_ITERATIONS = 20   # the canyon drive's live BA
+
+
+@contextlib.contextmanager
+def _eager_programs():
+    """While inside, every program runs its bodies as eager launch streams,
+    as the units ran before they were captured: the eager side of the
+    eager-against-captured figures (the same kernels in the same order, so
+    the same bits)."""
+    from stereo_orb_slam_torch.utils import programs
+
+    captures = programs.Program.captures
+    programs.Program.captures = property(lambda self: False)
+    try:
+        yield
+    finally:
+        programs.Program.captures = captures
+
+
+def _bits_equal(a, b):
+    """Bitwise equality of two tensors or (nested) tuples of them."""
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+    return len(a) == len(b) and all(_bits_equal(x, y) for x, y in zip(a, b))
+
+
+def _wall_ms(fn):
+    """(fn(), host ms of fn with the device synchronised on both sides)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _kernels_in(fn):
+    """(kernels the card ran in fn(), their device ms), by torch.profiler;
+    a graph replay's kernels count where the profiler sees them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in kernels), sum(e.self_device_time_total for e in kernels) / 1e3
+
+
+def _body_kernels(prog, names):
+    """Kernels of one eager run of each named body of `prog` (the nodes its
+    graph replays). Runs the bodies on the program's current state."""
+    out = {}
+    with _eager_programs():
+        for name in names:
+            out[name] = _kernels_in(lambda: prog.run(name, getattr(prog, name)))[0]
+    return out
+
+
+def _stat_delta(before, after):
+    return {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in ("captures", "replays",
+                                                                "capture_ms")}
+            for k, v in after.items()
+            if v["replays"] != before.get(k, {}).get("replays", 0)
+            or v["captures"] != before.get(k, {}).get("captures", 0)}
+
+
+def _program_pose_graph(slam_graph):
+    """pg_solve on phase 7's final graph, eager and captured in turns (eager,
+    the program's first call with its captures, a call of replays only,
+    eager): the poses and both costs bit for bit, wall ms, kernels and
+    graph replays per solve, kernels per body."""
+    import copy as copy_mod
+
+    import torch
+
+    from stereo_orb_slam_torch.backend import pose_graph
+    from stereo_orb_slam_torch.config import PoseGraphConfig
+    from stereo_orb_slam_torch.utils import programs
+
+    dev = torch.device("cuda")
+    vm = np.ones(len(slam_graph[0]), np.float32)
+    vm[0] = 0.0
+    prob = pose_graph.PoseGraphProblem(
+        *(torch.as_tensor(x, device=dev) for x in slam_graph),
+        edge_weight=torch.ones(len(slam_graph[1]), device=dev),
+        vertex_mask=torch.as_tensor(vm, device=dev))
+    cfg = PoseGraphConfig()
+    cache = programs.ProgramCache()
+
+    def flat(out):
+        return (out[0].poses, out[1], out[2])
+
+    want, eager_ms = _wall_ms(lambda: flat(pose_graph.pg_solve(prob, cfg)))
+    first, capture_ms = _wall_ms(lambda: flat(pose_graph.pg_solve_program(prob, cfg,
+                                                                          cache=cache)))
+    stats0 = copy_mod.deepcopy(cache.stats)
+    again, replay_ms = _wall_ms(lambda: flat(pose_graph.pg_solve_program(prob, cfg,
+                                                                         cache=cache)))
+    replays = _stat_delta(stats0, cache.stats)
+    want2, eager2_ms = _wall_ms(lambda: flat(pose_graph.pg_solve(prob, cfg)))
+    bits = all(_bits_equal(x, want) for x in (first, again, want2))
+    eager_kernels, eager_dev = _kernels_in(lambda: pose_graph.pg_solve(prob, cfg))
+    graph_kernels, graph_dev = _kernels_in(lambda: pose_graph.pg_solve_program(prob, cfg,
+                                                                               cache=cache))
+    prog = next(iter(cache._programs.values()))
+    rec = {"vertices": prob.poses.shape[0], "edges": prob.edge_a.shape[0], "bits_equal": bits,
+           "eager_ms": [eager_ms, eager2_ms], "first_call_ms": capture_ms,
+           "captured_ms": replay_ms, "eager_kernels": eager_kernels,
+           "eager_device_ms": eager_dev, "captured_kernels_seen": graph_kernels,
+           "captured_device_ms": graph_dev,
+           "graph_replays_per_solve": sum(v["replays"] for v in replays.values()),
+           "capture_ms": {k: v["capture_ms"] for k, v in cache.stats.items()},
+           "nodes": _body_kernels(prog, ("assemble", "cg", "update"))}
+    cache.clear()
+    log(f"programs, pose graph ({rec['vertices']} vertices, {rec['edges']} edges): bits equal "
+        f"{bits}; eager {eager_ms:.1f} / {eager2_ms:.1f} ms, {eager_kernels} kernels, "
+        f"{eager_dev:.1f} ms device; captured {replay_ms:.1f} ms ({rec['graph_replays_per_solve']}"
+        f" graph replays, {graph_kernels} kernels seen, {graph_dev:.1f} ms device), first call "
+        f"{capture_ms:.1f} ms (captures {rec['capture_ms']}); kernels per body {rec['nodes']}")
+    return rec
+
+
+def _program_ba(seq, window):
+    """The LM solve, eager (`ba_solve`) and captured (`ba_solve_program`) in
+    turns, on phase 6's last window (PROGRAM_WINDOW_ITERATIONS iterations,
+    the exit off) and on the map problem (MAP_LM_ITERATIONS, matrix-free):
+    carry, iteration count and initial cost bit for bit, ms per LM
+    iteration, and the map problem's peak device memory eager, at the
+    capture and at a replay."""
+    import torch
+
+    from stereo_orb_slam_torch.backend import ba
+    from stereo_orb_slam_torch.config import BAConfig
+    from stereo_orb_slam_torch.io import calib
+    from stereo_orb_slam_torch.utils import programs
+
+    world, start, end = window
+    adj = ba.BundleAdjuster(copy.deepcopy(world),
+                            calib.load_camera(os.path.join(seq, "calib.txt")), BAConfig())
+    setup = adj.prepare(start, end)
+    rec = {}
+    cases = (("window", setup.prob, PROGRAM_WINDOW_ITERATIONS,
+              dataclasses.replace(adj.cfg, function_tolerance=0.0), setup.solve_kwargs()),
+             ("map", None, MAP_LM_ITERATIONS,
+              BAConfig(cg_iterations=40, function_tolerance=0.0), {}))
+    for name, prob, iters, cfg, kw in cases:
+        if prob is None:
+            prob = make_map_problem("cuda", **MAP_SIZE)
+        cache = programs.ProgramCache()
+        torch.cuda.empty_cache()
+        peaks = []
+
+        def run(fn):
+            # Peak above what was allocated before the call (the process
+            # cache's programs hold their static tensors throughout).
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, ms = _wall_ms(fn)
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            return out, ms
+
+        def eager():
+            return ba.ba_solve(prob, iters, cfg, **kw)
+
+        def captured():
+            return ba.ba_solve_program(prob, iters, cfg, cache=cache, **kw)
+
+        want, e1 = run(eager)
+        first, c1 = run(captured)
+        again, c2 = run(captured)
+        want2, e2 = run(eager)
+        bits = all(_bits_equal(x, want) for x in (first, again, want2))
+        prog = next(iter(cache._programs.values()))
+        r = {"path": "matrix-free" if name == "map" else setup.path,
+             "cams": prob.pose6.shape[0], "points": prob.points.shape[0],
+             "obs": prob.obs_cam.shape[0], "iterations": int(want[1]), "bits_equal": bits,
+             "eager_ms_per_iteration": [e1 / iters, e2 / iters],
+             "captured_ms_per_iteration": c2 / iters, "first_call_ms": c1,
+             "peak_bytes_above_base": {"eager": peaks[0], "capture": peaks[1],
+                                       "replay": peaks[2]},
+             "capture_ms": {k: v["capture_ms"] for k, v in cache.stats.items()},
+             "nodes": _body_kernels(prog, ("start", "iteration"))}
+        cache.clear()
+        rec[name] = r
+        log(f"programs, {name} BA ({r['path']}, C={r['cams']}, P={r['points']}, O={r['obs']}, "
+            f"{iters} LM iterations): bits equal {bits}; eager {e1 / iters:.2f} / "
+            f"{e2 / iters:.2f} ms per LM iteration, captured {c2 / iters:.2f} (first call "
+            f"{c1:.1f} ms); peak MiB above the base: eager {peaks[0] / 2**20:.1f}, capture "
+            f"{peaks[1] / 2**20:.1f}, replay {peaks[2] / 2**20:.1f}; kernels per body "
+            f"{r['nodes']}")
+    return rec
+
+
+def _program_front_end(seq, multi_state):
+    """The rectified front end's program against the eager functions: 60
+    frames of `VisualOdometer.track` (one replay each) against one eager
+    `frontend_chain` over the same frames and RANSAC draws, every frame's
+    StepResult bit for bit; `frontend_chain_program` against
+    `frontend_chain` at K = 4 and K = 32 (carry and stacked results, every
+    chain); the multi-sequence step at S = 3 against the eager batched
+    step over PROGRAM_MULTI_STEPS steps."""
+    import torch
+
+    from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
+    from stereo_orb_slam_torch.frontend import odometer
+    from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.ops import orb
+    from stereo_orb_slam_torch.parallel import multi_seq as multi_mod
+    from stereo_orb_slam_torch.utils import programs
+    from stereo_orb_slam_torch.worldmap import WorldMap
+
+    pairs = datasets.load_dataset("kitti", seq)[:N_FRAMES]
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    n = len(imgs)
+    rig = calib.load_camera(os.path.join(seq, "calib.txt"))
+    fe, rc = FrontendConfig(), RansacConfig()
+    steer, md = orb.steer_table(fe.oriented, rig.device), rig.max_sensible_distance()
+    L = torch.as_tensor(np.stack([a for a, _ in imgs])).cuda()
+    R = torch.as_tensor(np.stack([b for _, b in imgs])).cuda()
+    draws = VisualOdometer(WorldMap(), rig)   # the VO's per-frame samplers (seed 0)
+
+    def samplers(lo, hi):
+        return [draws._gumbel_for_frame(i) for i in range(lo, hi)]
+
+    rec = {}
+    vo = VisualOdometer(WorldMap(), rig)
+    got = []
+    for il, ir in imgs:
+        vo.track(il, ir)
+        got.append(vo.last_result)
+    _, want = odometer.frontend_chain(L, R, odometer.empty_slots(fe.num_features), False,
+                                      samplers(0, n), rig, md, fe, rc, True, steer)
+    rec["vo_frames"] = n
+    rec["vo_bits_equal"] = all(_bits_equal(got[j], odometer._select(want, j)) for j in range(n))
+    for k in PROGRAM_CHAIN_KS:
+        cache = programs.ProgramCache()
+        ok, carry_e, carry_c = True, (odometer.empty_slots(fe.num_features), False), None
+        carry_c = carry_e
+        for lo in range(0, n - k + 1, k):
+            args = (L[lo:lo + k], R[lo:lo + k])
+            carry_e, res_e = odometer.frontend_chain(*args, *carry_e, samplers(lo, lo + k), rig,
+                                                     md, fe, rc, True, steer)
+            carry_c, res_c = odometer.frontend_chain_program(*args, *carry_c,
+                                                             samplers(lo, lo + k), rig, md, fe,
+                                                             rc, steer, cache=cache)
+            ok = ok and _bits_equal(res_c, res_e) and _bits_equal(carry_c, carry_e)
+        prog = next(iter(cache._programs.values()))
+        rec[f"chain_k{k}"] = {"chains": n // k, "bits_equal": ok,
+                              "capture_ms": {a: b["capture_ms"] for a, b in cache.stats.items()},
+                              "replays": {a: b["replays"] for a, b in cache.stats.items()}}
+        if k == PROGRAM_CHAIN_KS[0]:
+            rec["step_nodes"] = _body_kernels(prog, ("step",))["step"]
+        cache.clear()
+
+    multi, imgs_l, imgs_r = multi_state
+    S = imgs_l.shape[1]
+    step = multi_mod.batched_frontend_step(multi.fe, multi.rc, True)
+    prev = multi_mod.batch_slots([odometer.empty_slots(multi.fe.num_features)] * S)
+    usable = torch.zeros(S, dtype=torch.bool, device="cuda")
+    ok = True
+    for i in range(PROGRAM_MULTI_STEPS):
+        il, ir = torch.as_tensor(imgs_l[i]).cuda(), torch.as_tensor(imgs_r[i]).cuda()
+
+        def smp():
+            return [v._gumbel_for_frame(i) for v in multi.vos]
+
+        res_e = step(il, ir, prev, usable, smp(), multi.rig_batch, multi.max_d, multi.steer)
+        res_c = odometer.batched_frontend_step_program(il, ir, prev, usable, smp(),
+                                                       multi.rig_batch, multi.max_d, multi.fe,
+                                                       multi.rc, multi.steer)
+        ok = ok and _bits_equal(res_c, res_e)
+        prev, usable = res_e.slots, torch.ones(S, dtype=torch.bool, device="cuda")
+    rec["multi_seq"] = {"sequences": S, "steps": PROGRAM_MULTI_STEPS, "bits_equal": ok}
+    log(f"programs, front end: VO {n} frames bits equal {rec['vo_bits_equal']}; chains "
+        + ", ".join(f"K = {k} {rec[f'chain_k{k}']['bits_equal']}" for k in PROGRAM_CHAIN_KS)
+        + f"; multi-sequence S = {S} x {PROGRAM_MULTI_STEPS} steps {ok}; kernels per step "
+        f"{rec['step_nodes']}; chain captures {[rec[f'chain_k{k}']['capture_ms'] for k in PROGRAM_CHAIN_KS]}")
+    return rec
+
+
+def _multi_seq_rate(multi_state, steps=30):
+    """Steps/s of a fresh MultiSequenceSLAM over `steps` steps (after 2)."""
+    import torch
+
+    from stereo_orb_slam_torch.parallel.multi_seq import MultiSequenceSLAM
+
+    multi, imgs_l, imgs_r = multi_state
+    m = MultiSequenceSLAM([multi.vos[s].rig for s in range(len(multi.vos))])
+    for i in range(2):
+        m.process(imgs_l[i], imgs_r[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2, 2 + steps):
+        m.process(imgs_l[i], imgs_r[i])
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+def _program_memory():
+    """What the process's program cache holds on the card: each program's
+    static tensors (bytes, largest first), and the allocator's allocated
+    and reserved bytes."""
+    import torch
+
+    from stereo_orb_slam_torch.utils import programs
+
+    def nbytes(x, seen):
+        if isinstance(x, torch.Tensor):
+            if x.device.type != "cuda" or x.data_ptr() in seen:
+                return 0
+            seen.add(x.data_ptr())
+            return x.untyped_storage().nbytes()
+        if isinstance(x, (tuple, list)):
+            return sum(nbytes(y, seen) for y in x)
+        return 0
+
+    held = sorted(((type(p).__name__, nbytes(list(vars(p).values()), set()))
+                   for p in programs.PROGRAMS._programs.values()), key=lambda e: -e[1])
+    return {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
+            "static_bytes": held}
+
+
+def phase_programs_profile(seq, window, slam_graph, path, frames=20, warm=5, lm_iters=3):
+    """torch.profiler, captured and then eager (`_eager_programs`): `frames`
+    VO frames through `track` after `warm`, one pose-graph solve of phase
+    7's final graph after a warm one, and `lm_iters` LM iterations of the
+    last window problem after a warm solve. Device busy, idle share and
+    kernels per unit, to `path`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_orb_slam_torch.backend import ba, pose_graph
+    from stereo_orb_slam_torch.config import BAConfig, PoseGraphConfig
+    from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.worldmap import WorldMap
+
+    pairs = datasets.load_dataset("kitti", seq)[: warm + frames]
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    rig = calib.load_camera(os.path.join(seq, "calib.txt"))
+    vm = np.ones(len(slam_graph[0]), np.float32)
+    vm[0] = 0.0
+    graph = pose_graph.PoseGraphProblem(
+        *(torch.as_tensor(x, device="cuda") for x in slam_graph),
+        edge_weight=torch.ones(len(slam_graph[1]), device="cuda"),
+        vertex_mask=torch.as_tensor(vm, device="cuda"))
+    world, start, end = window
+    adj = ba.BundleAdjuster(copy.deepcopy(world), rig, BAConfig())
+    setup = adj.prepare(start, end)
+    cfg = dataclasses.replace(adj.cfg, function_tolerance=0.0)
+
+    def profiled(fn, per, unit):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return _device_summary(prof, wall_ms, per, unit=unit)
+
+    report = {}
+    for mode, ctx in (("captured", contextlib.nullcontext), ("eager", _eager_programs)):
+        with ctx():
+            vo = VisualOdometer(WorldMap(), rig)
+            for il, ir in imgs[:warm]:
+                vo.track(il, ir)
+            rep = {"vo_frame": profiled(lambda: [vo.track(il, ir) for il, ir in imgs[warm:]],
+                                        frames, "frame")}
+            pose_graph.pg_solve_program(graph, PoseGraphConfig())
+            rep["pg_solve"] = profiled(
+                lambda: float(pose_graph.pg_solve_program(graph, PoseGraphConfig())[2]), 1,
+                "solve")
+            prog = ba.lm_program(setup.prob, cfg, setup.dense_K, setup.cam_K, setup.band)
+            ba.full_f32(prog.solve)(setup.prob, 1)   # as BundleAdjuster runs it
+            rep["window_lm_iteration"] = profiled(lambda: ba.full_f32(prog.iterate)(lm_iters),
+                                                  lm_iters, "lm_iteration")
+        for rec in rep.values():
+            rec["kernels"] = rec["kernels"][:12]
+        report[mode] = rep
+        for name, r in rep.items():
+            per = [k for k in r if k.startswith("device_launches_per_")][0]
+            log(f"programs profile ({mode}), {name}: {r['wall_ms']:.2f} ms wall, device busy "
+                f"{r['device_busy_ms']:.3f} ms (idle share {r['device_idle_share']:.3f}), "
+                f"{r[per]:.0f} kernels per unit seen")
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1)
+    log(f"programs profile in {path}")
+    return report
+
+
+def phase_programs(seq, gt, window, slam_graph, multi_state, slam_data, canyon_data, tmp,
+                   captured):
+    """Phase 13: every captured unit against its eager body, bit for bit
+    (the pose graph on phase 7's final graph, the window and map BA solves,
+    60 VO frames, K = 4 and K = 32 chains, S = 3 multi-sequence steps), the
+    eager-against-captured unit figures, then the main path, the SLAM app
+    at K = 1 and 4, the canyon drive and multi-sequence tracking again with
+    every program run eagerly (`_eager_programs`): their gates hold there
+    too, and their figures stand beside the captured runs of phases 4, 7,
+    8 and 12 (`captured`)."""
+    from stereo_orb_slam_torch.utils import programs
+
+    rec = {"pose_graph": _program_pose_graph(slam_graph), "ba": _program_ba(seq, window),
+           "front_end": _program_front_end(seq, multi_state)}
+    fe = rec["front_end"]
+    bits = {"pose_graph": rec["pose_graph"]["bits_equal"],
+            **{f"ba_{k}": v["bits_equal"] for k, v in rec["ba"].items()},
+            "vo": fe["vo_bits_equal"], "multi_seq": fe["multi_seq"]["bits_equal"],
+            **{f"chain_k{k}": fe[f"chain_k{k}"]["bits_equal"] for k in PROGRAM_CHAIN_KS}}
+    rec["bits_equal"] = bits
+    if not all(bits.values()):
+        raise AssertionError(f"programs: a captured unit differs from its eager body: {bits}")
+
+    slam_seq, slam_gt = slam_data
+    multi_captured = _multi_seq_rate(multi_state)
+    with _eager_programs():
+        vo, _ = phase_main_path(seq, gt, os.path.join(tmp, "vo_out_eager"))
+        slam = {k: phase_slam(slam_seq, slam_gt, os.path.join(tmp, f"slam_eager_{k}"), k)[0]
+                for k in (1, 4)}
+        canyon = phase_canyon_slam(canyon_data, os.path.join(tmp, "canyon_eager"))
+        multi_eager = _multi_seq_rate(multi_state)
+
+    def pick(r, keys):
+        return {k: r[k] for k in keys}
+
+    slam_keys = ("live_fps", "fps", "median_ms", "finish_seconds", "live_stall_splits",
+                 "ate_m")
+    rec["end_to_end"] = {
+        "vo": {"captured": pick(captured["vo"], ("fps", "median_ms", "ate_m")),
+               "eager": pick(vo, ("fps", "median_ms", "ate_m"))},
+        **{f"slam_k{k}": {"captured": pick(captured["slam"][k], slam_keys),
+                          "eager": pick(slam[k], slam_keys),
+                          "stall_s": {"captured": [h["wall_seconds"] for h in
+                                                   captured["slam"][k]["closures"] if h["live"]],
+                                      "eager": [h["wall_seconds"] for h in slam[k]["closures"]
+                                                if h["live"]]}}
+           for k in (1, 4)},
+        "canyon": {"captured": pick(captured["canyon"], ("live_fps", "median_ms",
+                                                         "finish_seconds", "ate_m")),
+                   "eager": pick(canyon, ("live_fps", "median_ms", "finish_seconds", "ate_m"))},
+        "multi_seq_steps_per_s": {"captured": multi_captured, "eager": multi_eager},
+    }
+    rec["programs"] = programs.PROGRAMS.summary()
+    e2e = rec["end_to_end"]
+    log("programs, eager against captured: VO median "
+        f"{e2e['vo']['eager']['median_ms']:.2f} -> {e2e['vo']['captured']['median_ms']:.2f} ms"
+        + "".join(f"; SLAM K = {k} live fps {e2e[f'slam_k{k}']['eager']['live_fps']:.2f} -> "
+                  f"{e2e[f'slam_k{k}']['captured']['live_fps']:.2f}, finish "
+                  f"{e2e[f'slam_k{k}']['eager']['finish_seconds']:.2f} -> "
+                  f"{e2e[f'slam_k{k}']['captured']['finish_seconds']:.2f} s, stalls "
+                  f"{e2e[f'slam_k{k}']['stall_s']['eager']} -> "
+                  f"{e2e[f'slam_k{k}']['stall_s']['captured']} s" for k in (1, 4))
+        + f"; canyon live fps {e2e['canyon']['eager']['live_fps']:.2f} -> "
+        f"{e2e['canyon']['captured']['live_fps']:.2f}, median "
+        f"{e2e['canyon']['eager']['median_ms']:.2f} -> "
+        f"{e2e['canyon']['captured']['median_ms']:.2f} ms, finish "
+        f"{e2e['canyon']['eager']['finish_seconds']:.2f} -> "
+        f"{e2e['canyon']['captured']['finish_seconds']:.2f} s; multi-sequence "
+        f"{multi_eager:.2f} -> {multi_captured:.2f} steps/s")
+    return rec
+
+
 # The distributed phase (BASELINE.json config 5): bounds of
 # tests/test_dist_ba.py and tests/test_dist_pose_graph.py for ranks above 1
 # (their sums run in another order); 1 rank is held bit for bit against
@@ -3238,6 +3742,9 @@ def main(argv=None):
                   "vo": timed("canyon_vo", phase_canyon_vo, canyon_data)}
         records += timed("canyon_kernels", phase_path_kernels, "canyon", "kitti",
                          canyon_data["folder"], canyon_data["camera"], True, CANYON_DESC_FLIPS)
+        programs_rec = timed("programs", phase_programs, seq, gt, window, slam_graph,
+                             multi_state, (slam_seq, slam_gt), canyon_data, tmp,
+                             {"vo": summary, "slam": slam_runs, "canyon": canyon["slam"]})
         gap = abs(slam_runs[4]["ate_m"] - slam_runs[1]["ate_m"])
         log(f"SLAM --batch_frames 4 against 1: ATE {slam_runs[4]['ate_m']:.5f} / "
             f"{slam_runs[1]['ate_m']:.5f} m, gap {gap:.3g} m")
@@ -3264,6 +3771,8 @@ def main(argv=None):
             timed("profile_ba", phase_ba_profile, seq, window, f"{root}_ba{ext or '.json'}")
             timed("profile_slam", phase_slam_profile, slam_seq,
                   f"{root}_slam{ext or '.json'}")
+            timed("profile_programs", phase_programs_profile, seq, window, slam_graph,
+                  f"{root}_programs{ext or '.json'}")
     paths = {"main": launches, "oriented": oriented["launches"],
              "general": general["vo"]["launches"], "slam_general": general["slam"]["launches"],
              "multi_seq_general": general["multi_seq"]["launches"],
@@ -3286,6 +3795,10 @@ def main(argv=None):
                     "slam_first_call": first_call}, default=float))
     log(json.dumps({"canyon": canyon}, default=float))
     log(json.dumps({"multi_seq": multi_seq, "distributed": distributed}, default=float))
+    log(json.dumps({"programs": programs_rec}, default=float))
+    from stereo_orb_slam_torch.utils import programs
+
+    log(json.dumps({"program_cache": programs.PROGRAMS.summary()}, default=float))
     log(json.dumps({"phase_seconds": seconds}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

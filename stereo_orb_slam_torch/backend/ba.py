@@ -25,6 +25,16 @@ failure flag stays on the device (a failed factorization is a NaN step,
 rejected by the LM). The results come back in one packed readback, and
 the chunked path of BundleAdjuster reads one count per chunk.
 
+How it runs: the JAX package jits `ba_solve_impl` / `lm_iteration_impl`
+into device programs. BundleAdjuster runs `lm_program`: an `LMProgram`
+(utils/programs.py) whose `start` (plans + lm_init) and `iteration`
+(one masked lm_iteration) bodies are captured once per padded shape and
+path as CUDA graphs, so a solve is 1 + max_iters graph launches. The
+eager `ba_solve` / `ba_resume` / `_lm_loop` are the same solve as
+launch streams: the plain versions the program is held to bit for bit,
+and the distributed solves' path (`group` given; gloo cannot be
+captured).
+
 Every solver entry point (`lm_step`, `lm_init`, `lm_iteration`,
 `ba_solve`, `ba_resume`, `BundleAdjuster.optimize*`) runs with TF32 off
 for float32 matrix products, whatever the caller's setting, and restores
@@ -60,6 +70,7 @@ from stereo_orb_slam_torch.backend.residuals import bmv
 from stereo_orb_slam_torch.config import BAConfig
 from stereo_orb_slam_torch.geometry import se3_np
 from stereo_orb_slam_torch.parallel.mesh import all_reduce
+from stereo_orb_slam_torch.utils import programs
 
 
 class BAProblem(NamedTuple):
@@ -307,36 +318,69 @@ def schur_matvec(x, H_cc_l, Hpp_inv, W, obs_cam, obs_point, cam_mask,
     return out * cam_mask[:, None] + x * (1.0 - cam_mask[:, None])
 
 
+class CGState(NamedTuple):
+    """PCG's state, updated in place by `pcg_iteration`: the iterate x,
+    the residual r, the direction p, r.z (0-d), the exit threshold
+    tol * ||b|| (0-d) and whether the last iteration ran (0-d bool)."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    stop: torch.Tensor
+    active: torch.Tensor
+
+
+def pcg_start(b, M_inv_blocks, tol: float, out: Optional[CGState] = None) -> CGState:
+    """PCG's start state for the system with right-hand side b, written
+    into `out`'s tensors when given (a captured program's static state)."""
+    z = bmv(M_inv_blocks, b)
+    rz = torch.sum(b * z)
+    stop = tol * torch.sqrt(torch.sum(b * b))
+    if out is None:
+        return CGState(torch.zeros_like(b), b.clone(), z, rz, stop,
+                       torch.ones((), dtype=torch.bool, device=b.device))
+    out.x.zero_()
+    out.r.copy_(b)
+    out.p.copy_(z)
+    out.rz.copy_(rz)
+    out.stop.copy_(stop)
+    out.active.fill_(True)
+    return out
+
+
+def pcg_iteration(s: CGState, matvec, M_inv_blocks):
+    """One masked PCG iteration, in place on s's tensors: it first tests
+    ||r|| > tol * ||b|| on the device and keeps the old state where that
+    fails, so one captured iteration serves every iteration of a solve."""
+    torch.gt(torch.sqrt(torch.sum(s.r * s.r)), s.stop, out=s.active)
+    Ap = matvec(s.p)
+    alpha = s.rz / torch.clamp(torch.sum(s.p * Ap), min=1e-30)
+    x_new = s.x + alpha * s.p
+    r_new = s.r - alpha * Ap
+    z = bmv(M_inv_blocks, r_new)
+    rz_new = torch.sum(r_new * z)
+    beta = rz_new / torch.clamp(s.rz, min=1e-30)
+    p_new = z + beta * s.p
+    torch.where(s.active, x_new, s.x, out=s.x)
+    torch.where(s.active, r_new, s.r, out=s.r)
+    torch.where(s.active, p_new, s.p, out=s.p)
+    torch.where(s.active, rz_new, s.rz, out=s.rz)
+
+
 def pcg(matvec, b, M_inv_blocks, iters: int, tol: float):
     """Block-Jacobi preconditioned CG on the reduced camera system.
 
     The JAX package exits its while_loop once ||r|| <= tol * ||b||. Here
-    every one of `iters` iterations runs, and each one first tests that
-    condition on the device and keeps the old state where it holds: once
-    met it stays met (the state no longer changes), so the result is the
-    early exit's, with no host sync.
+    every one of `iters` iterations runs (`pcg_iteration`), and each one
+    first tests that condition on the device and keeps the old state where
+    it holds: once met it stays met (the state no longer changes), so the
+    result is the early exit's, with no host sync.
     """
-    x = torch.zeros_like(b)
-    r = b
-    z = bmv(M_inv_blocks, r)
-    p = z
-    rz = torch.sum(r * z)
-    stop = tol * torch.sqrt(torch.sum(b * b))
+    s = pcg_start(b, M_inv_blocks, tol)
     for _ in range(iters):
-        active = torch.sqrt(torch.sum(r * r)) > stop
-        Ap = matvec(p)
-        alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-30)
-        x_new = x + alpha * p
-        r_new = r - alpha * Ap
-        z = bmv(M_inv_blocks, r_new)
-        rz_new = torch.sum(r_new * z)
-        beta = rz_new / torch.clamp(rz, min=1e-30)
-        p_new = z + beta * p
-        x = torch.where(active, x_new, x)
-        r = torch.where(active, r_new, r)
-        p = torch.where(active, p_new, p)
-        rz = torch.where(active, rz_new, rz)
-    return x
+        pcg_iteration(s, matvec, M_inv_blocks)
+    return s.x
 
 
 def _solve_lm(prob: BAProblem, H_cc, H_pp, W, b_c, b_p, lam, cfg: BAConfig,
@@ -566,10 +610,13 @@ def _lm_loop(carry: LMCarry, max_iters: int, cfg: BAConfig, dense_slots, cam_red
     accepted step, the Ceres default semantics; ref
     `src/bundle_adjuster.cpp:13-36`).
 
-    All `max_iters` iterations are launched; once the exit has fired, each
-    later one is masked (the carry stays as it is), so the result is the
-    early exit's and nothing is read back. Returns (carry, iterations_run,
-    converged), the last two as device tensors (int64, bool)."""
+    All `max_iters` iterations are launched as eager kernel streams; once
+    the exit has fired, each later one is masked (the carry stays as it
+    is), so the result is the early exit's and nothing is read back.
+    Returns (carry, iterations_run, converged), the last two as device
+    tensors (int64, bool). `LMProgram` replays the same iteration as one
+    captured graph; this loop is its plain version and the distributed
+    solves' loop."""
     dev = carry.cost.device
     done = torch.zeros((), dtype=torch.bool, device=dev)
     iters = torch.zeros((), dtype=torch.int64, device=dev)
@@ -591,8 +638,10 @@ def ba_solve(prob: BAProblem, max_iters: int, cfg: BAConfig, dense_slots=None,
              dense_K=None, cam_K=None, band_bases=None, band_B=None, band_Pc=None,
              group=None, point_sharded: bool = False):
     """Full LM solve: init + evaluate-once iterations until convergence or
-    `max_iters`. Returns (carry, iterations_run, cost_initial), the count a
-    0-d device tensor (no host sync).
+    `max_iters`, as eager kernel streams. Returns (carry, iterations_run,
+    cost_initial), the count a 0-d device tensor (no host sync). The
+    plain version of `ba_solve_program`, which BundleAdjuster runs, and
+    the distributed solves' entry point.
 
     `dense_slots` may be passed explicitly (precomputed host maps), or
     derived on device when `dense_K` is given. `cam_K` (pow2 >= max
@@ -628,6 +677,114 @@ def ba_resume(carry: LMCarry, max_iters: int, cfg: BAConfig, dense_slots=None,
     converged), the last two as device tensors."""
     return _lm_loop(carry, max_iters, cfg, dense_slots, cam_red,
                     _band(band_bases, band_B, band_Pc), group, point_sharded)
+
+
+def _solve_plans(prob: BAProblem, dense_K, cam_K, chunked: bool):
+    """(dense_slots, cam_red) of a solve: as `ba_solve` derives them, or
+    (`chunked`) as BundleAdjuster's chunked path does (camera-run slot
+    maps or segmented sums, never the one-hot)."""
+    ds = None if dense_K is None else build_slots_device(
+        prob.obs_point, prob.obs_cam, prob.obs_weight, prob.points.shape[0], dense_K)
+    if not chunked:
+        return ds, _cam_reduction(prob, ds, cam_K)
+    if ds is None:
+        return None, _cam_reduction(prob, None, None)
+    return ds, (None if cam_K is None else build_cam_slots_device(
+        prob.obs_cam, prob.obs_weight, prob.pose6.shape[0], cam_K))
+
+
+class LMProgram(programs.Program):
+    """The LM solve (`lm_init`, then `_lm_loop`'s masked iterations) as a
+    captured program for one padded problem shape and path: the problem,
+    its reduction plans, the evaluate-once carry, the iteration count and
+    the convergence flag in static tensors, and two bodies: `start` (the
+    plans and lm_init) and `iteration` (one lm_iteration, masked once the
+    exit has fired). A solve replays `iteration` max_iters times, so
+    `iters` and `done` stay on the device as in the eager loop."""
+
+    def __init__(self, prob: BAProblem, cfg: BAConfig, dense_K, cam_K, band, chunked: bool):
+        super().__init__(prob.pose6.device)
+        self.cfg, self.dense_K, self.cam_K, self.band, self.chunked = (
+            cfg, dense_K, cam_K, band, chunked)
+        dev = prob.pose6.device
+        self.prob = BAProblem(*(torch.empty_like(t) for t in prob))
+        # The plans' shapes, from one eager build; `start` rebuilds their
+        # values for every problem.
+        self.plans = _solve_plans(prob, dense_K, cam_K, chunked)
+        C, P, O = prob.pose6.shape[0], prob.points.shape[0], prob.obs_cam.shape[0]
+
+        def f32(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=dev)
+
+        self.carry = LMCarry(self.prob, f32(), f32(), f32(C, 6, 6), f32(P, 3, 3), f32(O, 6, 3),
+                             f32(C, 6), f32(P, 3), None if dense_K is None else f32(P, dense_K, 6, 3))
+        self.cost_init = f32()
+        self.iters = torch.empty((), dtype=torch.int64, device=dev)
+        self.done = torch.empty((), dtype=torch.bool, device=dev)
+
+    @staticmethod
+    def key(prob: BAProblem, cfg: BAConfig, dense_K, cam_K, band, chunked: bool):
+        band_key = None if band is None else (tuple(int(b) for b in band[0]), band[1], band[2])
+        return (LMProgram, programs.tensor_key(*prob), cfg, dense_K, cam_K, band_key, chunked)
+
+    def load(self, prob: BAProblem):
+        programs.copy_into(self.prob, prob)
+
+    def start(self):
+        programs.copy_into(self.plans, _solve_plans(self.prob, self.dense_K, self.cam_K,
+                                                    self.chunked))
+        carry = lm_init(self.prob, self.cfg, *self.plans)
+        programs.copy_into(self.carry[1:], carry[1:])
+        self.cost_init.copy_(carry.cost)
+        self.iters.zero_()
+        self.done.zero_()
+
+    def iteration(self):
+        active = ~self.done
+        new, accepted, c0, c1 = lm_iteration(self.carry, self.cfg, *self.plans, self.band,
+                                             active)
+        # c0 is the carry's cost tensor: the exit test reads it before the
+        # carry is overwritten.
+        converged = accepted & (c0 > 0) & ((c0 - c1) < self.cfg.function_tolerance * c0)
+        self.prob.pose6.copy_(new.prob.pose6)
+        self.prob.points.copy_(new.prob.points)
+        programs.copy_into(self.carry[1:], new[1:])
+        self.iters.add_(active)
+        self.done.logical_or_(converged)
+
+    def solve(self, prob: BAProblem, max_iters: int):
+        """Load `prob`, run `start`, then `max_iters` iterations."""
+        self.load(prob)
+        self.run("start", self.start)
+        self.iterate(max_iters)
+
+    def iterate(self, k: int):
+        for _ in range(k):
+            self.run("iteration", self.iteration)
+
+
+def lm_program(prob: BAProblem, cfg: BAConfig, dense_K=None, cam_K=None, band=None,
+               chunked: bool = False,
+               cache: Optional[programs.ProgramCache] = None) -> LMProgram:
+    """The cache's LMProgram for this problem's shapes and path."""
+    cache = programs.PROGRAMS if cache is None else cache
+    return cache.get(LMProgram.key(prob, cfg, dense_K, cam_K, band, chunked),
+                     lambda: LMProgram(prob, cfg, dense_K, cam_K, band, chunked))
+
+
+@full_f32
+def ba_solve_program(prob: BAProblem, max_iters: int, cfg: BAConfig, dense_K=None, cam_K=None,
+                     band_bases=None, band_B=None, band_Pc=None,
+                     cache: Optional[programs.ProgramCache] = None):
+    """`ba_solve` (no group, slot maps derived on the device) through its
+    captured program: on the card `start` and `iteration` are captured
+    once per padded shape and path and a solve is 1 + max_iters graph
+    replays; on the CPU the bodies run as they are. Equal to `ba_solve`
+    bit for bit. Returns what `ba_solve` returns, as new tensors."""
+    prog = lm_program(prob, cfg, dense_K, cam_K, _band(band_bases, band_B, band_Pc), False,
+                      cache)
+    prog.solve(prob, max_iters)
+    return programs.clone(prog.carry), prog.iters.clone(), prog.cost_init.clone()
 
 
 def _pad_to(n: int, mult: int = 256) -> int:
@@ -813,8 +970,8 @@ class BundleAdjuster:
         writeback. The solve is not waited for here: finish() is its first
         host read. Nothing touches the world between the two calls, so a
         caller may do other work before finish(). Big solves (see below) run
-        their LM chunks inside finish(). Returns None when there is nothing
-        to solve.
+        whole inside finish(), in chunks. Returns None when there is nothing
+        to solve. Both run the captured LM program (`lm_program`).
         """
         setup = self.prepare(start_frame, end_frame)
         if setup is None:
@@ -831,22 +988,18 @@ class BundleAdjuster:
         if setup.O_pad >= (1 << 19) or (cap_seconds > 0 and setup.O_pad >= (1 << 16)):
             # Big solves are CHUNKED regardless of path. The dense machinery
             # (device-derived slot maps + camera-run maps) threads through
-            # lm_init/ba_resume, as in the JAX package.
-            if setup.dense_K is None:
-                ds, cam_red0 = None, _cam_reduction(prob, None, None)
-            else:
-                ds = build_slots_device(prob.obs_point, prob.obs_cam, prob.obs_weight,
-                                        setup.P_pad, setup.dense_K)
-                cam_red0 = (None if setup.cam_K is None else build_cam_slots_device(
-                    prob.obs_cam, prob.obs_weight, setup.C_pad, setup.cam_K))
-            carry0 = lm_init(prob, cfg, dense_slots=ds, cam_red=cam_red0)
-            band_kw = setup.band_kwargs()
-
+            # the program's start and its iterations, as in the JAX
+            # package. The program's state is shared by every solve of its
+            # shapes, so the whole solve, lm_init included, runs in finish().
+            @full_f32
             def finish_chunked() -> dict:
                 chunk_max = max(1, (1 << 22) // setup.O_pad)
+                prog = lm_program(prob, cfg, setup.dense_K, setup.cam_K, setup.band, True)
+                prog.load(prob)
+                prog.run("start", prog.start)
+                # The cap covers the LM chunks, as when lm_init was launched
+                # before finish().
                 t0 = time.perf_counter()
-                carry = carry0
-                cost_init = carry.cost
                 n_done = 0
                 per_iter = None  # measured wall seconds per LM iteration
                 while n_done < iters:
@@ -865,26 +1018,28 @@ class BundleAdjuster:
                         k = chunk_max
                     k = min(k, iters - n_done)
                     tc = time.perf_counter()
-                    carry, ran, conv = ba_resume(carry, k, cfg, dense_slots=ds,
-                                                 cam_red=cam_red0, **band_kw)
+                    prog.iterate(k)
                     # The one host read per chunk (it also ends the chunk's
-                    # timing).
-                    ran, conv = torch.stack([ran, conv.long()]).tolist()
-                    n_done += ran
+                    # timing): the running count and the exit flag.
+                    total, conv = torch.stack([prog.iters, prog.done.long()]).tolist()
+                    ran, n_done = total - n_done, total
                     if ran > 0:
                         per_iter = (time.perf_counter() - tc) / ran
                     if conv:
                         break
-                flat = _pack_ba_result(carry.prob.pose6, carry.prob.points, n_done,
-                                       cost_init, carry.cost)
+                flat = _pack_ba_result(prog.prob.pose6, prog.prob.points, n_done,
+                                       prog.cost_init, prog.carry.cost)
                 return self._apply_result(setup, flat.cpu().numpy(), chunked=True)
 
             return finish_chunked
 
-        carry, n_iters, cost_init = ba_solve(prob, iters, cfg, **setup.solve_kwargs())
-        # One consolidated readback, in finish().
-        flat_dev = _pack_ba_result(carry.prob.pose6, carry.prob.points, n_iters,
-                                   cost_init, carry.cost)
+        # The captured LM program; one consolidated readback, in finish(),
+        # of a result packed into its own tensor (the program's state
+        # belongs to the next solve of its shapes).
+        prog = lm_program(prob, cfg, setup.dense_K, setup.cam_K, setup.band, False)
+        prog.solve(prob, iters)
+        flat_dev = _pack_ba_result(prog.prob.pose6, prog.prob.points, prog.iters,
+                                   prog.cost_init, prog.carry.cost)
 
         def finish() -> dict:
             return self._apply_result(setup, flat_dev.cpu().numpy(), chunked=False)

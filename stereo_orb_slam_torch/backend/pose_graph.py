@@ -22,10 +22,23 @@ edges are this rank's shard and the vertex state is replicated; each
 vertex sum is taken locally in edge order and then summed over the ranks
 (one all_reduce, JAX's `psum`), and so is the cost.
 
+How it runs: the JAX package jits the whole solve (`pg_solve_impl`, a
+`lax.scan` of GN steps whose CG is a `while_loop`) into one device
+program. Here `PoseGraphOptimizer` runs `pg_solve_program`: a
+`GNProgram` (utils/programs.py) whose three bodies (the assembly, one
+CG iteration, the step's update) are captured once per graph size as
+CUDA graphs and replayed iterations x (cg_iterations + 2) times a
+solve, about 2,000 graph launches where the eager solve launches some
+94,000 kernels. `pg_solve` is the same solve as eager launches (the
+plain version the tests and the smoke hold the program to, bit for
+bit) and the solve of the distributed pose graph, whose gloo
+all_reduces cannot be captured.
+
 The JAX package pads the vertex and edge counts to powers of two so that
 XLA compiles a program per bucket, not per graph; the padding adds exact
 zeros and fixed identity vertices, so it changes no value, and the port
-solves the graph at its own size.
+solves the graph at its own size and captures its program once per
+solve (padding would change the reduction trees and so the bits).
 """
 
 from __future__ import annotations
@@ -38,12 +51,13 @@ import torch
 from torch.func import jvp, vmap
 
 from stereo_orb_slam_torch.backend.ba import (
-    Segments, _inv6_gj, _seg_sum, full_f32, pcg, segments,
+    CGState, Segments, _inv6_gj, _seg_sum, full_f32, pcg, pcg_iteration, pcg_start, segments,
 )
 from stereo_orb_slam_torch.backend.residuals import bmv
 from stereo_orb_slam_torch.config import PoseGraphConfig
 from stereo_orb_slam_torch.geometry import se3
 from stereo_orb_slam_torch.parallel.mesh import all_reduce
+from stereo_orb_slam_torch.utils import programs
 
 
 class PoseGraphProblem(NamedTuple):
@@ -160,14 +174,13 @@ def _vertex_sum(rows_a, rows_b, plan: EdgePlan, N: int, group=None):
     return all_reduce(both.view((2, N) + both.shape[1:]).sum(0), group)
 
 
-def gn_step(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: Optional[EdgePlan] = None,
-            group=None):
-    """One damped Gauss-Newton iteration over the whole graph. Returns the
-    updated problem and the cost before the step (a 0-d tensor). `plan` is
-    edge_plan(prob), computed here when not given. With `group`, prob's
-    edges are this rank's shard (JAX's `axis_name`)."""
+def _normal_equations(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: EdgePlan,
+                      group=None):
+    """A GN step's system at prob's poses: (J [2E,6,6], the rows of
+    `plan.ends`; b [N,6] = -(J^T r) per vertex; M_inv [N,6,6], the inverse
+    of H's damped block diagonal, identity for fixed vertices; the cost, a
+    0-d tensor, this rank's share with `group`)."""
     dt, dev = prob.poses.dtype, prob.poses.device
-    plan = plan if plan is not None else edge_plan(prob)
     # Made on the device: a host tensor would be a copy and a sync per step.
     info_sqrt = torch.cat([torch.full((3,), float(np.sqrt(cfg.info_translation)), dtype=dt,
                                       device=dev),
@@ -175,10 +188,8 @@ def gn_step(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: Optional[EdgePla
                                       device=dev)])
     r, J_a, J_b, cost = edge_terms(prob.poses, prob.edge_a, prob.edge_b, prob.edge_meas,
                                    prob.edge_weight, info_sqrt, cfg.huber_delta)
-    N, E = prob.poses.shape[0], prob.edge_a.shape[0]
+    N = prob.poses.shape[0]
     vm = prob.vertex_mask[:, None]
-    fixed = 1.0 - vm
-    J = torch.cat([J_a, J_b])  # [2E, 6, 6], the rows of `plan.ends`
 
     # Gradient: b = -(J^T r) accumulated per vertex.
     b = -_vertex_sum(_bmtv(J_a, r), _bmtv(J_b, r), plan, N, group) * vm
@@ -189,28 +200,52 @@ def gn_step(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: Optional[EdgePla
     eye6 = torch.eye(6, dtype=dt, device=dev)
     diag = diag + cfg.damping * eye6[None]
     diag = torch.where(prob.vertex_mask[:, None, None] > 0, diag, eye6[None])
-    M_inv = _inv6_gj(diag)
+    return torch.cat([J_a, J_b]), b, _inv6_gj(diag), cost
+
+
+def _matvec(x, J, vertex_mask, plan: EdgePlan, damping: float, group=None):
+    """(J^T J + damping I) x over the free vertices, x unchanged on the
+    fixed ones."""
+    N, E = x.shape[0], J.shape[0] // 2
+    vm = vertex_mask[:, None]
+    xm = x * vm
+    v = bmv(J, xm[plan.ends])                        # J_a xm[a]; J_b xm[b]
+    y = v.view(2, E, 6).sum(0)                       # [E,6] = J_e @ x
+    w = _bmtv(J, y.repeat(2, 1))                     # J_a^T y; J_b^T y
+    both = _seg_sum(w, None, 2 * N, plan.seg)
+    out = all_reduce(both.view(2, N, 6).sum(0), group) + damping * xm
+    return out * vm + x * (1.0 - vm)
+
+
+def _apply_step(poses, delta, vertex_mask):
+    return se3.normalize_pose(poses @ se3.se3_exp(delta * vertex_mask[:, None]))
+
+
+def gn_step(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: Optional[EdgePlan] = None,
+            group=None):
+    """One damped Gauss-Newton iteration over the whole graph. Returns the
+    updated problem and the cost before the step (a 0-d tensor). `plan` is
+    edge_plan(prob), computed here when not given. With `group`, prob's
+    edges are this rank's shard (JAX's `axis_name`)."""
+    plan = plan if plan is not None else edge_plan(prob)
+    J, b, M_inv, cost = _normal_equations(prob, cfg, plan, group)
 
     def matvec(x):
-        xm = x * vm
-        v = bmv(J, xm[plan.ends])                        # J_a xm[a]; J_b xm[b]
-        y = v.view(2, E, 6).sum(0)                       # [E,6] = J_e @ x
-        w = _bmtv(J, y.repeat(2, 1))                     # J_a^T y; J_b^T y
-        both = _seg_sum(w, None, 2 * N, plan.seg)
-        out = all_reduce(both.view(2, N, 6).sum(0), group) + cfg.damping * xm
-        return out * vm + x * fixed
+        return _matvec(x, J, prob.vertex_mask, plan, cfg.damping, group)
 
-    delta = pcg(matvec, b, M_inv, cfg.cg_iterations, cfg.cg_tol) * vm
-    poses_new = se3.normalize_pose(prob.poses @ se3.se3_exp(delta))
-    return prob._replace(poses=poses_new), all_reduce(cost, group)
+    delta = pcg(matvec, b, M_inv, cfg.cg_iterations, cfg.cg_tol)
+    return (prob._replace(poses=_apply_step(prob.poses, delta, prob.vertex_mask)),
+            all_reduce(cost, group))
 
 
 @full_f32
 def pg_solve(prob: PoseGraphProblem, cfg: PoseGraphConfig, group=None):
     """All `cfg.iterations` Gauss-Newton iterations (the reference runs a
     fixed 10 g2o iterations with no convergence exit, ref
-    pose_graph_optimizer.cpp:68-69), launched with no host sync; TF32 is off
-    for its products.
+    pose_graph_optimizer.cpp:68-69) as a stream of eager launches with no
+    host sync; TF32 is off for its products. This is the plain version of
+    `pg_solve_program`, which the optimizer runs, and the solve of the
+    distributed pose graph (`group` given; gloo cannot be captured).
 
     Returns (final problem, cost_initial, cost_final), the costs as 0-d
     tensors: the cost before the first and before the last step. `group`
@@ -221,6 +256,83 @@ def pg_solve(prob: PoseGraphProblem, cfg: PoseGraphConfig, group=None):
         prob, c = gn_step(prob, cfg, plan, group)
         costs.append(c)
     return prob, costs[0], costs[-1]
+
+
+class GNProgram(programs.Program):
+    """`pg_solve` as a captured program for one graph size: the problem,
+    its edge plan, the step's J and preconditioner and the PCG state in
+    static tensors, and three bodies: `assemble` (the normal equations and
+    PCG's start), `cg` (one PCG iteration) and `update` (the step applied
+    to the poses). A solve replays them as iterations x (1 + cg_iterations
+    + 1)."""
+
+    def __init__(self, prob: PoseGraphProblem, cfg: PoseGraphConfig):
+        super().__init__(prob.poses.device)
+        self.cfg = cfg
+        N, E = prob.poses.shape[0], prob.edge_a.shape[0]
+        dt, dev = prob.poses.dtype, prob.poses.device
+        self.prob = PoseGraphProblem(*(torch.empty_like(t) for t in prob))
+        self.plan = EdgePlan(torch.empty(2 * E, dtype=torch.int64, device=dev),
+                             Segments(torch.empty(2 * E, dtype=torch.int64, device=dev),
+                                      torch.empty(2 * N + 1, dtype=torch.int64, device=dev)))
+        self.J = torch.empty((2 * E, 6, 6), dtype=dt, device=dev)
+        self.M_inv = torch.empty((N, 6, 6), dtype=dt, device=dev)
+        self.cost = torch.empty((), dtype=dt, device=dev)
+        self.cost0 = torch.empty((), dtype=dt, device=dev)
+        vec = (N, 6)
+        self.state = CGState(*(torch.empty(vec, dtype=dt, device=dev) for _ in range(3)),
+                             torch.empty((), dtype=dt, device=dev),
+                             torch.empty((), dtype=dt, device=dev),
+                             torch.empty((), dtype=torch.bool, device=dev))
+
+    @staticmethod
+    def key(prob: PoseGraphProblem, cfg: PoseGraphConfig):
+        return (GNProgram, programs.tensor_key(*prob), cfg)
+
+    def load(self, prob: PoseGraphProblem):
+        programs.copy_into(self.prob, prob)
+        programs.copy_into(self.plan, edge_plan(prob))
+
+    def assemble(self):
+        J, b, M_inv, cost = _normal_equations(self.prob, self.cfg, self.plan)
+        self.J.copy_(J)
+        self.M_inv.copy_(M_inv)
+        self.cost.copy_(cost)
+        pcg_start(b, M_inv, self.cfg.cg_tol, out=self.state)
+
+    def cg(self):
+        pcg_iteration(self.state, self._matvec, self.M_inv)
+
+    def _matvec(self, x):
+        return _matvec(x, self.J, self.prob.vertex_mask, self.plan, self.cfg.damping)
+
+    def update(self):
+        self.prob.poses.copy_(_apply_step(self.prob.poses, self.state.x, self.prob.vertex_mask))
+
+    def solve(self):
+        for it in range(self.cfg.iterations):
+            self.run("assemble", self.assemble)
+            if it == 0:
+                self.cost0.copy_(self.cost)
+            for _ in range(self.cfg.cg_iterations):
+                self.run("cg", self.cg)
+            self.run("update", self.update)
+
+
+@full_f32
+def pg_solve_program(prob: PoseGraphProblem, cfg: PoseGraphConfig,
+                     cache: Optional[programs.ProgramCache] = None):
+    """`pg_solve` (no group) through its captured program: on the card the
+    three bodies are captured once per graph size, at the graph's own size
+    (padding to JAX's buckets would change the reduction trees and so the
+    bits), and a solve is iterations x (cg_iterations + 2) graph replays;
+    on the CPU the bodies run as they are. Equal to `pg_solve` bit for
+    bit. Returns what `pg_solve` returns, as new tensors."""
+    cache = programs.PROGRAMS if cache is None else cache
+    prog = cache.get(GNProgram.key(prob, cfg), lambda: GNProgram(prob, cfg))
+    prog.load(prob)
+    prog.solve()
+    return prob._replace(poses=prog.prob.poses.clone()), prog.cost0.clone(), prog.cost.clone()
 
 
 class PoseGraphOptimizer:
@@ -338,10 +450,11 @@ class PoseGraphOptimizer:
         )
         t_match = time.perf_counter() - t_match
 
-        # All GN iterations launched at once; one readback.
+        # All GN iterations launched at once (the captured program on the
+        # card); one readback.
         t_solve = time.perf_counter()
         self.last_problem = prob
-        prob, c0, c_last = pg_solve(prob, self.cfg)
+        prob, c0, c_last = pg_solve_program(prob, self.cfg)
         costs = torch.stack([c0, c_last]).cpu().numpy()
         cost0, cost = float(costs[0]), float(costs[1])
         new_poses = prob.poses.cpu().numpy()

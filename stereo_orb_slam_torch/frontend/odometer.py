@@ -23,6 +23,18 @@ The minimal-set sampler of frame i is `sampler_for_frame(i)`, by default a
 Gumbel sampler on a generator seeded from (seed, i), so `track_batch` and K
 `track` calls see the same draws.
 
+On a rectified rig the entry points run the captured front end
+(`ChainProgram`, utils/programs.py), the counterpart of the JAX
+package's `frontend_step_fused` and `frontend_chain` (one device program
+for a step, a `lax.scan` for K): `batched_frontend_step` with the
+record/swap state machine is captured once per shape as a CUDA graph, a
+`track` is one replay, a K-frame batch K replays and the BoW scoring one
+more. The eager functions (`frontend_step`, `frontend_chain`,
+`frontend_chain_bow`) are its plain versions, held to it bit for bit,
+and the general rig's path: its batched DLT SVD syncs the host, which a
+capture forbids. Each frame's RANSAC keys are drawn outside the graph
+(`ransac.KeyedSampler`).
+
 The live loop (apps/slam.py) runs K-frame batches as a two-deep pipeline:
 `dispatch_batch` launches a batch's chain (with the BoW scoring and the
 feature-bank rings of `frontend_chain_bow` once a vocabulary exists) while
@@ -34,6 +46,7 @@ frame's slots (descriptors included) are the device carry, so a switch to
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -44,6 +57,7 @@ from stereo_orb_slam_torch.frontend import ransac
 from stereo_orb_slam_torch.geometry import camera as cam_mod
 from stereo_orb_slam_torch.loop.vocab import batch_score_update
 from stereo_orb_slam_torch.ops import detect, match, orb
+from stereo_orb_slam_torch.utils import programs
 from stereo_orb_slam_torch.worldmap import WorldMap
 
 
@@ -279,6 +293,16 @@ def frontend_chain_bow(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, sampl
     [K, q], new_database, new_db_size (0-d), banks)."""
     carry, res = frontend_chain(imgs_l, imgs_r, prev, prev_initialized, samplers, rig,
                                 max_distance, fe, rc, rectified, steer)
+    top_ids, top_scores, new_db, new_db_size = _score_and_bank(
+        res, fe, centroids, idf, database, db_size, query_size, banks)
+    return carry, res, top_ids, top_scores, new_db, new_db_size, banks
+
+
+def _score_and_bank(res: StepResult, fe: FrontendConfig, centroids, idf, database, db_size,
+                    query_size: int, banks):
+    """The K stacked frames' BoW scoring and database append, and their
+    bank rows written into the rings `banks` in place. Returns (top_ids,
+    top_scores, new_database, new_db_size)."""
     recorded = res.num_stereo >= fe.min_stereo_matches
     top_ids, top_scores, new_db = batch_score_update(
         res.slots.desc, res.slots.valid, recorded, centroids, idf, database, db_size,
@@ -290,7 +314,220 @@ def frontend_chain_bow(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, sampl
     uv4 = torch.cat([res.slots.kp_l, res.slots.kp_r], dim=-1)
     for ring, vals in zip(banks, (res.slots.desc, res.slots.valid, uv4)):
         ring[safe_rows] = vals
-    return carry, res, top_ids, top_scores, new_db, new_db_size, banks
+    return top_ids, top_scores, new_db, new_db_size
+
+
+def _empty_results(lead: tuple, n: int, device) -> StepResult:
+    """A StepResult of empty tensors with leading dims `lead`."""
+    def e(shape, dtype):
+        return torch.empty(lead + shape, dtype=dtype, device=device)
+
+    f32, i64 = torch.float32, torch.int64
+    return StepResult(
+        slots=FrameSlots(e((n, 2), f32), e((n, 2), f32), e((n, 8), torch.int32),
+                         e((n, 3), f32), e((n,), torch.bool)),
+        transform=e((4, 4), f32), prev_idx=e((n,), torch.int32), tracked=e((n,), torch.bool),
+        ransac_success=e((), torch.bool), num_stereo=e((), i64), num_temporal=e((), i64),
+        num_inliers=e((), i64))
+
+
+def _leaves(res: StepResult):
+    return list(res.slots) + list(res[1:])
+
+
+def _select(res, index):
+    """A StepResult or FrameSlots with `index` applied to every field's
+    leading dims."""
+    if isinstance(res, FrameSlots):
+        return FrameSlots(*(x[index] for x in res))
+    return StepResult(_select(res.slots, index), *(x[index] for x in res[1:]))
+
+
+class ChainProgram(programs.Program):
+    """The rectified front end as a captured program: `batched_frontend_step`
+    together with `frontend_chain`'s record/swap state machine for S
+    sequences, with the carry (prev slots, initialized) in static tensors
+    and each step's result written into row j of a static [K, S, ...]
+    stack; plus, with `bow`, the K frames' BoW scoring, database append and
+    bank writes as a second body. `frontend_chain` is K replays of `step`
+    (the counterpart of the JAX package's `lax.scan`), `frontend_step` and
+    `track` one, a multi-sequence step one at S sequences.
+
+    Each frame's RANSAC randomness is drawn outside the graph: every
+    sampler is a `ransac.KeyedSampler`, whose [K_hyp, N] Gumbel keys go
+    into a static tensor that `step` selects from. The rig, the sampling
+    table and, with `bow`, the vocabulary and the bank rings are read in
+    place (the program keeps them and is keyed by their identity); images,
+    keys, the carry, max_distance and the database are copied in."""
+
+    def __init__(self, S: int, K: int, imgs, max_distance, rig: cam_mod.StereoRig, steer,
+                 fe: FrontendConfig, rc: RansacConfig, bow=None):
+        super().__init__(rig.device)
+        dev, n = rig.device, fe.num_features
+        self.rig, self.steer, self.fe, self.rc = rig, steer, fe, rc
+        self.imgs_l = torch.empty((S,) + tuple(imgs.shape[-2:]), dtype=imgs.dtype, device=dev)
+        self.imgs_r = torch.empty_like(self.imgs_l)
+        self.keys = torch.empty((S, rc.num_hypotheses, n), dtype=torch.float32, device=dev)
+        self.max_distance = torch.empty(tuple(max_distance.shape), dtype=torch.float32,
+                                        device=dev)
+        self.j = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.prev = _empty_results((S,), n, dev).slots
+        self.initialized = torch.empty((S,), dtype=torch.bool, device=dev)
+        self.out = _empty_results((K, S), n, dev)
+        self.bow_args = None
+        if bow is not None:
+            centroids, idf, database, query_size, banks = bow[:5]
+            self.bow_args = (centroids, idf, query_size, banks)
+            self.database = torch.empty_like(database)
+            self.db_size = torch.empty((), dtype=torch.int64, device=dev)
+            self.top_ids = torch.empty((K, query_size), dtype=torch.int32, device=dev)
+            self.top_scores = torch.empty((K, query_size), dtype=torch.float32, device=dev)
+
+    @staticmethod
+    def key(S, K, imgs, max_distance, rig, steer, fe, rc, bow=None):
+        bow_key = None
+        if bow is not None:
+            centroids, idf, database, query_size, banks = bow[:5]
+            bow_key = (id(centroids), id(idf), programs.tensor_key(database), query_size,
+                       tuple(id(b) for b in banks), programs.tensor_key(*banks))
+        return (ChainProgram, S, K, programs.tensor_key(imgs[0, 0]),
+                tuple(max_distance.shape), id(rig), id(steer), fe, rc, bow_key)
+
+    def step(self):
+        S = self.imgs_l.shape[0]
+        samplers = [functools.partial(ransac.sets_from_keys, self.keys[s]) for s in range(S)]
+        res = batched_frontend_step(self.imgs_l, self.imgs_r, self.prev, self.initialized,
+                                    samplers, self.rig, self.max_distance, self.fe, self.rc,
+                                    True, self.steer)
+        record = res.num_stereo >= self.fe.min_stereo_matches
+        swap = record & (~self.initialized | res.ransac_success)
+        new_prev = FrameSlots(*(torch.where(swap.reshape((S,) + (1,) * (new.dim() - 1)),
+                                            new, old)
+                                for new, old in zip(res.slots, self.prev)))
+        for dst, src in zip(_leaves(self.out), _leaves(res)):
+            dst.index_copy_(0, self.j, src[None])
+        programs.copy_into(self.prev, new_prev)
+        # Any frame, recorded or not, marks the odometer initialized.
+        self.initialized.fill_(True)
+
+    def bow(self):
+        centroids, idf, query_size, banks = self.bow_args
+        top_ids, top_scores, new_db, new_db_size = _score_and_bank(
+            _select(self.out, (slice(None), 0)), self.fe, centroids, idf, self.database,
+            self.db_size, query_size, banks)
+        self.top_ids.copy_(top_ids)
+        self.top_scores.copy_(top_scores)
+        self.database.copy_(new_db)
+        self.db_size.copy_(new_db_size)
+
+    def chain(self, imgs_l, imgs_r, prev: FrameSlots, initialized, samplers, max_distance):
+        """K steps: imgs [K, S, H, W], prev with a leading S axis,
+        initialized a bool or an [S] (or 0-d) bool tensor, samplers K lists
+        of S KeyedSamplers."""
+        n = self.fe.num_features
+        programs.copy_into(self.prev, prev)
+        if isinstance(initialized, torch.Tensor):
+            self.initialized.copy_(initialized)
+        else:
+            self.initialized.fill_(bool(initialized))
+        self.max_distance.copy_(max_distance)
+        for j, frame_samplers in enumerate(samplers):
+            self.imgs_l.copy_(imgs_l[j])
+            self.imgs_r.copy_(imgs_r[j])
+            for s, smp in enumerate(frame_samplers):
+                if not isinstance(smp, ransac.KeyedSampler):
+                    raise TypeError("the captured front end draws its RANSAC keys apart from "
+                                    f"the step: a ransac.KeyedSampler is needed, not {smp!r}")
+                self.keys[s].copy_(smp.keys(n, self.device))
+            self.j.fill_(j)
+            self.run("step", self.step)
+
+    def scores(self, database, db_size):
+        self.database.copy_(database)
+        if isinstance(db_size, torch.Tensor):
+            self.db_size.copy_(db_size)
+        else:
+            self.db_size.fill_(int(db_size))
+        self.run("bow", self.bow)
+
+
+def _chain_program(imgs_l, imgs_r, prev: FrameSlots, initialized, samplers, rig, max_distance,
+                   fe: FrontendConfig, rc: RansacConfig, steer, bow=None,
+                   cache: Optional[programs.ProgramCache] = None) -> ChainProgram:
+    """Run K steps of S sequences (imgs [K, S, H, W], samplers K lists of
+    S) through the cache's ChainProgram; returns the program."""
+    if not rig.rectified:
+        raise ValueError("the captured front end runs the rectified rig only (the general "
+                         "rig's batched SVD syncs the host)")
+    if steer is None:
+        steer = orb.steer_table(fe.oriented, rig.device)
+    max_distance = torch.as_tensor(max_distance, dtype=torch.float32, device=rig.device)
+    K, S = imgs_l.shape[0], imgs_l.shape[1]
+    cache = programs.PROGRAMS if cache is None else cache
+    key = ChainProgram.key(S, K, imgs_l, max_distance, rig, steer, fe, rc, bow)
+    prog = cache.get(key, lambda: ChainProgram(S, K, imgs_l, max_distance, rig, steer, fe, rc,
+                                               bow))
+    prog.chain(imgs_l, imgs_r, prev, initialized, samplers, max_distance)
+    if bow is not None:
+        prog.scores(bow[2], bow[5])
+    return prog
+
+
+def frontend_step_program(img_l, img_r, prev: FrameSlots, prev_usable, sampler,
+                          rig: cam_mod.StereoRig, max_distance, fe: FrontendConfig,
+                          rc: RansacConfig, steer=None,
+                          cache: Optional[programs.ProgramCache] = None) -> StepResult:
+    """`frontend_step` on a rectified rig through the captured program (one
+    replay on the card). Equal to `frontend_step` bit for bit; returns new
+    tensors."""
+    prog = _chain_program(img_l[None, None], img_r[None, None], _select(prev, None),
+                          prev_usable, [[sampler]], rig, max_distance, fe, rc, steer,
+                          cache=cache)
+    return programs.clone(_select(prog.out, (0, 0)))
+
+
+def batched_frontend_step_program(imgs_l, imgs_r, prev: FrameSlots, prev_usable, samplers,
+                                  rig: cam_mod.StereoRig, max_distance, fe: FrontendConfig,
+                                  rc: RansacConfig, steer=None,
+                                  cache: Optional[programs.ProgramCache] = None) -> StepResult:
+    """`batched_frontend_step` of S sequences on a rectified (shared or
+    stacked) rig through the captured program (one replay on the card).
+    Equal to it bit for bit; returns new tensors."""
+    prog = _chain_program(imgs_l[None], imgs_r[None], prev, prev_usable, [list(samplers)], rig,
+                          max_distance, fe, rc, steer, cache=cache)
+    return programs.clone(_select(prog.out, 0))
+
+
+def frontend_chain_program(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, samplers,
+                           rig, max_distance, fe: FrontendConfig, rc: RansacConfig, steer=None,
+                           cache: Optional[programs.ProgramCache] = None):
+    """`frontend_chain` on a rectified rig through the captured program: K
+    replays of the step on the card. Equal to `frontend_chain` bit for bit
+    and returns what it returns, as new tensors."""
+    prog = _chain_program(imgs_l[:, None], imgs_r[:, None], _select(prev, None),
+                          prev_initialized, [[smp] for smp in samplers], rig, max_distance,
+                          fe, rc, steer, cache=cache)
+    carry = (programs.clone(_select(prog.prev, 0)), prog.initialized[0].clone())
+    return carry, programs.clone(_select(prog.out, (slice(None), 0)))
+
+
+def frontend_chain_bow_program(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, samplers,
+                               rig, max_distance, fe: FrontendConfig, rc: RansacConfig, steer,
+                               centroids, idf, database, db_size, query_size: int, banks,
+                               cache: Optional[programs.ProgramCache] = None):
+    """`frontend_chain_bow` on a rectified rig through the captured program:
+    K replays of the step, then one of the scoring body, which writes the
+    rings `banks` in place as the eager function does. Equal to
+    `frontend_chain_bow` bit for bit and returns what it returns, the
+    database as a new tensor."""
+    prog = _chain_program(imgs_l[:, None], imgs_r[:, None], _select(prev, None),
+                          prev_initialized, [[smp] for smp in samplers], rig, max_distance,
+                          fe, rc, steer,
+                          bow=(centroids, idf, database, query_size, banks, db_size),
+                          cache=cache)
+    carry = (programs.clone(_select(prog.prev, 0)), prog.initialized[0].clone())
+    return (carry, programs.clone(_select(prog.out, (slice(None), 0))), prog.top_ids.clone(),
+            prog.top_scores.clone(), prog.database.clone(), prog.db_size.clone(), banks)
 
 
 def _to_host(res: StepResult, with_desc: bool = True) -> StepResult:
@@ -392,12 +629,18 @@ class VisualOdometer:
         returns the 4x4 relative transform."""
         sampler = self.sampler_for_frame(self._frame_counter)
         self._frame_counter += 1
-        res = frontend_step(
-            self._upload(img_l), self._upload(img_r), self.prev,
-            torch.tensor(self.initialized, device=self.device), sampler,
-            self.rig, self.max_distance, self.fe, self.rc, self.rectified,
-            self.steer,
-        )
+        if self.rectified:
+            res = frontend_step_program(
+                self._upload(img_l), self._upload(img_r), self.prev, self.initialized,
+                sampler, self.rig, self.max_distance, self.fe, self.rc, self.steer)
+        else:
+            # The general rig stays eager: its batched SVD syncs the host.
+            res = frontend_step(
+                self._upload(img_l), self._upload(img_r), self.prev,
+                torch.tensor(self.initialized, device=self.device), sampler,
+                self.rig, self.max_distance, self.fe, self.rc, self.rectified,
+                self.steer,
+            )
         self._carry_dev = None  # the host mirrors are now ahead of the device
         return self._ingest(res)
 
@@ -423,21 +666,28 @@ class VisualOdometer:
         samplers = [self.sampler_for_frame(self._frame_counter + j) for j in range(k)]
         self._frame_counter += k
         if self._carry_dev is None:
-            self._carry_dev = (self.prev, torch.tensor(self.initialized, device=self.device))
+            self._carry_dev = (self.prev, self.initialized)
         args = (self._upload(imgs_l), self._upload(imgs_r), self._carry_dev[0],
-                self._carry_dev[1], samplers, self.rig, self.max_distance, self.fe,
-                self.rc, self.rectified, self.steer)
+                self._carry_dev[1], samplers, self.rig, self.max_distance, self.fe, self.rc)
+        # The captured programs on the rectified rig; the general rig's
+        # chain stays eager (its batched SVD syncs the host).
         handle = {"k": k, "bow": None, "banks": None}
         if bow is None:
-            carry, stacked = frontend_chain(*args)
+            if self.rectified:
+                carry, stacked = frontend_chain_program(*args, self.steer)
+            else:
+                carry, stacked = frontend_chain(*args, self.rectified, self.steer)
         else:
             centroids, idf, database, db_size, query_size = bow
             if banks is None:
                 banks = empty_banks(database.shape[0], self.fe.num_features, self.device)
             db_size = torch.as_tensor(db_size, dtype=torch.int64, device=self.device)
-            carry, stacked, top_ids, top_scores, new_db, new_db_size, banks = (
-                frontend_chain_bow(*args, centroids, idf, database, db_size, query_size,
-                                   banks))
+            bow_args = (centroids, idf, database, db_size, query_size, banks)
+            if self.rectified:
+                out = frontend_chain_bow_program(*args, self.steer, *bow_args)
+            else:
+                out = frontend_chain_bow(*args, self.rectified, self.steer, *bow_args)
+            carry, stacked, top_ids, top_scores, new_db, new_db_size, banks = out
             handle["bow"] = (new_db, new_db_size, query_size)
             handle["banks"] = banks
             handle["topk"] = (top_ids, top_scores)

@@ -8,7 +8,8 @@ X_prev = T @ X_curr, a per-pair inlier mask and per-pair losses.
 All K hypotheses run at once as a batch dimension:
   1. K minimal sets of 3 pair indices come from a sampler, a callable
      valid -> [K, 3]; `gumbel_sampler` draws Gumbel top-3 from an explicit
-     torch.Generator (tests inject the JAX package's sets instead),
+     torch.Generator, as a `KeyedSampler` whose keys can be drawn apart
+     from the selection (tests inject the JAX package's keys instead),
   2. Horn's quaternion alignment of each set ([K,4,4] by batched matmuls),
   3. every hypothesis scored against every pair by the max-abs stereo
      reprojection error,
@@ -105,18 +106,46 @@ def _stereo_residuals(T, pts_curr, obs_prev, P_l, P_r):
     return pred - obs_prev[:, None]
 
 
-def gumbel_sampler(generator: torch.Generator, num_hypotheses: int) -> Sampler:
+def sets_from_keys(keys, valid):
+    """[K, 3] distinct indices of the valid slots with the largest Gumbel
+    keys [K, N] (`lax.top_k`'s order: ties, such as the -inf of invalid
+    slots, to the lower index)."""
+    g = torch.where(valid[None, :], keys, -torch.inf)
+    return torch.sort(g, dim=1, descending=True, stable=True).indices[:, :3]
+
+
+class KeyedSampler:
+    """A sampler whose randomness is a [K, N] array of Gumbel keys drawn
+    apart from the slots: `keys(n, device)` draws them, and calling it on
+    `valid` takes the top 3 of each row (`sets_from_keys`). A captured
+    front-end step draws each frame's keys outside its graph into a static
+    tensor and selects inside it, so its sets equal the eager call's bit
+    for bit. `draw(n, device)` returns the keys; tests inject the JAX
+    package's (`jax.random.gumbel` of the frame's key) this way."""
+
+    def __init__(self, draw: Callable[[int, torch.device], torch.Tensor]):
+        self.draw = draw
+
+    def keys(self, n: int, device) -> torch.Tensor:
+        return self.draw(n, torch.device(device))
+
+    def __call__(self, valid):
+        return sets_from_keys(self.keys(valid.shape[0], valid.device).to(valid.device), valid)
+
+
+def gumbel_keys(generator: torch.Generator, num_hypotheses: int, n: int, device):
+    """[K, n] standard Gumbel keys from `generator` (which lives on
+    `device`): -log(-log(u)) of uniforms clamped away from 0."""
+    u = torch.rand((num_hypotheses, n), generator=generator, device=device)
+    u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_sampler(generator: torch.Generator, num_hypotheses: int) -> KeyedSampler:
     """A sampler drawing [K, 3] distinct indices from the valid slots by
     Gumbel top-3 with `generator` (which lives on the slots' device). Ties,
     such as the -inf of invalid slots, go to the lower index."""
-    def sample(valid):
-        u = torch.rand((num_hypotheses, valid.shape[0]), generator=generator,
-                       device=valid.device)
-        u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
-        g = -torch.log(-torch.log(u))
-        g = torch.where(valid[None, :], g, -torch.inf)
-        return torch.sort(g, dim=1, descending=True, stable=True).indices[:, :3]
-    return sample
+    return KeyedSampler(lambda n, device: gumbel_keys(generator, num_hypotheses, n, device))
 
 
 def solve(

@@ -15,7 +15,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from stereo_orb_slam_torch.backend.pose_graph import PoseGraphProblem, gn_step, pg_solve
+from stereo_orb_slam_torch.backend.pose_graph import (
+    PoseGraphProblem, gn_step, pg_solve, pg_solve_program,
+)
 from stereo_orb_slam_torch.config import PoseGraphConfig
 from stereo_orb_slam_torch.parallel.mesh import Mesh
 
@@ -45,7 +47,12 @@ def sharded_pg_solve(mesh: Mesh, cfg: PoseGraphConfig):
     """fn(prob) -> (prob', cost0, cost_final): all GN iterations
     (backend.pose_graph.pg_solve) with prob's edges split over the mesh."""
     def run(prob):
-        new, c0, c1 = pg_solve(_shard(mesh, prob), cfg, group=mesh.group)
+        if mesh.group is None:
+            # One process: the captured program, as PoseGraphOptimizer runs it.
+            new, c0, c1 = pg_solve_program(_shard(mesh, prob), cfg)
+        else:
+            # Eager: a gloo all_reduce cannot be captured in a CUDA graph.
+            new, c0, c1 = pg_solve(_shard(mesh, prob), cfg, group=mesh.group)
         return prob._replace(poses=new.poses), c0, c1
     return run
 

@@ -5,7 +5,10 @@ vmaps `frontend_step` over a leading sequence axis. Here the sequence axis
 is a real tensor axis through the whole front end
 (`frontend.odometer.batched_frontend_step`): one step of S sequences
 launches `hamming_top2` once and `orb_describe` twice (all left images,
-all right images), whatever S is. Host map bookkeeping stays per sequence
+all right images), whatever S is. On a rectified rig the step runs as the
+front end's captured program (`odometer.batched_frontend_step_program`,
+one graph replay on the card), as the JAX package runs one vmapped
+program. Host map bookkeeping stays per sequence
 (a `VisualOdometer` and a `WorldMap` each); one device-to-host copy
 brings back every sequence's results.
 
@@ -110,8 +113,15 @@ class MultiSequenceSLAM:
             il = torch.as_tensor(imgs_l[lo:hi]).to(self.device)
             ir = torch.as_tensor(imgs_r[lo:hi]).to(self.device)
             usable = torch.as_tensor(self.initialized, device=self.device)
-            res = self.step(il, ir, self.prev, usable, samplers, self.rig_batch, self.max_d,
-                            self.steer)
+            if self.rig_batch.rectified:
+                # The captured step program: one replay for all S sequences.
+                res = odometer.batched_frontend_step_program(
+                    il, ir, self.prev, usable, samplers, self.rig_batch, self.max_d, self.fe,
+                    self.rc, self.steer)
+            else:
+                # The general rig stays eager: its batched SVD syncs the host.
+                res = self.step(il, ir, self.prev, usable, samplers, self.rig_batch,
+                                self.max_d, self.steer)
             host = odometer._to_host(res)   # one readback for the rank's sequences
             for k, vo in enumerate(self.vos):
                 out[lo + k] = vo._ingest(_sequence(res, k), _sequence(host, k))

@@ -40,7 +40,8 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
                  "loop", "loop.vocab", "loop.detector", "backend.pose_graph",
                  "apps.slam", "apps.train_vocab", "utils.viz", "utils.profiling",
                  "parallel", "parallel.mesh", "parallel.multihost", "parallel.multi_seq",
-                 "parallel.dist_ba", "parallel.dist_pose_graph", "apps.scaling_bench"):
+                 "parallel.dist_ba", "parallel.dist_pose_graph", "apps.scaling_bench",
+                 "utils.programs"):
         assert "stereo_orb_slam_torch." + name in report["modules"]
 
 

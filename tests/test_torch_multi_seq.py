@@ -19,7 +19,6 @@ the batched front end) against the JAX package's and against itself.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -31,10 +30,10 @@ from synth import PlaneScene  # noqa: E402
 from test_torch_dist_ba import rig_np  # noqa: E402
 
 from stereo_orb_slam_tpu.config import FrontendConfig as JFE, RansacConfig as JRC  # noqa: E402
-from stereo_orb_slam_tpu.frontend import ransac as jransac  # noqa: E402
 from stereo_orb_slam_tpu.parallel.multi_seq import MultiSequenceSLAM as JMulti  # noqa: E402
 from stereo_orb_slam_torch import convert  # noqa: E402
 from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig  # noqa: E402
+from stereo_orb_slam_torch.frontend import ransac as pransac  # noqa: E402
 from stereo_orb_slam_torch.frontend.odometer import VisualOdometer  # noqa: E402
 from stereo_orb_slam_torch.ops import orb  # noqa: E402
 from stereo_orb_slam_torch.ops.kernels import describe, hamming, patches  # noqa: E402
@@ -57,12 +56,11 @@ def sequences():
 
 
 def _jax_sampler(s, frame):
+    # `_sample_minimal_sets` draws jax.random.gumbel(key, (K, N)); the port
+    # takes the same top 3 (ties as lax.top_k breaks them).
     key = jax.random.fold_in(jax.random.key(SEED + s), frame)
-
-    def sample(valid):
-        sets = jransac._sample_minimal_sets(key, jnp.asarray(valid.cpu().numpy()), K_HYP)
-        return torch.from_numpy(np.array(sets))
-    return sample
+    return pransac.KeyedSampler(lambda n, device: torch.from_numpy(
+        np.array(jax.random.gumbel(key, (K_HYP, n)))).to(device))
 
 
 def _port_rigs(scenes):

@@ -23,13 +23,13 @@ torch = pytest.importorskip("torch")
 from synth import PlaneScene  # noqa: E402
 
 from stereo_orb_slam_tpu.config import FrontendConfig as RFE, RansacConfig as RRC  # noqa: E402
-from stereo_orb_slam_tpu.frontend import odometer as rodo, ransac as rransac  # noqa: E402
+from stereo_orb_slam_tpu.frontend import odometer as rodo  # noqa: E402
 from stereo_orb_slam_tpu.frontend.odometer import VisualOdometer as RVO  # noqa: E402
 from stereo_orb_slam_tpu.ops import orb as rorb  # noqa: E402
 from stereo_orb_slam_tpu.worldmap import WorldMap as RWorld  # noqa: E402
 from stereo_orb_slam_torch import convert  # noqa: E402
 from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig  # noqa: E402
-from stereo_orb_slam_torch.frontend import odometer as podo  # noqa: E402
+from stereo_orb_slam_torch.frontend import odometer as podo, ransac as pransac  # noqa: E402
 from stereo_orb_slam_torch.frontend.odometer import VisualOdometer  # noqa: E402
 from stereo_orb_slam_torch.worldmap import WorldMap  # noqa: E402
 
@@ -46,11 +46,12 @@ def sequence():
 
 
 def _keyed_sampler(key):
-    """The port's sampler drawing the reference's minimal sets for `key`."""
-    def sample(valid):
-        sets = rransac._sample_minimal_sets(key, jnp.asarray(valid.cpu().numpy()), K_HYP)
-        return torch.from_numpy(np.array(sets))
-    return sample
+    """The port's sampler drawing the reference's minimal sets for `key`:
+    the JAX package's Gumbel keys (`_sample_minimal_sets` draws
+    `jax.random.gumbel(key, (K, N))`), with the port's top-3, which breaks
+    ties as `lax.top_k` does; the captured front end reads the keys."""
+    return pransac.KeyedSampler(lambda n, device: torch.from_numpy(
+        np.array(jax.random.gumbel(key, (K_HYP, n)))).to(device))
 
 
 def _reference_sampler(frame):

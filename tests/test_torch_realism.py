@@ -51,10 +51,10 @@ from synth_canyon import (  # noqa: E402
 )
 
 from stereo_orb_slam_tpu.config import FrontendConfig as JFE, RansacConfig as JRC  # noqa: E402
-from stereo_orb_slam_tpu.frontend import ransac as jransac  # noqa: E402
 from stereo_orb_slam_tpu.frontend.odometer import VisualOdometer as JVO  # noqa: E402
 from stereo_orb_slam_tpu.worldmap import WorldMap as JWorld  # noqa: E402
 from stereo_orb_slam_torch.config import FrontendConfig, LoopConfig, RansacConfig  # noqa: E402
+from stereo_orb_slam_torch.frontend import ransac as pransac  # noqa: E402
 from stereo_orb_slam_torch.frontend.odometer import VisualOdometer  # noqa: E402
 from stereo_orb_slam_torch.utils import evaluate  # noqa: E402
 from stereo_orb_slam_torch.worldmap import WorldMap  # noqa: E402
@@ -71,9 +71,11 @@ def jax_sampler_for_frame(seed, num_hypotheses):
     base = jax.random.key(seed)
 
     def sampler_for(i):
+        # `_sample_minimal_sets` draws jax.random.gumbel(key, (K, N)); the
+        # port takes the same top 3 (ties as lax.top_k breaks them).
         key = jax.random.fold_in(base, i)
-        return lambda valid: torch.from_numpy(np.array(jransac._sample_minimal_sets(
-            key, jnp.asarray(valid.cpu().numpy()), num_hypotheses)))
+        return pransac.KeyedSampler(lambda n, device: torch.from_numpy(
+            np.array(jax.random.gumbel(key, (num_hypotheses, n)))).to(device))
     return sampler_for
 
 

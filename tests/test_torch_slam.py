@@ -44,9 +44,9 @@ from stereo_orb_slam_tpu.config import (  # noqa: E402
     BAConfig as JBA, FrontendConfig as JFE, LoopConfig as JLoop, RansacConfig as JRC,
     SlamConfig as JSlam,
 )
-from stereo_orb_slam_tpu.frontend import ransac as jransac  # noqa: E402
 from stereo_orb_slam_torch import convert  # noqa: E402
 from stereo_orb_slam_torch.apps import slam as tslam  # noqa: E402
+from stereo_orb_slam_torch.frontend import ransac as pransac  # noqa: E402
 
 torch.set_num_threads(1)
 K_HYP = 64
@@ -57,12 +57,11 @@ def keyed_sampler(seed):
     base = jax.random.key(seed)
 
     def sampler_for(i):
+        # `_sample_minimal_sets` draws jax.random.gumbel(key, (K, N)); the
+        # port takes the same top 3 (ties as lax.top_k breaks them).
         key = jax.random.fold_in(base, i)
-
-        def sample(valid):
-            sets = jransac._sample_minimal_sets(key, jnp.asarray(valid.cpu().numpy()), K_HYP)
-            return torch.from_numpy(np.array(sets))
-        return sample
+        return pransac.KeyedSampler(lambda n, device: torch.from_numpy(
+            np.array(jax.random.gumbel(key, (K_HYP, n)))).to(device))
     return sampler_for
 
 
