@@ -23,7 +23,13 @@ Phases, each of which fails the run when it fails:
      chain and the chain the oriented path ran before (the cut kernel and
      the products); and on the unsmoothed noise, bits against the plain
      chain and angles within that float64 bound (the plain chain's distance
-     recorded beside);
+     recorded beside); the batched DLT (triangulate_dlt, a hand kernel with
+     no Pallas counterpart: a float64 Jacobi SVD in place of cuSOLVER's,
+     which syncs the host) at N = 1024 on EuRoC cam0's rig, points 1.5-5 m
+     and 45-100 m deep, a quarter of the slots zero: within DLT_PLAIN_ATOL
+     of its plain version (the near points), within DLT_F64_RTOL of a
+     float64 DLT relative to the depth, finite everywhere, timed beside
+     torch.linalg.svd, with its bound from the run's Jacobi sweeps;
      then the CUDA path against the CPU path on one full-size frame
      (corners and descriptors);
   4. the main path at full width: 60 synthetic KITTI-sized stereo frames
@@ -109,25 +115,29 @@ Phases, each of which fails the run when it fails:
      extension), of 20 SLAM frames and one pose-graph solve (_slam), of 20
      multi-sequence steps (_multi_seq) and of the distributed map solve
      at 1 NCCL rank (_dist);
-  11. the general rig (run after phase 5): EuRoC MAV's cam0 model (752 x
+  11. the general rig (run after phase 5; captured, as the rectified
+     rig, since the DLT became a kernel): EuRoC MAV's cam0 model (752 x
      480, fx = fy = 458.654, radial k1, k2; baseline 0.110 m,
      non-rectified) through a textured plane at 2.52 m (20 px of
      disparity), whole 8 px steps in undistorted coordinates, written as a
      EuRoC mav0 tree with the reference's camera file: 60 frames through
      `apps.visual_odometry.main --dataset EuRoc` (ATE < GENERAL_VO_ATE_M,
-     exactly UPRIGHT_PER_FRAME launches per frame, ms per frame beside
-     the rectified main path's); frame 1 on the card against the CPU
-     (GENERAL_* bounds, orb_describe's words and the temporal matches
-     included; the batched SVD's device time and syncs, and the
-     syncs of a distorted and a rectified VO frame); `apps.slam.main
+     exactly GENERAL_PER_FRAME launches per frame, one triangulate_dlt
+     among them, ms per frame beside the rectified main path's); frame 1
+     on the card against the CPU (GENERAL_* bounds, orb_describe's words
+     and the temporal matches included, no non-finite DLT point; the
+     cuSOLVER SVD's time and syncs for the record, and the syncs of a
+     distorted and a rectified VO frame, equal); `apps.slam.main
      --dataset EuRoc` at K = 1 over 119 frames out and back (ATE <
-     GENERAL_SLAM_ATE_M, a loop edge measured, exact launches);
+     GENERAL_SLAM_ATE_M, a loop edge measured, exact launches: one DLT
+     per frame and two per loop-edge batch);
      `MultiSequenceSLAM` over 2 distorted sequences of GENERAL_MULTI_STEPS
      steps with stacked rigs (each bit for bit its own VisualOdometer
      run, exact launches per step); then hamming_top2 and orb_describe at
-     this path's shapes (510 x 782 padded images) on its own inputs, held
-     against their plain versions and timed (records with path
-     "general");
+     this path's shapes (510 x 782 padded images) and triangulate_dlt on
+     frame 1's correspondences alone and stacked (S = 2, one projection
+     pair per problem) on its own inputs, held against their plain
+     versions and timed (records with path "general");
   12. the canyon (after phase 7): benchmarks/canyon_drive.py's production
      drive in the port, its tree written by tests/synth_canyon.py (a
      376 x 1241 CanyonScene: continuous multi-plane texture, sensor noise
@@ -150,16 +160,20 @@ Phases, each of which fails the run when it fails:
      plain versions and timed (records with path "canyon").
   13. the captured programs (stereo_orb_slam_torch/utils/programs.py,
      through which every phase above runs its pose-graph
-     solves, LM solves and rectified front-end steps): each held bit for
+     solves, LM solves and front-end steps on both rigs): each held bit for
      bit against its eager function on the card (pg_solve on phase 7's
      final graph; ba_solve on phase 6's last window and on the map
      problem; 60 VO frames of `track` against one eager frontend_chain;
      frontend_chain_program against frontend_chain at K = 4 and 32; the
-     multi-sequence step at S = 3 over 20 steps), with wall ms, kernels,
+     multi-sequence step at S = 3 over 20 steps; on the general rig 60
+     `track` frames against one eager frontend_chain, K = 4 chains with
+     BoW against frontend_chain_bow and phase 11's S = 2 x 20 steps), with
+     wall ms, kernels,
      graph replays, kernels per body, capture ms and the map problem's
      peak memory eager, at the capture and at a replay; then the main
-     path, the SLAM app at K = 1 and 4, the canyon drive and 30
-     multi-sequence steps again with every program run eagerly
+     path, the SLAM app at K = 1 and 4, the canyon drive, 30
+     multi-sequence steps and phase 11's general VO, SLAM and
+     multi-sequence runs again with every program run eagerly
      (`_eager_programs`), their gates holding there too, for the figures
      eager against captured; with --profile, 20 VO frames, a pose-graph
      solve and 3 window LM iterations under torch.profiler, captured and
@@ -188,13 +202,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 INT8_TENSOR_OPS_PER_S = 1.979e15
 F32_OPS_PER_S = 67e12        # float32 outside the tensor cores
+F64_OPS_PER_S = F32_OPS_PER_S / 2   # float64 outside the tensor cores (data sheet: 34e12)
 N_FRAMES = 60
 ORIENTED_FRAMES = 10
 # Kernel launches per frame (per step of the multi-sequence phase).
 UPRIGHT_PER_FRAME = {"hamming_top2": 1, "orb_describe": 2, "orb_describe_oriented": 0,
-                     "extract_patches": 0}
+                     "extract_patches": 0, "triangulate_dlt": 0}
 ORIENTED_PER_FRAME = {"hamming_top2": 1, "orb_describe": 0, "orb_describe_oriented": 2,
-                      "extract_patches": 0}
+                      "extract_patches": 0, "triangulate_dlt": 0}
+# The general (non-rectified) rig: the upright path and one DLT launch.
+GENERAL_PER_FRAME = {**UPRIGHT_PER_FRAME, "triangulate_dlt": 1}
 EXTRACT_PATCHES_NOTE = ("launched by no path: both describes fuse the cut; kept as the direct "
                         "port of the TPU kernel")
 KITTI = dict(fx=718.856, cx=607.19, cy=185.22, baseline=0.537, h=376, w=1241)
@@ -432,7 +449,44 @@ def phase_kernels(rng):
             f"(bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}), per call "
             f"{r['call_ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
             f"library {r['library_ms']}")
+
+    # The batched DLT at the general path's N = 1024 on EuRoC cam0's rig:
+    # half the points 1.5-5 m deep, half 45-100 m, a quarter of the slots
+    # zero (invalid). Phase 11 holds it on that path's own inputs.
+    P1, P2, uv1, uv2, valid, near = _dlt_case(rng, 1024)
+    # The plain version's float32 SVD is held to the kernel on the near half
+    # only: at 45-100 m its own error passes DLT_PLAIN_ATOL.
+    records.append(_dlt_record(
+        "triangulate_dlt", "general", *(torch.from_numpy(x).to(dev) for x in (P1, P2, uv1, uv2)),
+        valid, "N=1024 (a quarter invalid), EuRoC cam0 rig, depth 1.5-5 m and 45-100 m, S = 1",
+        plain_valid=valid & near))
     return records, floor_ms
+
+
+def _dlt_case(rng, n):
+    """EuRoC cam0's projections (baseline 0.110 m) and [1, n, 2] pixel pairs
+    of points half 1.5-5 m deep, half 45-100 m, with pixel noise on the
+    left and a quarter of the slots zero; returns (P1, P2, uv1, uv2, valid,
+    near) with valid and near [1, n]."""
+    from synth_distorted import EUROC
+
+    K = np.array([[EUROC["fx"], 0, EUROC["cx"]], [0, EUROC["fx"], EUROC["cy"]], [0, 0, 1.0]])
+    P1 = (K @ np.hstack([np.eye(3), np.zeros((3, 1))])).astype(np.float32)
+    P2 = (K @ np.hstack([np.eye(3), [[-EUROC["baseline"]], [0.0], [0.0]]])).astype(np.float32)
+    near = np.arange(n) < n // 2
+    z = np.where(near, rng.uniform(1.5, 5.0, n), rng.uniform(45.0, 100.0, n))
+    X = np.stack([rng.uniform(-0.7, 0.7, n) * z, rng.uniform(-0.5, 0.5, n) * z, z], 1)
+
+    def pix(P):
+        x = X @ P[:, :3].T.astype(np.float64) + P[:, 3]
+        return (x[:, :2] / x[:, 2:]).astype(np.float32)
+
+    uv1 = pix(P1) + rng.normal(0, 0.3, (n, 2)).astype(np.float32)
+    uv2 = pix(P2)
+    valid = rng.random(n) >= 0.25
+    uv1[~valid] = 0.0
+    uv2[~valid] = 0.0
+    return P1, P2, uv1[None], uv2[None], valid[None], near[None]
 
 
 # The fused oriented describe against its plain chain: at most 1e-4 of the
@@ -676,19 +730,20 @@ def phase_cuda_vs_cpu(seq, oriented=False, frame=3):
 
 
 def _reset_launches():
-    from stereo_orb_slam_torch.ops.kernels import describe, hamming, patches
+    from stereo_orb_slam_torch.ops.kernels import describe, dlt, hamming, patches
 
-    for mod in (hamming, patches, describe):
+    for mod in (hamming, patches, describe, dlt):
         mod.LAUNCHES = 0
     describe.ORIENTED_LAUNCHES = 0
 
 
 def _read_launches():
-    from stereo_orb_slam_torch.ops.kernels import describe, hamming, patches
+    from stereo_orb_slam_torch.ops.kernels import describe, dlt, hamming, patches
 
     return {"hamming_top2": hamming.LAUNCHES, "extract_patches": patches.LAUNCHES,
             "orb_describe": describe.LAUNCHES,
-            "orb_describe_oriented": describe.ORIENTED_LAUNCHES}
+            "orb_describe_oriented": describe.ORIENTED_LAUNCHES,
+            "triangulate_dlt": dlt.LAUNCHES}
 
 
 def _check_launches(path, launches, per_frame, frames):
@@ -844,7 +899,7 @@ def _render_general(root, frames=GENERAL_FRAMES, seed=42):
 def phase_general_vo(g, out_dir, rectified_ms, device="cuda"):
     """The VO app on the general rig: `--dataset EuRoc` with the distorted
     camera file, on the card. Needs the non-rectified rig, ATE <
-    GENERAL_VO_ATE_M and exactly UPRIGHT_PER_FRAME launches per frame (on the
+    GENERAL_VO_ATE_M and exactly GENERAL_PER_FRAME launches per frame (on the
     card); prints ms per frame beside the rectified main path's (phase 4)."""
     from stereo_orb_slam_torch.apps import visual_odometry
     from stereo_orb_slam_torch.io import calib
@@ -876,7 +931,7 @@ def phase_general_vo(g, out_dir, rectified_ms, device="cuda"):
         raise AssertionError(f"general path: ATE {summary['ate_m']} m is not below "
                              f"{GENERAL_VO_ATE_M} m")
     if _is_cuda(device):
-        _check_launches("general path", launches, UPRIGHT_PER_FRAME, n)
+        _check_launches("general path", launches, GENERAL_PER_FRAME, n)
     return rec
 
 
@@ -887,23 +942,126 @@ def _syncs_per_frame(vo, imgs, warm=2):
     return _syncs_per_call(lambda: vo.track(*imgs[warm]))[1]
 
 
-def _svd_call_us(A, reps=100):
-    """(µs of one torch.linalg.svd(A) between CUDA events over `reps` calls,
-    device syncs of one call). The call syncs the host, so the events also
-    hold the device's wait for the host between calls; the profile gives
-    the kernels' own time."""
+def _events_ms(fn, reps=100):
+    """Milliseconds of one fn() call between CUDA events over `reps` calls
+    issued back to back, for calls that sync the host (no graph can hold
+    them): the events also hold the device's wait for the host between
+    calls; a profile gives the kernels' own time."""
     import torch
 
     for _ in range(5):
-        torch.linalg.svd(A)
+        fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(reps):
-        torch.linalg.svd(A)
+        fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / reps * 1e3, _syncs_per_call(lambda: torch.linalg.svd(A))[1]
+    return a.elapsed_time(b) / reps
+
+
+def _svd_call_us(A, reps=100):
+    """(µs of one torch.linalg.svd(A) per call between CUDA events, device
+    syncs of one call)."""
+    import torch
+
+    return (_events_ms(lambda: torch.linalg.svd(A), reps) * 1e3,
+            _syncs_per_call(lambda: torch.linalg.svd(A))[1])
+
+
+# The batched DLT kernel on a path's inputs: against its plain version (on
+# the card cuSOLVER's float32 SVD) on the valid slots within
+# DLT_PLAIN_ATOL (the card-against-CPU bound of the general path's points,
+# 2 * GENERAL_DLT_F64_ATOL), against a float64 DLT within DLT_F64_RTOL of
+# each valid point's depth (the kernel is that DLT rounded once; float32
+# rounding alone is 6e-8), and finite on every slot, invalid ones included.
+DLT_PLAIN_ATOL = 2 * GENERAL_DLT_F64_ATOL
+DLT_F64_RTOL = 2e-6
+DLT_REPLACES = "stereo_orb_slam_tpu/geometry/camera.py:185"
+DLT_NOTE = ("a hand kernel with no Pallas counterpart: it replaces the SVD of the plain "
+            "version (torch.linalg.svd, cuSOLVER on the card, 2 host syncs a call), whose "
+            "JAX counterpart is jnp.linalg.svd inside the jitted program")
+
+
+def _dlt_systems(P1, P2, uv1, uv2):
+    """The [B * N, 4, 4] systems the plain version hands torch.linalg.svd."""
+    import torch
+
+    rows = [uv[..., c:c + 1] * P[..., 2, :] - P[..., c, :]
+            for P, uv in ((P1, uv1), (P2, uv2)) for c in (0, 1)]
+    return torch.stack(rows, dim=-2).reshape(-1, 4, 4)
+
+
+def _dlt_record(name, path, P1, P2, uv1, uv2, valid, shape, plain_valid=None):
+    """The kernel on [B, N, 2] correspondences (P [3, 4] or [B, 1, 3, 4])
+    against its plain version and a float64 DLT, timed (device µs from a
+    graph of 50 launches; the plain version and the library call per call
+    between events: they sync), with the bound from this run's Jacobi
+    sweeps and rotations; `valid` [B, N] marks the slots held against
+    float64, `plain_valid` (by default `valid`) those held against the
+    plain version."""
+    import torch
+
+    from stereo_orb_slam_torch.ops.kernels import dlt
+    from synth_distorted import dlt_float64
+
+    args = (P1, P2, uv1, uv2)
+    got = dlt.triangulate_dlt(*args)
+    plain = dlt.triangulate_dlt_plain(*args)
+    _, work = dlt.triangulate_dlt_work(*args)
+    torch.cuda.synchronize()
+    B, n = uv1.shape[0], uv1.shape[1]
+    g, pl = got.cpu().numpy(), plain.cpu().numpy()
+    plain_valid = valid if plain_valid is None else plain_valid
+    plain_gap = float(np.abs(g - pl)[plain_valid].max())
+    rel = []
+    for b in range(B):
+        Q1, Q2 = (P.reshape(-1, 3, 4)[b if P.dim() > 2 else 0].cpu().numpy() for P in (P1, P2))
+        x64 = dlt_float64(Q1, Q2, uv1[b].cpu().numpy()[valid[b]], uv2[b].cpu().numpy()[valid[b]])
+        rel.append(np.abs(g[b][valid[b]] - x64).max(1) / np.abs(x64[:, 2]))
+    f64_rel = float(np.concatenate(rel).max())
+    nonfinite = int((~np.isfinite(g)).any(-1).sum())
+    ms = time_device(lambda: dlt.triangulate_dlt(*args))
+    call_ms = time_call(lambda: dlt.triangulate_dlt(*args))
+    plain_ms = _events_ms(lambda: dlt.triangulate_dlt_plain(*args))
+    A = _dlt_systems(*args)
+    library_ms = _events_ms(lambda: torch.linalg.svd(A))
+    library_kernels, library_device_ms = _kernels_in(lambda: torch.linalg.svd(A))
+    # Operations of this run's data (float64 adds, multiplies, divisions and
+    # square roots, an FMA as two): 99 per point for the system, its norm,
+    # the column norms and the division, 162 per sweep (six pair tests: three
+    # 4-term dot products and the test) and 60 per rotation (the angle and
+    # two 4-row column updates of A and of V).
+    w = work.cpu().numpy().reshape(-1, 2).astype(np.int64)
+    ops = 99 * B * n + 162 * int(w[:, 0].sum()) + 60 * int(w[:, 1].sum())
+    bytes_ = B * n * (2 * 8 + 12) + 2 * 48 * (B if P1.dim() > 2 else 1)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F64_OPS_PER_S * 1e3
+    rec = _record(
+        name, "stereo_orb_slam_torch/csrc/triangulate_dlt.cu", DLT_REPLACES, path,
+        max_abs_err=plain_gap, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes > t_ops else "operations", library_ms=library_ms,
+        match=plain_gap <= DLT_PLAIN_ATOL and f64_rel <= DLT_F64_RTOL and nonfinite == 0,
+        float64_rel_err=f64_rel, nonfinite=nonfinite, call_ms=call_ms,
+        library_call="torch.linalg.svd of the [B * N, 4, 4] systems (cuSOLVER; per call "
+                     "between events, it syncs)",
+        library_device_ms=library_device_ms, library_kernels=library_kernels,
+        sweeps_max=int(w[:, 0].max()), sweeps_mean=float(w[:, 0].mean()),
+        rotations_mean=float(w[:, 1].mean()), ops=ops, valid=int(valid.sum()),
+        against_plain=int(plain_valid.sum()), shape=shape,
+        note=DLT_NOTE)
+    log(f"kernel {name}: {shape}; against plain {plain_gap:.3g} m (bound {DLT_PLAIN_ATOL}), "
+        f"against float64 {f64_rel:.3g} of the depth (bound {DLT_F64_RTOL}), {nonfinite} "
+        f"non-finite; device {ms * 1e3:.2f} us (bound {rec['bound_ms'] * 1e3:.4f} us by "
+        f"{rec['bound_by']}, {ops} operations, sweeps mean {rec['sweeps_mean']:.2f} max "
+        f"{rec['sweeps_max']}), per call {call_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us "
+        f"per call, torch.linalg.svd {library_ms * 1e3:.2f} us per call "
+        f"({library_device_ms * 1e3:.2f} us device in {library_kernels} kernels)")
+    if not rec["match"]:
+        raise AssertionError(f"{name}: the DLT kernel is off its plain version ({plain_gap} m), "
+                             f"off the float64 DLT ({f64_rel} of the depth) or non-finite "
+                             f"({nonfinite} slots)")
+    return rec
 
 
 def phase_general_devices(g, seq, frame=1, device="cuda", reference_device="cpu"):
@@ -913,10 +1071,12 @@ def phase_general_devices(g, seq, frame=1, device="cuda", reference_device="cpu"
     undistorted pixels within GENERAL_UV_ATOL, the DLT points of valid slots
     within 2 * GENERAL_DLT_F64_ATOL of each other (and each device's DLT of
     the CPU's pixels within GENERAL_DLT_F64_ATOL of a float64 DLT), the
-    RANSAC transform within GENERAL_T_ATOL. Also: non-finite DLT points of
-    invalid slots on the card (masked afterwards), the batched 4x4 SVD's
-    time per call at the frame's shape (CUDA events) and its syncs, and the
-    syncs of one distorted and one rectified VO frame."""
+    RANSAC transform within GENERAL_T_ATOL; no non-finite DLT point on the
+    card, invalid slots included (the kernel's guard). Also: the batched
+    4x4 SVD's time per call at the frame's shape (CUDA events) and its
+    syncs (the library call the DLT kernel replaced), and the syncs of one
+    distorted and one rectified VO frame, which must be equal (both
+    frames are one captured replay)."""
     import torch
 
     from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
@@ -989,12 +1149,8 @@ def phase_general_devices(g, seq, frame=1, device="cuda", reference_device="cpu"
     # The DLT's batched SVD at the frame's shape ([N, 4, 4]) on the card,
     # and the syncs of one VO frame, distorted and rectified, counted alike.
     svd_us = svd_syncs = general_syncs = rect_syncs = None
-    # The systems are built as triangulate_dlt builds them: rows
-    # u * P^3 - P^1 and v * P^3 - P^2 of both views.
-    A = torch.cat([torch.from_numpy(uv[:, c:c + 1]).to(device) * P[2] - P[c]
-                   for P, uv in ((rigs[device].left.projection, kp_l),
-                                 (rigs[device].right.projection, kp_r))
-                   for c in (0, 1)], dim=1).reshape(-1, 4, 4)
+    A = _dlt_systems(rigs[device].left.projection, rigs[device].right.projection,
+                     torch.from_numpy(kp_l).to(device), torch.from_numpy(kp_r).to(device))
     if _is_cuda(device):
         svd_us, svd_syncs = _svd_call_us(A)
         general_syncs = _syncs_per_frame(VisualOdometer(WorldMap(), rigs[device]), imgs)
@@ -1022,7 +1178,7 @@ def phase_general_devices(g, seq, frame=1, device="cuda", reference_device="cpu"
         f"pixels {uv_gap:.3g} px (bound {GENERAL_UV_ATOL}), DLT points {pts_gap:.3g} m "
         f"(bound {2 * GENERAL_DLT_F64_ATOL}), against float64 {f64_gap} (bound "
         f"{GENERAL_DLT_F64_ATOL}), transform {t_gap:.3g} (bound {GENERAL_T_ATOL}); "
-        f"card DLT non-finite on {nonfinite} slots (all invalid); landmark depth against "
+        f"card DLT non-finite on {nonfinite} slots; landmark depth against "
         f"the plane's, relative: {depth_err}")
     log(f"general path: batched SVD {list(A.shape)} {svd_us} us per call on the card, "
         f"{svd_syncs} syncs per call; syncs per VO frame: distorted {general_syncs}, "
@@ -1030,6 +1186,12 @@ def phase_general_devices(g, seq, frame=1, device="cuda", reference_device="cpu"
     if any(a != b for a, b in counts.values()) or not same_valid:
         raise AssertionError(f"general path: the card and the CPU disagree on counts {counts} "
                              f"or slot validity")
+    if nonfinite:
+        raise AssertionError(f"general path: the card's DLT is not finite on {nonfinite} "
+                             f"slots")
+    if _is_cuda(device) and general_syncs != rect_syncs:
+        raise AssertionError(f"general path: a distorted VO frame syncs {general_syncs} times, "
+                             f"a rectified one {rect_syncs}")
     if flips > bits * GENERAL_DESC_FLIPS or not same_matches:
         raise AssertionError(f"general path: orb_describe's words differ in {flips} of {bits} "
                              f"bits, or the temporal matches differ ({same_matches})")
@@ -1047,22 +1209,29 @@ def phase_path_kernels(path, dataset, folder, camera, rectified, desc_flips, fra
     frames frame - 1 and frame of the tree on the card (the left image's
     describe and the frame's matching), then each kernel is held against
     its plain version on them (hamming_top2 bit for bit, orb_describe at
-    most `desc_flips` of the bits) and timed as in phase 3. Records are
-    named "... (path)"."""
+    most `desc_flips` of the bits) and timed as in phase 3; on a general
+    (non-rectified) path also the batched DLT on the frame's own
+    undistorted correspondences, alone (S = 1) and stacked with the same
+    frame seen through the rig with its views swapped (S = 2, one
+    projection pair per problem), against its plain version and a float64
+    DLT on the frame's valid slots (`_dlt_record`). Records are named
+    "... (path)"."""
     import torch
 
     from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
     from stereo_orb_slam_torch.frontend.odometer import empty_slots, frontend_step
     from stereo_orb_slam_torch.io import calib, datasets
     from stereo_orb_slam_torch.ops import match, orb
-    from stereo_orb_slam_torch.ops.kernels import describe, hamming
+    from stereo_orb_slam_torch.ops.kernels import describe, dlt, hamming
 
     dev = torch.device(device)
     fe, rc = FrontendConfig(), RansacConfig()
     rig = calib.load_camera(camera, device=dev)
-    calls = {"orb_describe": [], "hamming_top2": []}
+    calls = {"orb_describe": [], "hamming_top2": [], "triangulate_dlt": []}
     hooks = {(describe, "orb_describe"): "orb_describe",
              (match, "hamming_top2_pair"): "hamming_top2"}
+    if not rectified:
+        hooks[(dlt, "triangulate_dlt")] = "triangulate_dlt"
     originals = {site: getattr(*site) for site in hooks}
 
     def capture(key, fn):
@@ -1087,7 +1256,8 @@ def phase_path_kernels(path, dataset, folder, camera, rectified, desc_flips, fra
     finally:
         for site, fn in originals.items():
             setattr(*site, fn)
-    if len(calls["orb_describe"]) != 2 * (frame + 1) or len(calls["hamming_top2"]) != frame + 1:
+    if (len(calls["orb_describe"]) != 2 * (frame + 1) or len(calls["hamming_top2"]) != frame + 1
+            or len(calls["triangulate_dlt"]) != (0 if rectified else frame + 1)):
         raise AssertionError(f"{path} kernels: captured {[len(c) for c in calls.values()]} "
                              f"calls over {frame + 1} frames")
     records = []
@@ -1150,6 +1320,21 @@ def phase_path_kernels(path, dataset, folder, camera, rectified, desc_flips, fra
         log(f"kernel {r['name']}: {r['shape']}; match {r['match']}, device "
             f"{r['ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}), "
             f"per call {r['call_ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us")
+    if not rectified:
+        # The DLT of the frame's stereo matches (undistorted pixels of every
+        # slot), held on the slots the frame kept.
+        P1, P2, uv1, uv2 = calls["triangulate_dlt"][-1]
+        valid = res.slots.valid.reshape(1, -1).cpu().numpy()
+        n = uv1.shape[-2]
+        records.append(_dlt_record(
+            f"triangulate_dlt ({path})", path, P1, P2, uv1, uv2, valid,
+            f"N={n} ({int(valid.sum())} valid) ({path} frame {frame}, S = 1)"))
+        stacked = (torch.stack([P1, P2])[:, None], torch.stack([P2, P1])[:, None],
+                   torch.cat([uv1, uv2]), torch.cat([uv2, uv1]))
+        records.append(_dlt_record(
+            f"triangulate_dlt ({path}, S = 2)", path, *stacked, np.concatenate([valid, valid]),
+            f"N={n} x S = 2 ({path} frame {frame} and the same with the views swapped, "
+            f"P [2, 1, 3, 4])"))
     return records
 
 
@@ -1162,7 +1347,8 @@ def phase_general_multi_seq(g, steps=GENERAL_MULTI_STEPS, seed=7, device="cuda")
     and a second plane (texture seed `seed`, the same rig and depth) that
     the camera passes the other way. Each sequence's poses bit for bit its
     own VisualOdometer run on the card, ATE < GENERAL_VO_ATE_M, and exactly
-    UPRIGHT_PER_FRAME launches per step."""
+    GENERAL_PER_FRAME launches per step. Returns (record, (the
+    MultiSequenceSLAM, imgs_l, imgs_r [steps, S, H, W]))."""
     from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
     from stereo_orb_slam_torch.io import calib, datasets
     from stereo_orb_slam_torch.parallel.multi_seq import MultiSequenceSLAM
@@ -1222,8 +1408,8 @@ def phase_general_multi_seq(g, steps=GENERAL_MULTI_STEPS, seed=7, device="cuda")
         raise AssertionError(f"general multi-sequence: ATE {ates} m, not all below "
                              f"{GENERAL_VO_ATE_M} m")
     if _is_cuda(device):
-        _check_launches("general multi-sequence", launches, UPRIGHT_PER_FRAME, steps)
-    return rec
+        _check_launches("general multi-sequence", launches, GENERAL_PER_FRAME, steps)
+    return rec, (multi, imgs_l, imgs_r)
 
 
 def phase_general_slam(g, out_dir, device="cuda"):
@@ -1257,7 +1443,8 @@ def phase_general_slam(g, out_dir, device="cuda"):
                         for h in system.pgo.history],
            "edges_measured": edges, "loop_edge_batches": edge_batches, "launches": launches,
            "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
-                                 "orb_describe_oriented": 0, "extract_patches": 0}}
+                                 "orb_describe_oriented": 0, "extract_patches": 0,
+                                 "triangulate_dlt": n + 2 * edge_batches}}
     log(f"general SLAM (--dataset EuRoc, K = 1): {n} frames, {world.num_frames} tracked, live "
         f"{rec['live_fps']:.2f} fps, finish {rec['finish_seconds']:.2f} s, ATE "
         f"{rec['ate_m']:.5f} m (live {rec['live_ate_m']:.5f}), max loop probability "
@@ -1364,7 +1551,8 @@ def phase_canyon_slam(c, out_dir, device="cuda"):
         "points": world.num_points, "timers": system.timers.summary(),
         "launches": launches,
         "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
-                              "orb_describe_oriented": 0, "extract_patches": 0},
+                              "orb_describe_oriented": 0, "extract_patches": 0,
+                              "triangulate_dlt": 0},
         "bow_batches": system.fused_score_batches + system.loop.score_batches,
     }
     log(f"canyon SLAM (--batch_frames {k}): {n} frames, {world.num_frames} tracked, live "
@@ -2208,7 +2396,8 @@ def phase_slam(seq, gt, out_dir, batch_frames):
         "live_stall_splits": splits, "ba_log": system.ba_log[-3:],
         "timers": system.timers.summary(), "launches": launches,
         "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
-                              "orb_describe_oriented": 0, "extract_patches": 0},
+                              "orb_describe_oriented": 0, "extract_patches": 0,
+                              "triangulate_dlt": 0},
         "bow_batches": system.fused_score_batches + system.loop.score_batches,
         "edges_measured": edges, "loop_edge_batches": edge_batches,
     }
@@ -3166,6 +3355,129 @@ def _program_front_end(seq, multi_state):
     return rec
 
 
+PROGRAM_GENERAL_K = 4
+PROGRAM_GENERAL_WORDS = 1024   # the shipped vocabulary's size
+
+
+def _program_general(g, multi_state, frames=GENERAL_FRAMES, k=PROGRAM_GENERAL_K,
+                     device="cuda"):
+    """The general (distorted) rig's captured programs against their eager
+    bodies, bit for bit: `frames` VO frames of `track` (one replay each)
+    against one eager `frontend_chain` over the same frames and RANSAC
+    draws; `frontend_chain_bow_program` against `frontend_chain_bow` in
+    K = 4 chains over those frames with a random 1024-word vocabulary
+    (carry, results, top-k, database, size and bank rings); phase 11's
+    stacked two-rig multi-sequence step against the eager batched step over
+    its GENERAL_MULTI_STEPS steps. On the card also a VO frame's kernels
+    and device ms, captured and eager (torch.profiler over 20 frames). On
+    the CPU (a rehearsal) the programs run their bodies as they are."""
+    import torch
+
+    from stereo_orb_slam_torch.config import FrontendConfig, RansacConfig
+    from stereo_orb_slam_torch.frontend import odometer
+    from stereo_orb_slam_torch.frontend.odometer import VisualOdometer
+    from stereo_orb_slam_torch.io import calib, datasets
+    from stereo_orb_slam_torch.ops import orb
+    from stereo_orb_slam_torch.parallel import multi_seq as multi_mod
+    from stereo_orb_slam_torch.utils import programs
+    from stereo_orb_slam_torch.worldmap import WorldMap
+
+    pairs = datasets.load_dataset("EuRoc", g["vo"])[:frames]
+    imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
+    n = len(imgs)
+    rig = calib.load_camera(g["camera"], device=device)
+    fe, rc = FrontendConfig(), RansacConfig()
+    steer, md = orb.steer_table(fe.oriented, rig.device), rig.max_sensible_distance()
+    L = torch.as_tensor(np.stack([a for a, _ in imgs])).to(device)
+    R = torch.as_tensor(np.stack([b for _, b in imgs])).to(device)
+    draws = VisualOdometer(WorldMap(), rig)   # the VO's per-frame samplers (seed 0)
+
+    def samplers(lo, hi):
+        return [draws._gumbel_for_frame(i) for i in range(lo, hi)]
+
+    vo = VisualOdometer(WorldMap(), rig)
+    got = []
+    for il, ir in imgs:
+        vo.track(il, ir)
+        got.append(vo.last_result)
+    _, want = odometer.frontend_chain(L, R, odometer.empty_slots(fe.num_features, device), False,
+                                      samplers(0, n), rig, md, fe, rc, False, steer)
+    rec = {"vo_frames": n,
+           "vo_bits_equal": all(_bits_equal(got[j], odometer._select(want, j))
+                                for j in range(n))}
+    if _is_cuda(device):
+        # Device time and kernels of a general VO frame, captured and eager:
+        # 20 `track` calls under torch.profiler after 5.
+        rec["vo_frame_device"] = {}
+        for mode, ctx in (("captured", contextlib.nullcontext), ("eager", _eager_programs)):
+            with ctx():
+                v = VisualOdometer(WorldMap(), rig)
+                for il, ir in imgs[:5]:
+                    v.track(il, ir)
+                kernels, dev_ms = _kernels_in(lambda: [v.track(il, ir) for il, ir in imgs[5:25]])
+            rec["vo_frame_device"][mode] = {"kernels": kernels / 20, "device_ms": dev_ms / 20}
+
+    gen = torch.Generator().manual_seed(3)
+    centroids = torch.randint(-2 ** 31, 2 ** 31 - 1, (PROGRAM_GENERAL_WORDS, 8), generator=gen,
+                              dtype=torch.int32).to(device)
+    idf = (torch.rand(PROGRAM_GENERAL_WORDS, generator=gen) + 0.5).to(device)
+    capacity = 2 * n
+    state = {mode: [(odometer.empty_slots(fe.num_features, device), False),
+                    torch.zeros((capacity, PROGRAM_GENERAL_WORDS), device=device),
+                    torch.zeros((), dtype=torch.int64, device=device),
+                    odometer.empty_banks(capacity, fe.num_features, device)]
+             for mode in ("eager", "captured")}
+    cache = programs.ProgramCache()
+    ok = True
+    for lo in range(0, n - k + 1, k):
+        args = (L[lo:lo + k], R[lo:lo + k])
+        carry, db, size, banks = state["eager"]
+        out_e = odometer.frontend_chain_bow(*args, *carry, samplers(lo, lo + k), rig, md, fe, rc,
+                                            False, steer, centroids, idf, db, size, 4, banks)
+        carry, db, size, banks = state["captured"]
+        out_c = odometer.frontend_chain_bow_program(*args, *carry, samplers(lo, lo + k), rig, md,
+                                                    fe, rc, steer, centroids, idf, db, size, 4,
+                                                    banks, cache=cache)
+        ok = ok and _bits_equal(out_c[:6], out_e[:6])
+        for mode, out in (("eager", out_e), ("captured", out_c)):
+            state[mode][:3] = [out[0], out[4], out[5]]
+    ok = ok and _bits_equal(state["captured"][3], state["eager"][3])
+    rec[f"chain_bow_k{k}"] = {"chains": n // k, "bits_equal": ok,
+                              "database_rows": int(state["eager"][2]),
+                              "capture_ms": {a: b["capture_ms"] for a, b in cache.stats.items()},
+                              "replays": {a: b["replays"] for a, b in cache.stats.items()}}
+    prog = next(iter(cache._programs.values()))
+    rec["step_nodes"] = _body_kernels(prog, ("step",))["step"] if _is_cuda(device) else None
+    cache.clear()
+
+    multi, imgs_l, imgs_r = multi_state
+    S, steps = imgs_l.shape[1], imgs_l.shape[0]
+    step = multi_mod.batched_frontend_step(multi.fe, multi.rc, False)
+    prev = multi_mod.batch_slots([odometer.empty_slots(multi.fe.num_features, device)] * S)
+    usable = torch.zeros(S, dtype=torch.bool, device=device)
+    ok = True
+    for i in range(steps):
+        il, ir = torch.as_tensor(imgs_l[i]).to(device), torch.as_tensor(imgs_r[i]).to(device)
+
+        def smp():
+            return [v._gumbel_for_frame(i) for v in multi.vos]
+
+        res_e = step(il, ir, prev, usable, smp(), multi.rig_batch, multi.max_d, multi.steer)
+        res_c = odometer.batched_frontend_step_program(il, ir, prev, usable, smp(),
+                                                       multi.rig_batch, multi.max_d, multi.fe,
+                                                       multi.rc, multi.steer)
+        ok = ok and _bits_equal(res_c, res_e)
+        prev, usable = res_e.slots, torch.ones(S, dtype=torch.bool, device=device)
+    rec["multi_seq"] = {"sequences": S, "steps": steps, "bits_equal": ok}
+    log(f"programs, general rig: VO {n} frames bits equal {rec['vo_bits_equal']}, a frame's "
+        f"kernels and device ms {rec.get('vo_frame_device')}; BoW chains "
+        f"K = {k} {rec[f'chain_bow_k{k}']['bits_equal']} ({rec[f'chain_bow_k{k}']['chains']} "
+        f"chains, {rec[f'chain_bow_k{k}']['database_rows']} database rows); multi-sequence "
+        f"S = {S} x {steps} steps {ok}; kernels per step {rec['step_nodes']}; captures "
+        f"{rec[f'chain_bow_k{k}']['capture_ms']}")
+    return rec
+
+
 def _multi_seq_rate(multi_state, steps=30):
     """Steps/s of a fresh MultiSequenceSLAM over `steps` steps (after 2)."""
     import torch
@@ -3277,24 +3589,32 @@ def phase_programs_profile(seq, window, slam_graph, path, frames=20, warm=5, lm_
 
 
 def phase_programs(seq, gt, window, slam_graph, multi_state, slam_data, canyon_data, tmp,
-                   captured):
+                   captured, general_data, general_multi_state):
     """Phase 13: every captured unit against its eager body, bit for bit
     (the pose graph on phase 7's final graph, the window and map BA solves,
-    60 VO frames, K = 4 and K = 32 chains, S = 3 multi-sequence steps), the
-    eager-against-captured unit figures, then the main path, the SLAM app
-    at K = 1 and 4, the canyon drive and multi-sequence tracking again with
-    every program run eagerly (`_eager_programs`): their gates hold there
-    too, and their figures stand beside the captured runs of phases 4, 7,
-    8 and 12 (`captured`)."""
+    60 VO frames, K = 4 and K = 32 chains, S = 3 multi-sequence steps; on
+    the general rig 60 VO frames, K = 4 chains with BoW and S = 2 x 20
+    multi-sequence steps), the eager-against-captured unit figures, then
+    the main path, the SLAM app at K = 1 and 4, the canyon drive,
+    multi-sequence tracking and the general rig's VO, SLAM and
+    multi-sequence runs again with every program run eagerly
+    (`_eager_programs`): their gates hold there too, and their figures
+    stand beside the captured runs of phases 4, 7, 8, 11 and 12
+    (`captured`)."""
     from stereo_orb_slam_torch.utils import programs
 
     rec = {"pose_graph": _program_pose_graph(slam_graph), "ba": _program_ba(seq, window),
-           "front_end": _program_front_end(seq, multi_state)}
-    fe = rec["front_end"]
+           "front_end": _program_front_end(seq, multi_state),
+           "general": _program_general(general_data, general_multi_state)}
+    fe, gen = rec["front_end"], rec["general"]
     bits = {"pose_graph": rec["pose_graph"]["bits_equal"],
             **{f"ba_{k}": v["bits_equal"] for k, v in rec["ba"].items()},
             "vo": fe["vo_bits_equal"], "multi_seq": fe["multi_seq"]["bits_equal"],
-            **{f"chain_k{k}": fe[f"chain_k{k}"]["bits_equal"] for k in PROGRAM_CHAIN_KS}}
+            **{f"chain_k{k}": fe[f"chain_k{k}"]["bits_equal"] for k in PROGRAM_CHAIN_KS},
+            "general_vo": gen["vo_bits_equal"],
+            f"general_chain_bow_k{PROGRAM_GENERAL_K}":
+                gen[f"chain_bow_k{PROGRAM_GENERAL_K}"]["bits_equal"],
+            "general_multi_seq": gen["multi_seq"]["bits_equal"]}
     rec["bits_equal"] = bits
     if not all(bits.values()):
         raise AssertionError(f"programs: a captured unit differs from its eager body: {bits}")
@@ -3307,6 +3627,11 @@ def phase_programs(seq, gt, window, slam_graph, multi_state, slam_data, canyon_d
                 for k in (1, 4)}
         canyon = phase_canyon_slam(canyon_data, os.path.join(tmp, "canyon_eager"))
         multi_eager = _multi_seq_rate(multi_state)
+        general = {
+            "vo": phase_general_vo(general_data, os.path.join(tmp, "general_eager"),
+                                   vo["median_ms"]),
+            "slam": phase_general_slam(general_data, os.path.join(tmp, "general_slam_eager")),
+            "multi_seq": phase_general_multi_seq(general_data)[0]}
 
     def pick(r, keys):
         return {k: r[k] for k in keys}
@@ -3327,6 +3652,14 @@ def phase_programs(seq, gt, window, slam_graph, multi_state, slam_data, canyon_d
                                                          "finish_seconds", "ate_m")),
                    "eager": pick(canyon, ("live_fps", "median_ms", "finish_seconds", "ate_m"))},
         "multi_seq_steps_per_s": {"captured": multi_captured, "eager": multi_eager},
+        "general_vo": {m: pick(r["vo"], ("fps", "median_ms", "ate_m"))
+                       for m, r in (("captured", captured["general"]), ("eager", general))},
+        "general_slam": {m: pick(r["slam"], ("live_fps", "median_ms", "finish_seconds",
+                                             "ate_m"))
+                         for m, r in (("captured", captured["general"]), ("eager", general))},
+        "general_multi_seq_ms_per_step": {m: r["multi_seq"]["ms_per_step"] for m, r in
+                                          (("captured", captured["general"]),
+                                           ("eager", general))},
     }
     rec["programs"] = programs.PROGRAMS.summary()
     e2e = rec["end_to_end"]
@@ -3344,7 +3677,15 @@ def phase_programs(seq, gt, window, slam_graph, multi_state, slam_data, canyon_d
         f"{e2e['canyon']['captured']['median_ms']:.2f} ms, finish "
         f"{e2e['canyon']['eager']['finish_seconds']:.2f} -> "
         f"{e2e['canyon']['captured']['finish_seconds']:.2f} s; multi-sequence "
-        f"{multi_eager:.2f} -> {multi_captured:.2f} steps/s")
+        f"{multi_eager:.2f} -> {multi_captured:.2f} steps/s; general VO median "
+        f"{e2e['general_vo']['eager']['median_ms']:.2f} -> "
+        f"{e2e['general_vo']['captured']['median_ms']:.2f} ms, general SLAM live fps "
+        f"{e2e['general_slam']['eager']['live_fps']:.2f} -> "
+        f"{e2e['general_slam']['captured']['live_fps']:.2f}, finish "
+        f"{e2e['general_slam']['eager']['finish_seconds']:.2f} -> "
+        f"{e2e['general_slam']['captured']['finish_seconds']:.2f} s, general multi-sequence "
+        f"{e2e['general_multi_seq_ms_per_step']['eager']:.2f} -> "
+        f"{e2e['general_multi_seq_ms_per_step']['captured']:.2f} ms per step")
     return rec
 
 
@@ -3711,8 +4052,9 @@ def main(argv=None):
                                         seq),
                    "slam": timed("general_slam", phase_general_slam, general_data,
                                  os.path.join(tmp, "general_slam_out")),
-                   "multi_seq": timed("general_multi_seq", phase_general_multi_seq,
-                                      general_data)}
+                   "multi_seq": None}
+        general["multi_seq"], general_multi_state = timed(
+            "general_multi_seq", phase_general_multi_seq, general_data)
         records += timed("general_kernels", phase_path_kernels, "general", "EuRoc",
                          general_data["vo"], general_data["camera"], False, GENERAL_DESC_FLIPS)
         multi_seq, multi_state = timed("multi_seq", phase_multi_seq, seq)
@@ -3744,7 +4086,8 @@ def main(argv=None):
                          canyon_data["folder"], canyon_data["camera"], True, CANYON_DESC_FLIPS)
         programs_rec = timed("programs", phase_programs, seq, gt, window, slam_graph,
                              multi_state, (slam_seq, slam_gt), canyon_data, tmp,
-                             {"vo": summary, "slam": slam_runs, "canyon": canyon["slam"]})
+                             {"vo": summary, "slam": slam_runs, "canyon": canyon["slam"],
+                              "general": general}, general_data, general_multi_state)
         gap = abs(slam_runs[4]["ate_m"] - slam_runs[1]["ate_m"])
         log(f"SLAM --batch_frames 4 against 1: ATE {slam_runs[4]['ate_m']:.5f} / "
             f"{slam_runs[1]['ate_m']:.5f} m, gap {gap:.3g} m")

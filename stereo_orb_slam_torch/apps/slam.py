@@ -68,7 +68,9 @@ def measure_edges(d_s, d_d, v_s, v_d, uv_s, uv_d, samplers, rig, fe, rc, rectifi
     pose_graph_optimizer.cpp:229: one `hamming_top2` launch for all E
     (batch axis on the kernel's grid). Both frames' stored observations
     (already ideal pinhole: the front end undistorted them) are
-    re-triangulated, and one RANSAC solve over the E problems fits T with
+    re-triangulated (on the general rig two launches of the DLT kernel,
+    which does not sync the host), and one RANSAC solve over the E problems
+    fits T with
     X_dst = T @ X_src. Device tensors in, device tensors out: (transform
     [E, 4, 4], idx [E, N] int32, inlier mask [E, N], success [E],
     num_inliers [E])."""

@@ -23,17 +23,18 @@ The minimal-set sampler of frame i is `sampler_for_frame(i)`, by default a
 Gumbel sampler on a generator seeded from (seed, i), so `track_batch` and K
 `track` calls see the same draws.
 
-On a rectified rig the entry points run the captured front end
-(`ChainProgram`, utils/programs.py), the counterpart of the JAX
-package's `frontend_step_fused` and `frontend_chain` (one device program
-for a step, a `lax.scan` for K): `batched_frontend_step` with the
-record/swap state machine is captured once per shape as a CUDA graph, a
-`track` is one replay, a K-frame batch K replays and the BoW scoring one
-more. The eager functions (`frontend_step`, `frontend_chain`,
-`frontend_chain_bow`) are its plain versions, held to it bit for bit,
-and the general rig's path: its batched DLT SVD syncs the host, which a
-capture forbids. Each frame's RANSAC keys are drawn outside the graph
-(`ransac.KeyedSampler`).
+On either rig, rectified or general (distorted, non-rectified), the
+entry points run the captured front end (`ChainProgram`,
+utils/programs.py), the counterpart of the JAX package's
+`frontend_step_fused` and `frontend_chain` with `rectified` static (one
+device program for a step, a `lax.scan` for K): `batched_frontend_step`
+with the record/swap state machine is captured once per shape and rig as
+a CUDA graph, a `track` is one replay, a K-frame batch K replays and the
+BoW scoring one more. The general rig's undistort and batched DLT run
+inside the graph (the DLT's hand kernel has no host sync). The eager
+functions (`frontend_step`, `frontend_chain`, `frontend_chain_bow`) are
+its plain versions, held to it bit for bit. Each frame's RANSAC keys are
+drawn outside the graph (`ransac.KeyedSampler`).
 
 The live loop (apps/slam.py) runs K-frame batches as a two-deep pipeline:
 `dispatch_batch` launches a batch's chain (with the BoW scoring and the
@@ -344,9 +345,11 @@ def _select(res, index):
 
 
 class ChainProgram(programs.Program):
-    """The rectified front end as a captured program: `batched_frontend_step`
+    """The front end as a captured program: `batched_frontend_step`
     together with `frontend_chain`'s record/swap state machine for S
-    sequences, with the carry (prev slots, initialized) in static tensors
+    sequences on the rig's path (rectified or general, a static choice as
+    the JAX package's `rectified` argument), with the carry (prev slots,
+    initialized) in static tensors
     and each step's result written into row j of a static [K, S, ...]
     stack; plus, with `bow`, the K frames' BoW scoring, database append and
     bank writes as a second body. `frontend_chain` is K replays of `step`
@@ -365,6 +368,7 @@ class ChainProgram(programs.Program):
         super().__init__(rig.device)
         dev, n = rig.device, fe.num_features
         self.rig, self.steer, self.fe, self.rc = rig, steer, fe, rc
+        self.rectified = bool(rig.rectified)
         self.imgs_l = torch.empty((S,) + tuple(imgs.shape[-2:]), dtype=imgs.dtype, device=dev)
         self.imgs_r = torch.empty_like(self.imgs_l)
         self.keys = torch.empty((S, rc.num_hypotheses, n), dtype=torch.float32, device=dev)
@@ -391,14 +395,15 @@ class ChainProgram(programs.Program):
             bow_key = (id(centroids), id(idf), programs.tensor_key(database), query_size,
                        tuple(id(b) for b in banks), programs.tensor_key(*banks))
         return (ChainProgram, S, K, programs.tensor_key(imgs[0, 0]),
-                tuple(max_distance.shape), id(rig), id(steer), fe, rc, bow_key)
+                tuple(max_distance.shape), id(rig), bool(rig.rectified), id(steer), fe, rc,
+                bow_key)
 
     def step(self):
         S = self.imgs_l.shape[0]
         samplers = [functools.partial(ransac.sets_from_keys, self.keys[s]) for s in range(S)]
         res = batched_frontend_step(self.imgs_l, self.imgs_r, self.prev, self.initialized,
                                     samplers, self.rig, self.max_distance, self.fe, self.rc,
-                                    True, self.steer)
+                                    self.rectified, self.steer)
         record = res.num_stereo >= self.fe.min_stereo_matches
         swap = record & (~self.initialized | res.ransac_success)
         new_prev = FrameSlots(*(torch.where(swap.reshape((S,) + (1,) * (new.dim() - 1)),
@@ -451,14 +456,21 @@ class ChainProgram(programs.Program):
         self.run("bow", self.bow)
 
 
+def keyed(samplers) -> bool:
+    """Whether every sampler is a `ransac.KeyedSampler`, whose keys are drawn
+    apart from the step, as a captured program needs. The entry points run
+    the captured programs for those (every default sampler is one) and the
+    eager bodies for any other sampler, one that draws when called (the
+    tests inject the JAX package's minimal sets that way): a graph cannot
+    replay a host call."""
+    return all(isinstance(s, ransac.KeyedSampler) for s in samplers)
+
+
 def _chain_program(imgs_l, imgs_r, prev: FrameSlots, initialized, samplers, rig, max_distance,
                    fe: FrontendConfig, rc: RansacConfig, steer, bow=None,
                    cache: Optional[programs.ProgramCache] = None) -> ChainProgram:
     """Run K steps of S sequences (imgs [K, S, H, W], samplers K lists of
     S) through the cache's ChainProgram; returns the program."""
-    if not rig.rectified:
-        raise ValueError("the captured front end runs the rectified rig only (the general "
-                         "rig's batched SVD syncs the host)")
     if steer is None:
         steer = orb.steer_table(fe.oriented, rig.device)
     max_distance = torch.as_tensor(max_distance, dtype=torch.float32, device=rig.device)
@@ -477,7 +489,7 @@ def frontend_step_program(img_l, img_r, prev: FrameSlots, prev_usable, sampler,
                           rig: cam_mod.StereoRig, max_distance, fe: FrontendConfig,
                           rc: RansacConfig, steer=None,
                           cache: Optional[programs.ProgramCache] = None) -> StepResult:
-    """`frontend_step` on a rectified rig through the captured program (one
+    """`frontend_step` on the rig's path through the captured program (one
     replay on the card). Equal to `frontend_step` bit for bit; returns new
     tensors."""
     prog = _chain_program(img_l[None, None], img_r[None, None], _select(prev, None),
@@ -490,8 +502,8 @@ def batched_frontend_step_program(imgs_l, imgs_r, prev: FrameSlots, prev_usable,
                                   rig: cam_mod.StereoRig, max_distance, fe: FrontendConfig,
                                   rc: RansacConfig, steer=None,
                                   cache: Optional[programs.ProgramCache] = None) -> StepResult:
-    """`batched_frontend_step` of S sequences on a rectified (shared or
-    stacked) rig through the captured program (one replay on the card).
+    """`batched_frontend_step` of S sequences on a shared or stacked rig
+    (the rigs' path) through the captured program (one replay on the card).
     Equal to it bit for bit; returns new tensors."""
     prog = _chain_program(imgs_l[None], imgs_r[None], prev, prev_usable, [list(samplers)], rig,
                           max_distance, fe, rc, steer, cache=cache)
@@ -501,7 +513,7 @@ def batched_frontend_step_program(imgs_l, imgs_r, prev: FrameSlots, prev_usable,
 def frontend_chain_program(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, samplers,
                            rig, max_distance, fe: FrontendConfig, rc: RansacConfig, steer=None,
                            cache: Optional[programs.ProgramCache] = None):
-    """`frontend_chain` on a rectified rig through the captured program: K
+    """`frontend_chain` on the rig's path through the captured program: K
     replays of the step on the card. Equal to `frontend_chain` bit for bit
     and returns what it returns, as new tensors."""
     prog = _chain_program(imgs_l[:, None], imgs_r[:, None], _select(prev, None),
@@ -515,7 +527,7 @@ def frontend_chain_bow_program(imgs_l, imgs_r, prev: FrameSlots, prev_initialize
                                rig, max_distance, fe: FrontendConfig, rc: RansacConfig, steer,
                                centroids, idf, database, db_size, query_size: int, banks,
                                cache: Optional[programs.ProgramCache] = None):
-    """`frontend_chain_bow` on a rectified rig through the captured program:
+    """`frontend_chain_bow` on the rig's path through the captured program:
     K replays of the step, then one of the scoring body, which writes the
     rings `banks` in place as the eager function does. Equal to
     `frontend_chain_bow` bit for bit and returns what it returns, the
@@ -629,12 +641,11 @@ class VisualOdometer:
         returns the 4x4 relative transform."""
         sampler = self.sampler_for_frame(self._frame_counter)
         self._frame_counter += 1
-        if self.rectified:
+        if keyed([sampler]):
             res = frontend_step_program(
                 self._upload(img_l), self._upload(img_r), self.prev, self.initialized,
                 sampler, self.rig, self.max_distance, self.fe, self.rc, self.steer)
         else:
-            # The general rig stays eager: its batched SVD syncs the host.
             res = frontend_step(
                 self._upload(img_l), self._upload(img_r), self.prev,
                 torch.tensor(self.initialized, device=self.device), sampler,
@@ -669,11 +680,12 @@ class VisualOdometer:
             self._carry_dev = (self.prev, self.initialized)
         args = (self._upload(imgs_l), self._upload(imgs_r), self._carry_dev[0],
                 self._carry_dev[1], samplers, self.rig, self.max_distance, self.fe, self.rc)
-        # The captured programs on the rectified rig; the general rig's
-        # chain stays eager (its batched SVD syncs the host).
+        # The captured programs, on either rig (the eager bodies for host
+        # samplers, see `keyed`).
+        captured = keyed(samplers)
         handle = {"k": k, "bow": None, "banks": None}
         if bow is None:
-            if self.rectified:
+            if captured:
                 carry, stacked = frontend_chain_program(*args, self.steer)
             else:
                 carry, stacked = frontend_chain(*args, self.rectified, self.steer)
@@ -683,7 +695,7 @@ class VisualOdometer:
                 banks = empty_banks(database.shape[0], self.fe.num_features, self.device)
             db_size = torch.as_tensor(db_size, dtype=torch.int64, device=self.device)
             bow_args = (centroids, idf, database, db_size, query_size, banks)
-            if self.rectified:
+            if captured:
                 out = frontend_chain_bow_program(*args, self.steer, *bow_args)
             else:
                 out = frontend_chain_bow(*args, self.rectified, self.steer, *bow_args)

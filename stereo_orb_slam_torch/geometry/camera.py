@@ -5,7 +5,8 @@ PyTorch counterpart of the JAX package's `geometry/camera.py` (ref
 float32 tensors on one device, held in NamedTuples. The rectified path is
 the closed-form disparity -> depth of ref `src/camera_model.cpp:155-228`,
 with a validity mask in place of the reference's dropped points; the general
-path is the DLT of ref `src/camera_model.cpp:123-152` through a batched SVD.
+path is the DLT of ref `src/camera_model.cpp:123-152` through a batched SVD
+(on the card the hand kernel of `ops/kernels/dlt.py`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from stereo_orb_slam_torch.geometry import se3
+from stereo_orb_slam_torch.ops.kernels import dlt
 
 
 def _f32(x, device):
@@ -151,22 +153,17 @@ def undistort_points(cam: Pinhole, uv, iterations: int = 8):
 
 def triangulate_dlt(P1, P2, uv1, uv2):
     """Batched DLT triangulation (cv::triangulatePoints,
-    ref `src/camera_model.cpp:123-152`). [N,2]x2 -> [N,3].
+    ref `src/camera_model.cpp:123-152`). [..., N, 2] x 2 -> [..., N, 3], with
+    [3, 4] projections or one per problem ([..., 1, 3, 4]).
 
     The null vector is the right singular vector of the smallest singular
-    value; its sign is arbitrary and cancels when dehomogenising.
+    value; its sign is arbitrary and cancels when dehomogenising. On the
+    CPU it comes from `torch.linalg.svd` (the plain version), on the card
+    from the hand kernel `csrc/triangulate_dlt.cu` (a float64 Jacobi SVD
+    with no host sync, so the front end's program can be captured); see
+    `ops/kernels/dlt.py`.
     """
-    def rows(P, uv):
-        r1 = uv[..., 0:1] * P[..., 2, :] - P[..., 0, :]
-        r2 = uv[..., 1:2] * P[..., 2, :] - P[..., 1, :]
-        return torch.stack([r1, r2], dim=-2)  # [N,2,4]
-
-    A = torch.cat([rows(P1, uv1), rows(P2, uv2)], dim=-2)  # [N,4,4]
-    _, _, vt = torch.linalg.svd(A)
-    Xh = vt[..., -1, :]
-    w = Xh[..., 3:4]
-    safe_w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
-    return Xh[..., :3] / safe_w
+    return dlt.triangulate_dlt(P1, P2, uv1, uv2)
 
 
 def triangulate_rectified(rig: StereoRig, uv_l, uv_r, max_depth: float = 100.0):

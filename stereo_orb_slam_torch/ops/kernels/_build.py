@@ -25,7 +25,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("hamming_top2", "extract_patches", "orb_describe", "orb_describe_oriented")
+KERNEL_SOURCES = ("hamming_top2", "extract_patches", "orb_describe", "orb_describe_oriented",
+                  "triangulate_dlt")
 
 _lock = threading.Lock()
 _libs: dict = {}

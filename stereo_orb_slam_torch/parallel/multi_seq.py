@@ -5,10 +5,11 @@ vmaps `frontend_step` over a leading sequence axis. Here the sequence axis
 is a real tensor axis through the whole front end
 (`frontend.odometer.batched_frontend_step`): one step of S sequences
 launches `hamming_top2` once and `orb_describe` twice (all left images,
-all right images), whatever S is. On a rectified rig the step runs as the
-front end's captured program (`odometer.batched_frontend_step_program`,
-one graph replay on the card), as the JAX package runs one vmapped
-program. Host map bookkeeping stays per sequence
+all right images), whatever S is. The step runs as the front end's
+captured program (`odometer.batched_frontend_step_program`, one graph
+replay on the card) on stacked rectified and stacked distorted rigs
+alike, as the JAX package runs one vmapped program. Host map bookkeeping
+stays per sequence
 (a `VisualOdometer` and a `WorldMap` each); one device-to-host copy
 brings back every sequence's results.
 
@@ -96,7 +97,6 @@ class MultiSequenceSLAM:
         if local:
             self.rig_batch = stack_rigs(local)
             self.max_d = torch.stack([r.max_sensible_distance() for r in local])
-            self.step = batched_frontend_step(self.fe, self.rc, self.rig_batch.rectified)
             self.steer = orb.steer_table(self.fe.oriented, self.device)
             self.prev = batch_slots([vo.prev for vo in self.vos])
 
@@ -113,15 +113,15 @@ class MultiSequenceSLAM:
             il = torch.as_tensor(imgs_l[lo:hi]).to(self.device)
             ir = torch.as_tensor(imgs_r[lo:hi]).to(self.device)
             usable = torch.as_tensor(self.initialized, device=self.device)
-            if self.rig_batch.rectified:
+            if odometer.keyed(samplers):
                 # The captured step program: one replay for all S sequences.
                 res = odometer.batched_frontend_step_program(
                     il, ir, self.prev, usable, samplers, self.rig_batch, self.max_d, self.fe,
                     self.rc, self.steer)
-            else:
-                # The general rig stays eager: its batched SVD syncs the host.
-                res = self.step(il, ir, self.prev, usable, samplers, self.rig_batch,
-                                self.max_d, self.steer)
+            else:   # host samplers (odometer.keyed): the eager step
+                res = odometer.batched_frontend_step(
+                    il, ir, self.prev, usable, samplers, self.rig_batch, self.max_d, self.fe,
+                    self.rc, self.rig_batch.rectified, self.steer)
             host = odometer._to_host(res)   # one readback for the rank's sequences
             for k, vo in enumerate(self.vos):
                 out[lo + k] = vo._ingest(_sequence(res, k), _sequence(host, k))

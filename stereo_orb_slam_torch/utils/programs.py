@@ -1,7 +1,7 @@
 """Captured programs: the port's counterpart of `jax.jit`.
 
 The JAX package runs each of its hot units (the pose-graph solve, the BA
-LM iteration, the rectified front-end step) as one compiled device
+LM iteration, the front-end step) as one compiled device
 program. Here such a unit is a `Program`: static tensors on one device
 that the unit's bodies read and write in place, and that the unit's
 entry point fills before it runs them. On a CUDA device each body is
@@ -46,6 +46,7 @@ COUNTERS = (
     ("stereo_orb_slam_torch.ops.kernels.describe", "LAUNCHES"),
     ("stereo_orb_slam_torch.ops.kernels.describe", "ORIENTED_LAUNCHES"),
     ("stereo_orb_slam_torch.ops.kernels.patches", "LAUNCHES"),
+    ("stereo_orb_slam_torch.ops.kernels.dlt", "LAUNCHES"),
 )
 
 

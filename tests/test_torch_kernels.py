@@ -26,8 +26,10 @@ torch = pytest.importorskip("torch")
 
 from stereo_orb_slam_torch import convert  # noqa: E402
 from stereo_orb_slam_torch.ops import orb  # noqa: E402
+from synth_distorted import EUROC, dlt_float64  # noqa: E402
+
 from stereo_orb_slam_torch.ops.kernels import (  # noqa: E402
-    describe as dk, hamming as hk, patches as pk,
+    describe as dk, dlt as tk, hamming as hk, patches as pk,
 )
 
 torch.set_num_threads(1)
@@ -253,6 +255,85 @@ def test_batched_oriented_describe_kernel_matches_plain_and_slices(rng, cuda, B,
         assert torch.equal(words[b], one_words) and torch.equal(theta[b], one_theta)
 
 
+# The batched DLT: the points of valid slots 1.5-5 m deep within
+# DLT_PLAIN_ATOL of the plain version (the float32 SVD's own error there is
+# about 1e-5 m: chip_smoke.py's card-against-CPU bound for the front end's
+# points, 1e-4 m), every valid point within DLT_F64_RTOL of a float64 DLT
+# relative to its depth (the kernel is that DLT rounded once to float32),
+# also 45-100 m deep, and invalid slots (zero pixels) finite.
+DLT_PLAIN_ATOL = 1e-4
+DLT_F64_RTOL = 2e-6
+
+
+def _euroc_projections(baseline):
+    K = np.array([[EUROC["fx"], 0, EUROC["cx"]], [0, EUROC["fx"], EUROC["cy"]], [0, 0, 1.0]])
+    t = np.array([[-baseline], [0.0], [0.0]])
+    return ((K @ np.hstack([np.eye(3), np.zeros((3, 1))])).astype(np.float32),
+            (K @ np.hstack([np.eye(3), t])).astype(np.float32))
+
+
+def _dlt_problem(rng, P1, P2, n):
+    """[n, 2] pixel pairs: the first half 1.5-5 m deep, the rest 45-100 m, a
+    quarter of the slots zero (invalid); returns (uv1, uv2, near, valid)."""
+    z = np.where(np.arange(n) < n // 2, rng.uniform(1.5, 5.0, n), rng.uniform(45.0, 100.0, n))
+    X = np.stack([rng.uniform(-0.7, 0.7, n) * z, rng.uniform(-0.5, 0.5, n) * z, z], 1)
+
+    def pix(P):
+        x = X @ P[:, :3].T.astype(np.float64) + P[:, 3]
+        return (x[:, :2] / x[:, 2:]).astype(np.float32)
+
+    uv1 = pix(P1) + rng.normal(0, 0.3, (n, 2)).astype(np.float32)
+    uv2 = pix(P2)
+    valid = rng.random(n) >= 0.25
+    uv1[~valid] = 0.0
+    uv2[~valid] = 0.0
+    return uv1, uv2, np.arange(n) < n // 2, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["shared", "stacked", "edges"])
+def test_dlt_kernel_matches_plain_and_float64(rng, cuda, layout):
+    """S = 1 ([1, N, 2] with one rig, as the front end's step passes it),
+    S = 2 with a stacked rig of two baselines (P [2, 1, 3, 4]) and E = 5
+    loop edges' column slices of [E, N, 4] banks, at N = 1024: one launch
+    each."""
+    n = 1024
+    rigs = [_euroc_projections(EUROC["baseline"])]
+    if layout == "stacked":
+        rigs.append(_euroc_projections(0.2))
+    B = {"shared": 1, "stacked": 2, "edges": 5}[layout]
+    cases = [_dlt_problem(rng, *rigs[b % len(rigs)], n) for b in range(B)]
+    uv1, uv2 = (torch.from_numpy(np.stack([c[i] for c in cases])).to(cuda) for i in (0, 1))
+    if layout == "stacked":
+        P1, P2 = (torch.from_numpy(np.stack([r[i] for r in rigs])).to(cuda)[:, None]
+                  for i in (0, 1))
+    else:
+        P1, P2 = (torch.from_numpy(rigs[0][i]).to(cuda) for i in (0, 1))
+    if layout == "edges":
+        bank = torch.cat([uv1, uv2], dim=-1)
+        uv1, uv2 = bank[..., :2], bank[..., 2:]
+        assert not uv1.is_contiguous()
+    before = tk.LAUNCHES
+    got = tk.triangulate_dlt(P1, P2, uv1, uv2)
+    plain = tk.triangulate_dlt_plain(P1, P2, uv1, uv2)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 1 and got.shape == (B, n, 3)
+    got, plain = got.cpu().numpy(), plain.cpu().numpy()
+    assert np.isfinite(got).all()
+    for b, (u1, u2, near, valid) in enumerate(cases):
+        Q1, Q2 = rigs[b % len(rigs)]
+        x64 = dlt_float64(Q1, Q2, u1[valid], u2[valid])
+        gap = np.abs(got[b][valid] - x64).max(1) / np.abs(x64[:, 2])
+        assert gap.max() <= DLT_F64_RTOL, gap.max()
+        np.testing.assert_allclose(got[b][near & valid], plain[b][near & valid], rtol=0,
+                                   atol=DLT_PLAIN_ATOL)
+    if B > 1:   # [B, 3, 4] is not the stacked rig's [B, 1, 3, 4]
+        with pytest.raises(ValueError, match="one projection per problem"):
+            tk.triangulate_dlt(P1.reshape(-1, 3, 4)[:1].expand(B, 3, 4).contiguous(),
+                               P2.reshape(-1, 3, 4)[:1].expand(B, 3, 4).contiguous(), uv1,
+                               uv2)
+
+
 def test_batched_wrappers_check_their_batch():
     d = torch.zeros((2, 4, 8), dtype=torch.int32)
     v = torch.ones((2, 4), dtype=torch.bool)
@@ -330,11 +411,12 @@ def test_pair_and_describe_wrappers_reject_bad_input():
 def test_cpu_tensors_take_the_plain_version():
     d = torch.zeros((4, 8), dtype=torch.int32)
     v = torch.ones(4, dtype=torch.bool)
-    before = (hk.LAUNCHES, pk.LAUNCHES, dk.LAUNCHES)
+    before = (hk.LAUNCHES, pk.LAUNCHES, dk.LAUNCHES, tk.LAUNCHES)
     hk.hamming_top2(d, d, v)
     hk.hamming_top2_pair(d, d, v, d, v)
     pk.extract_patches(torch.zeros((40, 50)), torch.zeros(2, dtype=torch.int32),
                        torch.zeros(2, dtype=torch.int32), 32)
     dk.orb_describe(torch.zeros((40, 50)), torch.zeros((2, 2)), torch.ones(2, dtype=torch.bool),
                     orb.steer_table(False, "cpu"))
-    assert (hk.LAUNCHES, pk.LAUNCHES, dk.LAUNCHES) == before
+    tk.triangulate_dlt(torch.eye(3, 4), torch.eye(3, 4), torch.zeros(2, 2), torch.zeros(2, 2))
+    assert (hk.LAUNCHES, pk.LAUNCHES, dk.LAUNCHES, tk.LAUNCHES) == before

@@ -9,7 +9,10 @@ The units: `pg_solve` (a 40-vertex graph with 2 loop edges), `ba_solve`
 on the dense, banded and matrix-free paths and the chunked `lm_init` +
 `ba_resume` (a 64-camera banded problem), `frontend_step`,
 `frontend_chain` and `frontend_chain_bow` over 5 rectified PlaneScene
-frames, and the multi-sequence step at S = 2. The cases marked `cuda`
+frames and over 5 frames of the distorted rig (tests/synth_distorted.py:
+the undistort and the batched DLT inside the step), and the
+multi-sequence step at S = 2 on stacked rectified and stacked distorted
+rigs. The cases marked `cuda`
 repeat them with real graphs on the card and skip without one:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_programs.py
@@ -27,6 +30,7 @@ torch = pytest.importorskip("torch")
 
 from synth import PlaneScene  # noqa: E402
 from synth_ba import banded_problem  # noqa: E402
+from synth_distorted import DistortedPlaneScene  # noqa: E402
 
 from stereo_orb_slam_torch.backend import ba, pose_graph as pg  # noqa: E402
 from stereo_orb_slam_torch.config import (  # noqa: E402
@@ -182,7 +186,7 @@ def test_lm_program_is_found_again_for_a_new_problem_of_its_shape(cache, ba_case
     assert (cache.builds, cache.hits) == (1, 1)
 
 
-# -- the rectified front end ------------------------------------------------
+# -- the front end, rectified and general ----------------------------------
 
 def _rig(scene, device):
     right = np.eye(4, dtype=np.float32)
@@ -200,6 +204,17 @@ def frames():
     return scene, np.stack([a for a, _ in imgs]), np.stack([b for _, b in imgs])
 
 
+@pytest.fixture(scope="module")
+def general_frames():
+    """tests/synth_distorted.py's scene (fx 220, k1 -0.15, k2 0.03, baseline
+    0.4 m, the plane at 11 m) moving 4 whole pixels a frame in undistorted
+    coordinates, and its distorted rig (rectified False)."""
+    scene = DistortedPlaneScene(np.random.default_rng(11), depth=11.0)
+    step = 4 * scene.depth / scene.fx
+    imgs = [(scene.render(step * i), scene.render(step * i, right=True)) for i in range(FRAMES)]
+    return scene, np.stack([a for a, _ in imgs]), np.stack([b for _, b in imgs])
+
+
 def _samplers(seed, k, device):
     out = []
     for i in range(k):
@@ -212,30 +227,44 @@ def _samplers(seed, k, device):
 FE, RC = FrontendConfig(num_features=N_FEAT), RansacConfig(num_hypotheses=K_HYP)
 
 
-def test_frontend_step_and_chain_programs_equal_eager(device, cache, frames):
-    scene, il, ir = frames
-    rig = _rig(scene, device)
+def _step_and_chain_equal_eager(device, cache, rig, il, ir, min_inliers):
+    rectified = rig.rectified
     il, ir = torch.as_tensor(il, device=device), torch.as_tensor(ir, device=device)
     prev, md = odo.empty_slots(N_FEAT, device), rig.max_sensible_distance()
     want = odo.frontend_chain(il, ir, prev, False, _samplers(7, FRAMES, device), rig, md, FE, RC,
-                              True)
+                              rectified)
     got = odo.frontend_chain_program(il, ir, prev, False, _samplers(7, FRAMES, device), rig, md,
                                      FE, RC, cache=cache)
     assert _equal(got, want)
-    assert [int(x) for x in want[1].num_inliers[1:]] and min(want[1].num_inliers[1:]) > 20
+    assert [int(x) for x in want[1].num_inliers[1:]] and \
+        min(want[1].num_inliers[1:]) > min_inliers
     # The step alone, from the chain's carry: one replay of the same program
     # in a K = 1 shape.
     (carry, init), _ = want
     one = _samplers(99, 1, device)
-    step = odo.frontend_step(il[0], ir[0], carry, init, one[0], rig, md, FE, RC, True)
+    step = odo.frontend_step(il[0], ir[0], carry, init, one[0], rig, md, FE, RC, rectified)
     again = odo.frontend_step_program(il[0], ir[0], carry, init, _samplers(99, 1, device)[0],
                                       rig, md, FE, RC, cache=cache)
     assert _equal(again, step)
 
 
-def test_frontend_chain_bow_program_equals_eager(device, cache, frames):
+def test_frontend_step_and_chain_programs_equal_eager(device, cache, frames):
     scene, il, ir = frames
-    rig = _rig(scene, device)
+    _step_and_chain_equal_eager(device, cache, _rig(scene, device), il, ir, 20)
+
+
+def test_general_frontend_step_and_chain_programs_equal_eager(device, cache, general_frames):
+    """The distorted rig through the same program: the undistort and the
+    batched DLT (on the card the sync-free kernel) inside the step."""
+    scene, il, ir = general_frames
+    rig = scene.make_rig(device)
+    assert not rig.rectified
+    _step_and_chain_equal_eager(device, cache, rig, il, ir, 10)
+    key = next(iter(cache._programs))
+    assert False in key   # the rig's path is part of the program's key
+
+
+def _chain_bow_equal_eager(device, cache, rig, il, ir):
     il, ir = torch.as_tensor(il, device=device), torch.as_tensor(ir, device=device)
     gen = torch.Generator().manual_seed(3)
     centroids = torch.randint(-2 ** 31, 2 ** 31 - 1, (64, 8), generator=gen,
@@ -248,7 +277,7 @@ def test_frontend_chain_bow_program_equals_eager(device, cache, frames):
     def run(fn, **kw):
         banks = odo.empty_banks(16, N_FEAT, device)
         return fn(il, ir, odo.empty_slots(N_FEAT, device), False, _samplers(5, FRAMES, device),
-                  rig, rig.max_sensible_distance(), FE, RC, *(() if kw else (True,)),
+                  rig, rig.max_sensible_distance(), FE, RC, *(() if kw else (rig.rectified,)),
                   None, centroids, idf, database, torch.tensor(2, device=device), 3, banks,
                   **kw)
 
@@ -259,16 +288,24 @@ def test_frontend_chain_bow_program_equals_eager(device, cache, frames):
     assert got[4] is not database   # a new database, as the eager function returns
 
 
-def test_multi_sequence_step_program_equals_eager(device, cache, frames):
+def test_frontend_chain_bow_program_equals_eager(device, cache, frames):
     scene, il, ir = frames
-    rigs = [_rig(scene, device), _rig(PlaneScene(np.random.default_rng(11), fx=210.0), device)]
+    _chain_bow_equal_eager(device, cache, _rig(scene, device), il, ir)
+
+
+def test_general_frontend_chain_bow_program_equals_eager(device, cache, general_frames):
+    scene, il, ir = general_frames
+    _chain_bow_equal_eager(device, cache, scene.make_rig(device), il, ir)
+
+
+def _multi_sequence_equal_eager(device, cache, rigs, il, ir):
     rig = multi_seq.stack_rigs(rigs)
     md = torch.stack([r.max_sensible_distance() for r in rigs])
     imgs_l = torch.as_tensor(il[:2], device=device)
     imgs_r = torch.as_tensor(ir[:2], device=device)
     prev = multi_seq.batch_slots([odo.empty_slots(N_FEAT, device)] * 2)
     usable = torch.tensor([False, False], device=device)
-    step = multi_seq.batched_frontend_step(FE, RC, True)
+    step = multi_seq.batched_frontend_step(FE, RC, rig.rectified)
     for frame in range(2):
         want = step(imgs_l, imgs_r, prev, usable, _samplers(20 + frame, 2, device), rig, md,
                     None)
@@ -280,6 +317,36 @@ def test_multi_sequence_step_program_equals_eager(device, cache, frames):
         imgs_l, imgs_r = torch.as_tensor(il[2:4], device=device), torch.as_tensor(
             ir[2:4], device=device)
     assert cache.builds == 1 and cache.hits == 1
+
+
+def test_multi_sequence_step_program_equals_eager(device, cache, frames):
+    scene, il, ir = frames
+    rigs = [_rig(scene, device), _rig(PlaneScene(np.random.default_rng(11), fx=210.0), device)]
+    _multi_sequence_equal_eager(device, cache, rigs, il, ir)
+
+
+def test_general_multi_sequence_step_program_equals_eager(device, cache, general_frames):
+    """Two distorted rigs stacked (their own intrinsics and baselines): the
+    DLT takes each sequence's projections by its batch index."""
+    scene, il, ir = general_frames
+    other = DistortedPlaneScene(np.random.default_rng(11), fx=210.0, baseline=0.35, k1=-0.1)
+    _multi_sequence_equal_eager(device, cache, [scene.make_rig(device),
+                                                other.make_rig(device)], il, ir)
+
+
+def test_multi_sequence_slam_runs_the_program_on_distorted_rigs(monkeypatch, general_frames):
+    """MultiSequenceSLAM steps stacked distorted rigs through the captured
+    step, as it steps rectified ones."""
+    scene, il, ir = general_frames
+    calls = []
+    real = odo.batched_frontend_step_program
+    monkeypatch.setattr(odo, "batched_frontend_step_program",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    multi = multi_seq.MultiSequenceSLAM([scene.make_rig("cpu")] * 2, FE, RC)
+    for i in range(2):
+        poses = multi.process(np.stack([il[i]] * 2), np.stack([ir[i]] * 2))
+        assert np.isfinite(np.stack(poses)).all()
+    assert calls == [1, 1]
 
 
 def test_captured_front_end_needs_keyed_samplers(cache, frames):
