@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--profile PATH]
+    python3 chip_smoke.py [--profile PATH] [--out DIR]
 
 Phases, each of which fails the run when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
@@ -179,6 +179,31 @@ Phases, each of which fails the run when it fails:
      solve and 3 window LM iterations under torch.profiler, captured and
      eager (_programs). The program cache's captures and replays per body
      are printed at the end.
+  14. the canyon drive at its full length (after phase 13): the tree of
+     benchmarks/canyon_drive.py's default --frames 1216 (six 200-frame
+     circuits A A B A B A: 1200 frames, 63.94 m), rendered by
+     tests/synth_canyon.py in a background child process from the start of
+     the run (all but two CPUs, lowest priority), through `apps.slam.main`
+     with phase 12's flags: every frame tracked, ATE < CANYON_LONG_ATE_M
+     (1.5 x the JAX package's ATE on the same tree, tests/canyon_witness.py
+     --frames 1216, + 0.01 m), a live closure where the JAX trace has loop
+     exits, one live closure per exit of the port's own trace with a loop
+     edge measured each, edges at finish, exact launches, the BoW batches
+     the trajectory gives (the 16-frame remainder runs frame by frame) and
+     no program built again after an eviction (each loop-edge bucket
+     captured once); live fps, median ms, finish split, exit frames beside
+     JAX's, each closure's stall split (pg_solve, the loop-edge batch with
+     E and E_pad, the rest), points, peak memory. Then the loop-edge batch
+     captured (`apps.slam.EdgeProgram`, one replay at E_pad) against eager
+     at E on the largest recorded batch of each bucket reached, bit for
+     bit and timed, and from device rings before and after they are
+     replaced by grown copies; the CG iterations that run in every
+     Gauss-Newton step of the drive's pose-graph solves (an eager count;
+     with --out DIR the graphs go to DIR/canyon_long_graphs.npz for
+     tests/pg_cg_witness.py); hamming_top2 at the largest batch's shape
+     (B = E_pad) against its plain version (record path "canyon_long").
+     The front end's kernels at this path's frame 1 are phase 12's: the
+     same scene, rig, image size and configs.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -187,6 +212,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import shutil
 import dataclasses
 import json
 import os
@@ -1691,6 +1717,483 @@ def phase_canyon_vo(c, frames=CANYON_VO_FRAMES, device="cuda"):
         f" / {rec['refit']['rpe_m']:.5f} m; failures {rec['shipped']['ransac_failures']} / "
         f"{rec['refit']['ransac_failures']}")
     return rec
+
+
+# The canyon drive at its full length (benchmarks/canyon_drive.py's
+# default --frames 1216: six circuits of 200 frames, A A B A B A, 1200
+# frames), with live closures. The witness is tests/canyon_witness.py
+# --frames 1216: the JAX package's SLAM CLI on the CPU over the same tree
+# and flags, its finish not cut by the 150 s budget (PERF.md).
+CANYON_LONG_FRAMES = 1216
+CANYON_LONG_JAX_ATE_M = 1.348
+CANYON_LONG_ATE_M = 1.5 * CANYON_LONG_JAX_ATE_M + 0.01
+CANYON_LONG_JAX_EXIT_FRAMES = (257, 466)
+
+
+def _start_canyon_long_render(root):
+    """Start rendering the long drive's tree in the background: a child
+    process running tests/synth_canyon.py with all but two of the CPUs, at
+    the lowest priority, so the phases before the long drive keep the host.
+    Returns (process, folder)."""
+    folder = os.path.join(root, "canyon_long")
+    workers = max(1, (os.cpu_count() or 4) - 2)
+    proc = subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, os.path.join(ROOT, "tests", "synth_canyon.py"),
+         "--out", folder, "--frames", str(CANYON_LONG_FRAMES), "--workers", str(workers)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    return proc, folder
+
+
+def _stop(proc):
+    """Kill a background process and its process group (the render's pool)."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def _finish_canyon_long_render(proc, folder, timeout=900):
+    """Wait for the background render; the tree's description as
+    `_render_canyon` gives it."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode:
+        raise RuntimeError(f"the long canyon render failed ({proc.returncode}): {err[-2000:]}")
+    info = json.loads(out.strip().splitlines()[-1])
+    log(f"long canyon tree: {info['frames']} frames, path {info['path_m']:.3f} m, rendered in "
+        f"{info['seconds']:.1f} s in the background")
+    return {"folder": folder, "gt": info["gt"], "path_m": info["path_m"],
+            "frames": info["frames"], "camera": os.path.join(folder, "calib.txt"),
+            "render_seconds": info["seconds"]}
+
+
+@contextlib.contextmanager
+def _recording_graphs():
+    """While inside, every pose-graph solve of PoseGraphOptimizer appends
+    its input problem and config to the yielded list (references: the
+    solve reads its problem and does not change it)."""
+    from stereo_orb_slam_torch.backend import pose_graph
+
+    solve, graphs = pose_graph.pg_solve_program, []
+
+    def recording(prob, cfg, cache=None):
+        graphs.append((prob, cfg))
+        return solve(prob, cfg, cache)
+
+    pose_graph.pg_solve_program = recording
+    try:
+        yield graphs
+    finally:
+        pose_graph.pg_solve_program = solve
+
+
+def _program_delta(before, after):
+    """Each body's program-cache counters between two `stats` snapshots."""
+    return {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v} for k, v in after.items()}
+
+
+def phase_canyon_long(c, out_dir, device="cuda"):
+    """The SLAM app on the card over the long canyon tree with the drive's
+    flags (those of phase 12). Needs every frame tracked, ATE after finish
+    below CANYON_LONG_ATE_M (1.5 x the JAX witness's + 0.01 m), a live
+    closure where the JAX trace has a loop exit, live closures equal to
+    the loop exits of the port's own trace and each with a loop edge
+    measured, loop edges at finish, the exact launches of
+    _slam_launches_expected, the BoW batches the trajectory gives, and no
+    program built again after an eviction during the drive (the loop-edge
+    buckets captured once each). Records live fps, median ms a frame, the
+    finish split into pose graph and final BA, loop episodes and exit
+    frames beside the JAX trace's, each closure's stall split (pg_solve,
+    the loop-edge batch with E and E_pad, the rest), points, the card's
+    peak memory and the program cache's captures. Returns (record, system,
+    the recorded pose graphs)."""
+    import torch
+
+    import synth_canyon
+
+    from stereo_orb_slam_torch.apps import slam
+    from stereo_orb_slam_torch.utils import programs
+
+    cache = programs.PROGRAMS
+    stats0, rebuilds0, builds0 = copy.deepcopy(cache.stats), cache.rebuilds, cache.builds
+    if _is_cuda(device):
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with _recording_graphs() as graphs:
+        summary = slam.main(["--dataset", "kitti", "--folder", c["folder"], "--camera",
+                             c["camera"], "--output_dir", out_dir, "--gt", c["gt"],
+                             *synth_canyon.CANYON_FLAGS, "--device", device])
+    launches = _read_launches()
+    _sync(device)
+    peak = torch.cuda.max_memory_allocated() if _is_cuda(device) else None
+    system = summary["system"]
+    n, world = summary["frames"], system.world
+    k = system.cfg.batch_frames
+    expected, _, edges, edge_batches = _slam_launches_expected(system, n, k)
+    # The trajectory's own count of BoW scoring batches: the fused batches
+    # after the one the vocabulary trained in, and one per frame of the
+    # remainder that runs frame by frame.
+    vocab_batches = -(-SLAM_VOCAB_FRAMES // k)
+    bow_expected = n // k - vocab_batches + n % k
+    thresh = system.cfg.loop.is_loop_thresh
+    events = synth_canyon.loop_events(os.path.join(out_dir, "loop_matches.txt"), thresh,
+                                      system.cfg.loop.not_loop_thresh)
+    hist = system.pgo.history
+    live = [h for h in hist if h["live"]]
+    timers = system.timers.summary()
+    closures = []
+    for h in hist:
+        split = h["wall_split_seconds"]
+        closures.append({
+            "live": h["live"], "frame": h["num_vertices"], "edges": h["loop_edges_measured"],
+            "edges_padded": h["loop_edges_padded"], "loop_edges": h["num_loop_edges"],
+            "stall_s": h["wall_seconds"], "pg_solve_s": split["pg_solve_writeback"],
+            "loop_edge_batch_s": split["loop_edge_batch"],
+            "rest_s": h["wall_seconds"] - split["pg_solve_writeback"]
+            - split["loop_edge_batch"]})
+    programs_drive = _program_delta(stats0, cache.stats)
+    edge_bodies = programs_drive.get("EdgeProgram.measure", {})
+    buckets = sorted({h["loop_edges_padded"] for h in hist if h["loop_edges_measured"]})
+    rec = {
+        "frames": n, "tracked": world.num_frames, "batch_frames": k,
+        "live_fps": summary["live_fps"], "fps": summary["fps"],
+        "median_ms": summary["median_ms"], "finish_seconds": summary["finish_seconds"],
+        "finish_split_s": {"pose_graph": timers["pose_graph.final"]["total_s"],
+                           "final_ba": timers["ba.final"]["total_s"]},
+        "finish_ba": {"pose_graph_ba": summary["finish"]["pose_graph"].get("global_ba"),
+                      "final_ba": summary["finish"].get("final_ba")},
+        "ate_m": summary["ate_m"], "live_ate_m": summary["live_ate_m"], "rpe": summary["rpe"],
+        "ate_gate_m": CANYON_LONG_ATE_M, "jax_witness_ate_m": CANYON_LONG_JAX_ATE_M,
+        "path_m": c["path_m"], "loop_events": events,
+        "jax_exit_frames": list(CANYON_LONG_JAX_EXIT_FRAMES),
+        "live_closures": len(live), "closures": closures,
+        "edges_measured": edges, "loop_edge_batches": edge_batches, "buckets": buckets,
+        "points": world.num_points, "peak_memory_bytes": peak,
+        "programs": {"builds": cache.builds - builds0, "rebuilds": cache.rebuilds - rebuilds0,
+                     "bodies": programs_drive},
+        "pose_graphs": len(graphs), "timers": timers, "launches": launches,
+        "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
+                              "orb_describe_oriented": 0, "extract_patches": 0,
+                              "triangulate_dlt": 0},
+        "bow_batches": system.fused_score_batches + system.loop.score_batches,
+        "bow_batches_expected": bow_expected,
+    }
+    log(f"long canyon SLAM (--batch_frames {k}): {n} frames, {world.num_frames} tracked, live "
+        f"{rec['live_fps']:.2f} fps, overall {rec['fps']:.2f} fps, median "
+        f"{rec['median_ms']:.2f} ms/frame, finish {rec['finish_seconds']:.2f} s (pose graph "
+        f"{rec['finish_split_s']['pose_graph']:.2f}, final BA "
+        f"{rec['finish_split_s']['final_ba']:.2f}), ATE {rec['ate_m']:.5f} m (live "
+        f"{rec['live_ate_m']:.5f}; gate {CANYON_LONG_ATE_M:.4f}, JAX on the CPU "
+        f"{CANYON_LONG_JAX_ATE_M}) over {c['path_m']:.3f} m, RPE {rec['rpe']}, loop events "
+        f"{events} (JAX exits at {list(CANYON_LONG_JAX_EXIT_FRAMES)}), {len(live)} live "
+        f"closures, {world.num_points} points, peak memory {peak} B")
+    log(f"  finish BAs (iterations, observations, path, chunked): {rec['finish_ba']}")
+    for h in closures:
+        log(f"  {'live' if h['live'] else 'finish'} closure at frame {h['frame']}: stall "
+            f"{h['stall_s']:.4f} s = pg_solve {h['pg_solve_s']:.4f} + loop-edge batch "
+            f"{h['loop_edge_batch_s']:.4f} (E = {h['edges']}, E_pad = {h['edges_padded']}, "
+            f"{h['loop_edges']} kept) + rest {h['rest_s']:.4f}")
+    log(f"  launches {launches}, expected {rec['launches_expected']} ({rec['bow_batches']} BoW "
+        f"batches, {edges} loop edges in {edge_batches} batches, buckets {buckets}); programs "
+        f"built {rec['programs']['builds']}, rebuilt {rec['programs']['rebuilds']}; loop-edge "
+        f"program {edge_bodies}")
+    poses = world.pose_global[: world.num_frames]
+    if not (np.isfinite(poses).all() and world.num_frames == n == c["frames"]):
+        raise AssertionError("long canyon SLAM: poses are not finite, or frames were lost")
+    if CANYON_LONG_JAX_EXIT_FRAMES and not live:
+        raise AssertionError("long canyon SLAM: no live closure, where the JAX trace has "
+                             f"loop exits at frames {CANYON_LONG_JAX_EXIT_FRAMES}")
+    if len(live) != events["exits"] or any(h["loop_edges_measured"] < 1 for h in live):
+        raise AssertionError(f"long canyon SLAM: {len(live)} live closures for "
+                             f"{events['exits']} loop exits, or one measured no loop edge")
+    if not (hist and not hist[-1]["live"] and hist[-1]["num_loop_edges"] >= 1):
+        raise AssertionError("long canyon SLAM: no loop edge was measured at finish")
+    if not rec["ate_m"] < CANYON_LONG_ATE_M:
+        raise AssertionError(f"long canyon SLAM: ATE {rec['ate_m']} m is not below "
+                             f"{CANYON_LONG_ATE_M} m")
+    if rec["bow_batches"] != bow_expected:
+        raise AssertionError(f"long canyon SLAM: {rec['bow_batches']} BoW scoring batches, "
+                             f"the trajectory gives {bow_expected}")
+    if _is_cuda(device) and launches != rec["launches_expected"]:
+        raise AssertionError(f"long canyon SLAM: launches {launches}, expected "
+                             f"{rec['launches_expected']}")
+    if _is_cuda(device) and (rec["programs"]["rebuilds"]
+                             or edge_bodies.get("captures") != len(buckets)):
+        raise AssertionError(f"long canyon SLAM: {rec['programs']['rebuilds']} programs built "
+                             f"again after eviction, or loop-edge captures {edge_bodies} for "
+                             f"buckets {buckets}")
+    return rec, system, graphs
+
+
+def phase_canyon_long_ba(system, iterations=4, device="cuda"):
+    """Where the finish's time goes: the final BA's problem over the drive's
+    world (a copy, all frames but the last, as finish() solves it) built
+    and uploaded (`BundleAdjuster.prepare`, host seconds), then, after a
+    warm solve of one iteration, `iterations` LM iterations of it under
+    torch.profiler, with a wall cap as the finish gives one (60 s, which
+    takes the chunked path: a probe chunk, then chunks sized from the
+    measured rate) and uncapped: wall and device ms per LM iteration, the
+    device's idle share and the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_orb_slam_torch.backend.ba import BundleAdjuster
+
+    world = copy.deepcopy(system.world)
+    ba = BundleAdjuster(world, system.rig, system.cfg.ba)
+    n = world.num_frames
+    t0 = time.perf_counter()
+    setup = ba.prepare(0, n - 1)
+    rec = {"cameras": setup.num_cams, "points": setup.num_points,
+           "observations": setup.num_obs, "padded": [setup.C_pad, setup.P_pad, setup.O_pad],
+           "path": setup.path, "prepare_s": time.perf_counter() - t0}
+    for name, cap in (("capped", 60.0), ("uncapped", None)):
+        ba.optimize(0, n - 1, max_iterations=1, max_seconds=cap)   # captures, off the record
+        _sync(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            stats = ba.optimize(0, n - 1, max_iterations=iterations, max_seconds=cap)
+            _sync(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        its = max(stats["iterations"], 1)
+        rec[name] = {"iterations": stats["iterations"], "chunked": stats["chunked"],
+                     "wall_ms": wall_ms, "wall_ms_per_iteration": wall_ms / its,
+                     "device_ms_per_iteration": device_ms / its,
+                     "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+                     "top_kernels_ms_per_iteration": {
+                         e.key[:80]: e.self_device_time_total / 1e3 / its for e in top}}
+    log(f"long canyon final BA's problem: {rec['cameras']} cameras, {rec['points']} points, "
+        f"{rec['observations']} observations (padded {rec['padded']}), path {rec['path']}; "
+        f"prepare {rec['prepare_s']:.2f} s; "
+        + "; ".join(f"{m}: {r['iterations']} LM iterations (chunked {r['chunked']}) in "
+                    f"{r['wall_ms']:.1f} ms, {r['wall_ms_per_iteration']:.1f} ms wall and "
+                    f"{r['device_ms_per_iteration']:.1f} ms device each (idle "
+                    f"{r['idle_share']:.3f}), top kernels {r['top_kernels_ms_per_iteration']}"
+                    for m, r in ((m, rec[m]) for m in ("capped", "uncapped"))))
+    return rec
+
+
+def _keyed_edge_samplers(num_hypotheses, device, plain=False):
+    """sampler_for_edge giving the matcher's own default draws (seed 1234);
+    with `plain`, each wrapped as a plain callable, which runs the eager
+    body at the exact E."""
+    import torch
+
+    from stereo_orb_slam_torch.apps import slam
+    from stereo_orb_slam_torch.frontend import ransac
+
+    def sampler_for(i):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(slam._edge_seed(1234, i))
+        smp = ransac.gumbel_sampler(gen, num_hypotheses)
+        return (lambda valid: smp(valid)) if plain else smp
+
+    return sampler_for
+
+
+def phase_canyon_long_edges(system, device="cuda", reps=4):
+    """The loop-edge batch, captured against eager, on the drive's own edge
+    lists: for each bucket the drive reached, its largest recorded batch,
+    measured from a copy of the world after the run (the host mirrors,
+    which the drive's last frames and its finish read) by the program
+    (keyed samplers: one replay at E_pad) and by the eager body at the
+    exact E (the same draws through plain callables), each on a fresh copy:
+    flags, transforms, inlier counts and merges bit for bit; wall ms (a
+    synced start to the readback and merges, median of reps - 1 after a
+    warm call) and hamming_top2 launches (one each). Then the largest
+    batch from device rings, and again after the rings were replaced by
+    grown copies and the old storage scrambled (as SlamSystem grows them):
+    bit for bit the eager batch both times. Returns (records, the largest
+    batch's edges)."""
+    import torch
+
+    from stereo_orb_slam_torch.apps import slam
+    from stereo_orb_slam_torch.frontend.odometer import empty_banks
+    from stereo_orb_slam_torch.ops.kernels import hamming
+    from stereo_orb_slam_torch.utils import programs
+
+    system.sync_feature_banks()   # the host mirrors, current
+    world, cfg, rig = system.world, system.cfg, system.rig
+    K = cfg.ransac.num_hypotheses
+    lists = {}
+    for h in system.pgo.history:
+        e = h["loop_edges"]
+        if e and len(e) > len(lists.get(slam.edge_bucket(len(e)), [])):
+            lists[slam.edge_bucket(len(e))] = e
+
+    def measure(edges, plain, bank_getter=None, w=None):
+        w = copy.deepcopy(world) if w is None else w
+        m = slam.make_loop_matcher(w, rig, cfg, bank_getter=bank_getter,
+                                   sampler_for_edge=_keyed_edge_samplers(K, device, plain))
+        _sync(device)
+        h0 = hamming.LAUNCHES
+        t0 = time.perf_counter()
+        res = m.batch(edges)
+        _sync(device)
+        return res, (time.perf_counter() - t0) * 1e3, hamming.LAUNCHES - h0, m, w
+
+    def same(a, b):
+        (ra, _, _, ma, wa), (rb, _, _, mb, wb) = a, b
+        return (ma.last["ok"] == mb.last["ok"]
+                and ma.last["num_inliers"] == mb.last["num_inliers"]
+                and all(np.array_equal(za, zb) for (za, _), (zb, _) in zip(ra, rb))
+                and np.array_equal(wa.point_parent, wb.point_parent))
+
+    records = []
+    for bucket, edges in sorted(lists.items()):
+        runs = {}
+        for name, plain in (("captured", False), ("eager", True)):
+            first = measure(edges, plain)
+            times = [measure(edges, plain)[1] for _ in range(reps)]
+            runs[name] = (first, statistics.median(times[1:]))
+        (cap, cap_ms), (eag, eag_ms) = runs["captured"], runs["eager"]
+        r = {"edges": len(edges), "edges_padded": bucket, "ok": sum(cap[3].last["ok"]),
+             "bits_equal": same(cap, eag), "captured_ms": cap_ms, "eager_ms": eag_ms,
+             "hamming_launches": [cap[2], eag[2]]}
+        records.append(r)
+        log(f"loop-edge batch E = {r['edges']} (E_pad {bucket}, {r['ok']} measured): captured "
+            f"{cap_ms:.2f} ms, eager {eag_ms:.2f} ms, bits equal {r['bits_equal']}, "
+            f"hamming_top2 launches {r['hamming_launches']}")
+        if (not r["bits_equal"] or not r["ok"]
+                or (_is_cuda(device) and r["hamming_launches"] != [1, 1])):
+            raise AssertionError(f"loop-edge program against eager: {r}")
+
+    # Rings, then rings replaced by grown copies.
+    edges = lists[max(lists)]
+    nf, n = world.num_frames, cfg.frontend.num_features
+    rings = empty_banks(nf, n, device)
+    rings[0][:nf] = torch.from_numpy(world.frame_desc[:nf].view(np.int32)).to(device)
+    rings[1][:nf] = torch.from_numpy(world.frame_feat_valid[:nf]).to(device)
+    rings[2][:nf] = torch.from_numpy(world.frame_feat_uv[:nf]).to(device)
+    current = [rings]
+    eager = measure(edges, True)
+    w = copy.deepcopy(world)
+    before = measure(edges, False, lambda: current[0], w)
+    grown = empty_banks(2 * nf, n, device)
+    for new, old in zip(grown, rings):
+        new[:nf + 1] = old
+        old[:nf] = old[:nf].flip(0)
+    current[0] = grown
+    after = measure(edges, False, lambda: current[0], copy.deepcopy(world))
+    rings_rec = {"edges": len(edges), "before_growth_equal": same(before, eager),
+                 "after_growth_equal": same(after, eager)}
+    # Where the captured batch's time goes: the keys drawn (one sampler per
+    # edge), the banks gathered from the rings into the static inputs, the
+    # replay, the readback (each synced; medians of reps).
+    E, E_pad = len(edges), slam.edge_bucket(len(edges))
+    prog = programs.PROGRAMS.get(
+        slam.EdgeProgram.key(E_pad, n, rig, cfg.frontend, cfg.ransac),
+        lambda: slam.EdgeProgram(E_pad, n, rig, cfg.frontend, cfg.ransac))
+    src, dst = [s for s, _ in edges], [d for _, d in edges]
+    split = {"keys": [], "load": [], "replay": [], "readback": []}
+    for _ in range(reps):
+        samplers = [_keyed_edge_samplers(K, device)(i) for i in range(E)]
+        _sync(device)
+        t0 = time.perf_counter()
+        for smp in samplers:
+            smp.keys(n, device)
+        _sync(device)
+        t1 = time.perf_counter()
+        samplers = [_keyed_edge_samplers(K, device)(i) for i in range(E)]
+        _sync(device)
+        t2 = time.perf_counter()
+        prog.load(src, dst, samplers, banks=grown)
+        _sync(device)
+        t3 = time.perf_counter()
+        prog.run("measure", prog.measure)
+        _sync(device)
+        t4 = time.perf_counter()
+        prog.outputs(E)
+        t5 = time.perf_counter()
+        for key, a, b in (("keys", t0, t1), ("load", t2, t3), ("replay", t3, t4),
+                          ("readback", t4, t5)):
+            split[key].append((b - a) * 1e3)
+    rings_rec["split_ms"] = {k: statistics.median(v) for k, v in split.items()}
+    rings_rec["split_ms"]["gather"] = rings_rec["split_ms"]["load"] - \
+        rings_rec["split_ms"]["keys"]
+    log(f"loop-edge program at E = {E} (E_pad {E_pad}), ms: {rings_rec['split_ms']} (load = "
+        f"the keys drawn and copied + the banks gathered from the rings)")
+    log(f"loop-edge program from device rings (E = {len(edges)}): equal to eager "
+        f"{rings_rec['before_growth_equal']}, after the rings grew "
+        f"{rings_rec['after_growth_equal']}")
+    if not (rings_rec["before_growth_equal"] and rings_rec["after_growth_equal"]):
+        raise AssertionError(f"loop-edge program from device rings: {rings_rec}")
+    return {"buckets": records, "rings": rings_rec}, edges
+
+
+def phase_canyon_long_cg(graphs, out_path=None, device="cuda"):
+    """The CG iterations that run in each Gauss-Newton step of the drive's
+    pose-graph solves (every live closure and the finish), counted by an
+    eager solve on the card (`pose_graph.cg_iterations_run`, not the
+    captured program); with `out_path`, the graphs and counts as an .npz
+    for tests/pg_cg_witness.py (the port and the JAX package on the CPU)."""
+    from stereo_orb_slam_torch.backend import pose_graph
+
+    out, arrays = [], {}
+    for g, (prob, cfg) in enumerate(graphs):
+        t0 = time.perf_counter()
+        _, counts = pose_graph.cg_iterations_run(prob, cfg)
+        out.append({"vertices": int(prob.poses.shape[0]), "edges": int(prob.edge_a.shape[0]),
+                    "cg_iterations_run": counts.tolist(),
+                    "seconds": time.perf_counter() - t0})
+        if out_path:
+            arrays.update({f"g{g}_{f}": t.cpu().numpy() for f, t in prob._asdict().items()})
+            arrays[f"g{g}_card"] = counts
+    if out_path:
+        np.savez_compressed(out_path, **arrays)
+    cap = graphs[0][1].cg_iterations if graphs else 0
+    below = sum(c < cap for r in out for c in r["cg_iterations_run"])
+    total = sum(len(r["cg_iterations_run"]) for r in out)
+    log(f"pose-graph CG iterations run per GN step (cap {cap}), {len(out)} solves: "
+        + "; ".join(f"{r['vertices']} v: {r['cg_iterations_run']}" for r in out)
+        + f"; {below} of {total} steps exit below the cap")
+    return {"solves": out, "steps_below_cap": below, "steps": total, "cap": cap}
+
+
+def phase_canyon_long_kernel(system, edges, device="cuda"):
+    """hamming_top2 at the loop-edge batch's shape on the long drive: the
+    largest batch's dst descriptors against its src banks, padded to the
+    bucket as the program pads them (B = E_pad, one launch), against its
+    plain version bit for bit and timed (record path "canyon_long")."""
+    import torch
+
+    from stereo_orb_slam_torch.apps import slam
+    from stereo_orb_slam_torch.ops.kernels import hamming
+
+    world = system.world
+    E, E_pad = len(edges), slam.edge_bucket(len(edges))
+    src = [s for s, _ in edges] + [edges[-1][0]] * (E_pad - E)
+    dst = [d for _, d in edges] + [edges[-1][1]] * (E_pad - E)
+    q = torch.from_numpy(world.frame_desc[dst].view(np.int32)).to(device)
+    t = torch.from_numpy(world.frame_desc[src].view(np.int32)).to(device)
+    v = torch.from_numpy(world.frame_feat_valid[src]).to(device)
+    v[E:] = False
+    got = hamming.hamming_top2(q, t, v)
+    want = hamming.hamming_top2_plain(q, t, v)
+    _sync(device)
+    err = _check_equal("hamming_top2 (canyon_long loop edges)", got, want)
+    ms = time_device(lambda: hamming.hamming_top2(q, t, v))
+    call_ms = time_call(lambda: hamming.hamming_top2(q, t, v))
+    plain_ms = time_device(lambda: hamming.hamming_top2_plain(q, t, v))
+    n, m = q.shape[-2], t.shape[-2]
+    bytes_ = E_pad * (n * 32 + m * 32 + m + n * 12)
+    ops = E_pad * 2 * n * m * 256
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / INT8_TENSOR_OPS_PER_S * 1e3
+    rec = _record(
+        "hamming_top2 (canyon_long loop edges)", "stereo_orb_slam_torch/csrc/hamming_top2.cu",
+        "stereo_orb_slam_tpu/ops/pallas/hamming.py:74", "canyon_long",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes > t_ops else "operations", library_ms=None, match=True,
+        call_ms=call_ms, shape=f"B={E_pad} ({E} edges) x N={n} against M={m} (the long "
+                               f"drive's largest loop-edge batch, one launch)")
+    log(f"kernel {rec['name']}: {rec['shape']}; match True, device {ms * 1e3:.2f} us (bound "
+        f"{rec['bound_ms'] * 1e3:.3f} us by {rec['bound_by']}), per call "
+        f"{call_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us")
+    return [rec]
 
 
 MAP_SIZE = dict(C=1000, P=100_000, opc=200)   # tests/test_f32_scale.py's generator
@@ -4020,6 +4523,9 @@ def main(argv=None):
                          "chain it replaced (_oriented before the extension), 3 LM "
                          "iterations of a window and of the map problem (_ba) and 20 SLAM "
                          "frames and a pose-graph solve (_slam)")
+    ap.add_argument("--out", metavar="DIR", default=None,
+                    help="also write the long canyon drive's pose graphs and the card's CG "
+                         "counts to DIR/canyon_long_graphs.npz (for tests/pg_cg_witness.py)")
     args = ap.parse_args(argv)
     phase_card()
     sys.path.insert(0, os.path.join(ROOT, "tests"))  # synth, synth_ba
@@ -4039,7 +4545,9 @@ def main(argv=None):
     timed("build", phase_build)
     records, floor_ms = timed("kernels", phase_kernels, rng)
     records += timed("kernels_batched", phase_batched_kernels, rng)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        long_render = _start_canyon_long_render(tmp)
+        stack.callback(_stop, long_render[0])
         seq, gt = timed("render", _render_sequence, tmp, N_FRAMES)
         timed("cuda_vs_cpu", phase_cuda_vs_cpu, seq)
         summary, launches = timed("main_path", phase_main_path, seq, gt,
@@ -4088,6 +4596,25 @@ def main(argv=None):
                              multi_state, (slam_seq, slam_gt), canyon_data, tmp,
                              {"vo": summary, "slam": slam_runs, "canyon": canyon["slam"],
                               "general": general}, general_data, general_multi_state)
+        long_data = timed("render_canyon_long_wait", _finish_canyon_long_render, *long_render)
+        long_rec, long_system, long_graphs = timed(
+            "canyon_long", phase_canyon_long, long_data, os.path.join(tmp, "canyon_long_out"))
+        canyon_long = {"slam": long_rec, "render_seconds": long_data["render_seconds"]}
+        canyon_long["edges"], long_edges = timed("canyon_long_edges", phase_canyon_long_edges,
+                                                 long_system)
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+        canyon_long["cg"] = timed(
+            "canyon_long_cg", phase_canyon_long_cg, long_graphs,
+            os.path.join(args.out, "canyon_long_graphs.npz") if args.out else None)
+        records += timed("canyon_long_kernels", phase_canyon_long_kernel, long_system,
+                         long_edges)
+        canyon_long["final_ba"] = timed("canyon_long_ba", phase_canyon_long_ba, long_system)
+        if args.out:
+            for name in ("trajectory_slam.txt", "loop_matches.txt"):
+                shutil.copy(os.path.join(tmp, "canyon_long_out", name),
+                            os.path.join(args.out, f"canyon_long_{name}"))
+        del long_system, long_graphs
         gap = abs(slam_runs[4]["ate_m"] - slam_runs[1]["ate_m"])
         log(f"SLAM --batch_frames 4 against 1: ATE {slam_runs[4]['ate_m']:.5f} / "
             f"{slam_runs[1]['ate_m']:.5f} m, gap {gap:.3g} m")
@@ -4121,7 +4648,8 @@ def main(argv=None):
              "multi_seq_general": general["multi_seq"]["launches"],
              "multi_seq": multi_seq["launches"],
              "ba_tracking": tracking["launches"], "slam": slam_runs[1]["launches"],
-             "slam_batch4": slam_runs[4]["launches"], "canyon": canyon["slam"]["launches"]}
+             "slam_batch4": slam_runs[4]["launches"], "canyon": canyon["slam"]["launches"],
+             "canyon_long": canyon_long["slam"]["launches"]}
     for r in records:
         kernel = r["name"].split(" ")[0]
         r["launches"] = paths[r["path"]][kernel]
@@ -4137,6 +4665,7 @@ def main(argv=None):
                     "slam_timers": slam_runs[1]["timers"], "slam_devices": slam_devices,
                     "slam_first_call": first_call}, default=float))
     log(json.dumps({"canyon": canyon}, default=float))
+    log(json.dumps({"canyon_long": canyon_long}, default=float))
     log(json.dumps({"multi_seq": multi_seq, "distributed": distributed}, default=float))
     log(json.dumps({"programs": programs_rec}, default=float))
     from stereo_orb_slam_torch.utils import programs

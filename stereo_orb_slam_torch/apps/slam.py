@@ -17,7 +17,9 @@ re-triangulated through the rig and a rigid transform fitted by RANSAC;
 matched landmark identities are merged in the world map. All edges pending
 at a closure are measured as one batched program (`measure_edges`: one
 `hamming_top2` launch and one RANSAC solve for E edges), as the JAX
-package's `_loop_edges_core` measures them.
+package's `_loop_edges_core` measures them. With keyed samplers (every
+default one) it runs as an `EdgeProgram`, captured once per power-of-two
+bucket of E, as the JAX package compiles one program per bucket.
 
     python -m stereo_orb_slam_torch.apps.slam --dataset kitti --folder SEQ \\
         --camera SEQ/calib.txt --output_dir OUT [--gt GT] [--device cpu]
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import time
 from typing import Callable, Optional
@@ -48,7 +51,7 @@ from stereo_orb_slam_torch.io import calib, datasets, export
 from stereo_orb_slam_torch.loop import LoopDetector, OrbVocabulary
 from stereo_orb_slam_torch.loop.vocab import desc_tensor
 from stereo_orb_slam_torch.ops import match as match_mod
-from stereo_orb_slam_torch.utils import evaluate, logging as slog
+from stereo_orb_slam_torch.utils import evaluate, logging as slog, programs
 from stereo_orb_slam_torch.utils.profiling import StageTimers
 from stereo_orb_slam_torch.worldmap import WorldMap
 
@@ -94,6 +97,114 @@ def measure_edges(d_s, d_d, v_s, v_d, uv_s, uv_d, samplers, rig, fe, rc, rectifi
     return res.transform, idx, res.inlier_mask, res.success, res.num_inliers
 
 
+def frame_banks(ids, banks, world: WorldMap, device, out=None):
+    """The feature banks of frames `ids`: (descriptors [len, N, 8] int32,
+    validity [len, N] bool, ideal observations [len, N, 4] float32),
+    gathered on the device from the rings `banks` (odometer.empty_banks)
+    or, when `banks` is None, uploaded from `world`'s host mirrors;
+    written into `out`'s tensors when given."""
+    out = out or (None, None, None)
+    if banks is not None:
+        rows = torch.as_tensor(np.asarray(ids, np.int64), device=device)
+        return tuple(torch.index_select(b, 0, rows, out=o) for b, o in zip(banks, out))
+    got = []
+    for mirror, o in zip((world.frame_desc, world.frame_feat_valid, world.frame_feat_uv), out):
+        host = np.ascontiguousarray(mirror[ids])
+        host = torch.from_numpy(host.view(np.int32) if host.dtype == np.uint32 else host)
+        got.append(host.to(device) if o is None else o.copy_(host))
+    return tuple(got)
+
+
+def edge_bucket(E: int) -> int:
+    """The padded edge count of a batch of E: the next power of two, at
+    least 2 (the JAX package's `E_pad`)."""
+    return max(2, 1 << (E - 1).bit_length())
+
+
+class EdgeProgram(programs.Program):
+    """`measure_edges` as a captured program for one bucket of E_pad edges
+    on one rig: the two frames' banks ([E_pad, N, ...] each side) and the
+    RANSAC keys ([E_pad, K_hyp, N], drawn outside the graph by each edge's
+    `ransac.KeyedSampler`) in static tensors, and one body, `measure`, that
+    runs `measure_edges` on them and packs its five outputs into one
+    [E_pad, 16 + 2N + 2] int32 table (the transform's bits, idx, the
+    inlier mask, success, the inlier count), read back once.
+
+    `load` fills the inputs outside the graph: from device rings by a
+    gather on frame ids, or from host mirrors by one upload each, so the
+    graph never reads a tensor that can be replaced between replays (the
+    live loop grows its rings into new tensors). Rows past E repeat the
+    last real edge's frames and keys with every slot invalid, so RANSAC's
+    min_pairs gate fails them."""
+
+    def __init__(self, E_pad: int, n: int, rig: cam_mod.StereoRig, fe, rc):
+        super().__init__(rig.device)
+        dev = rig.device
+        self.rig, self.fe, self.rc = rig, fe, rc
+        self.rectified = bool(rig.rectified)
+        self.banks = tuple((torch.empty((E_pad, n, 8), dtype=torch.int32, device=dev),
+                            torch.empty((E_pad, n), dtype=torch.bool, device=dev),
+                            torch.empty((E_pad, n, 4), dtype=torch.float32, device=dev))
+                           for _ in range(2))   # src, dst
+        self.keys = torch.empty((E_pad, rc.num_hypotheses, n), dtype=torch.float32, device=dev)
+        self.packed = torch.empty((E_pad, 16 + 2 * n + 2), dtype=torch.int32, device=dev)
+
+    @staticmethod
+    def key(E_pad, n, rig, fe, rc):
+        return (EdgeProgram, E_pad, n, id(rig), bool(rig.rectified), rig.device, fe, rc)
+
+    def measure(self):
+        (d_s, v_s, uv_s), (d_d, v_d, uv_d) = self.banks
+        samplers = [functools.partial(ransac_mod.sets_from_keys, k) for k in self.keys]
+        T, idx, inl, ok, n_inl = measure_edges(d_s, d_d, v_s, v_d, uv_s, uv_d, samplers,
+                                               self.rig, self.fe, self.rc, self.rectified)
+        self.packed.copy_(torch.cat([T.reshape(-1, 16).view(torch.int32), idx,
+                                     inl.to(torch.int32), ok.to(torch.int32)[:, None],
+                                     n_inl.to(torch.int32)[:, None]], dim=1))
+
+    def load(self, src, dst, samplers, banks=None, world: Optional[WorldMap] = None):
+        """The E real edges' banks (from the rings `banks`, else from
+        `world`'s host mirrors) and keys, padded to the bucket."""
+        E, E_pad, n = len(src), self.keys.shape[0], self.keys.shape[2]
+        for side, ids in zip(self.banks, (src, dst)):
+            frame_banks(list(ids) + [ids[-1]] * (E_pad - E), banks, world, self.device,
+                        out=side)
+            side[1][E:] = False
+        for e, smp in enumerate(samplers):
+            self.keys[e].copy_(smp.keys(n, self.device))
+        self.keys[E:] = self.keys[E - 1]
+
+    def outputs(self, E: int):
+        """(transform [E, 4, 4] float32, idx [E, N] int32, inlier mask
+        [E, N] bool, success [E] bool, num_inliers [E] int64) on the host,
+        from one readback of the first E rows."""
+        n = self.keys.shape[2]
+        rows = self.packed[:E].cpu().numpy()
+        return (rows[:, :16].view(np.float32).reshape(E, 4, 4), rows[:, 16:16 + n],
+                rows[:, 16 + n:16 + 2 * n].astype(bool), rows[:, -2].astype(bool),
+                rows[:, -1].astype(np.int64))
+
+
+def measure_edges_program(src, dst, samplers, rig: cam_mod.StereoRig, fe, rc, banks=None,
+                          world: Optional[WorldMap] = None,
+                          cache: Optional[programs.ProgramCache] = None):
+    """The E edges (src[e], dst[e]) through the cache's `EdgeProgram` of
+    their bucket (one replay on the card; the body as it is on the CPU),
+    their banks from the rings `banks` or from `world`'s host mirrors, one
+    `ransac.KeyedSampler` per edge. Returns `EdgeProgram.outputs(E)`: the
+    first E rows of `measure_edges` at E_pad, which are those of
+    `measure_edges` at E bit for bit."""
+    E = len(src)
+    n = fe.num_features
+    cache = programs.PROGRAMS if cache is None else cache
+    E_pad = edge_bucket(E)
+    prog = cache.get(EdgeProgram.key(E_pad, n, rig, fe, rc),
+                     lambda: EdgeProgram(E_pad, n, rig, fe, rc))
+    prog.load(src, dst, samplers, banks, world)
+    prog.run("measure", prog.measure)
+    return prog.outputs(E)
+
+
 def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
                       seed: int = 1234, bank_getter=None,
                       sampler_for_edge: Optional[Callable[[int], ransac_mod.Sampler]] = None):
@@ -105,8 +216,12 @@ def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
     `measure_edges` program with one readback. Edge i of the
     matcher's life draws its RANSAC sets from `sampler_for_edge(i)`, by
     default a Gumbel sampler on a generator seeded from (seed, i); the
-    counter advances once per edge in either mode, so E single calls and one
-    batch of E see the same draws (the JAX package folds i into its key).
+    counter advances once per real edge in either mode, so E single calls
+    and one batch of E see the same draws (the JAX package folds i into its
+    key). When every sampler of a batch is a `ransac.KeyedSampler` the batch
+    runs through `measure_edges_program` (padded to its bucket, the padded
+    rows reusing the last real edge's keys); any other sampler, which a
+    graph cannot replay, runs `measure_edges` eagerly at E.
 
     `bank_getter` (optional): () -> (bank_desc, bank_valid, bank_uv) device
     rings (odometer.empty_banks) or None. With rings (the fused-BoW live
@@ -116,8 +231,9 @@ def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
 
     Z satisfies X_dst = Z @ X_src (T_dst^-1 T_src = Z), the reference's
     loop-edge convention. `.last` holds the last batch's per-edge ok flags
-    and inlier counts, `.batches` the number of non-empty batches measured
-    (one Hamming launch each)."""
+    and inlier counts, its E and bucket (`edges`, `edges_padded`; the
+    bucket is E when it ran eagerly), `.batches` the number of non-empty
+    batches measured (one Hamming launch each)."""
     counter = [0]
     fe, rc = cfg.frontend, cfg.ransac
     dev = rig.device
@@ -140,20 +256,6 @@ def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
         if sel.any():
             world.merge_points(dst_pid[sel], src_pid[sel])
 
-    def _banks(edges):
-        banks = bank_getter() if bank_getter is not None else None
-        src = [s for s, _ in edges]
-        dst = [d for _, d in edges]
-        if banks is not None:
-            s_ids = torch.as_tensor(src, dtype=torch.int64, device=dev)
-            d_ids = torch.as_tensor(dst, dtype=torch.int64, device=dev)
-            return tuple((b[s_ids], b[d_ids]) for b in banks)
-        up = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
-        return ((desc_tensor(world.frame_desc[src].reshape(-1, 8), dev).reshape(len(src), -1, 8),
-                 desc_tensor(world.frame_desc[dst].reshape(-1, 8), dev).reshape(len(dst), -1, 8)),
-                (up(world.frame_feat_valid[src]), up(world.frame_feat_valid[dst])),
-                (up(world.frame_feat_uv[src]), up(world.frame_feat_uv[dst])))
-
     def batch(edges):
         """[(src, dst)] -> [(Z, ok)]: the E edges measured by one
         `measure_edges` program on the device (one Hamming launch, one
@@ -165,11 +267,23 @@ def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
             return []
         samplers = [sampler_for(counter[0] + e) for e in range(E)]
         counter[0] += E
-        (d_s, d_d), (v_s, v_d), (uv_s, uv_d) = _banks(edges)
-        outs = measure_edges(d_s, d_d, v_s, v_d, uv_s, uv_d, samplers, rig, fe, rc, rectified)
+        src = [s for s, _ in edges]
+        dst = [d for _, d in edges]
+        banks = bank_getter() if bank_getter is not None else None
+        if all(isinstance(smp, ransac_mod.KeyedSampler) for smp in samplers):
+            Zs, idx, inl, ok, n_inl = measure_edges_program(src, dst, samplers, rig, fe, rc,
+                                                            banks, world)
+            bucket = edge_bucket(E)
+        else:
+            (d_s, v_s, uv_s), (d_d, v_d, uv_d) = (frame_banks(ids, banks, world, dev)
+                                                  for ids in (src, dst))
+            outs = measure_edges(d_s, d_d, v_s, v_d, uv_s, uv_d, samplers, rig, fe, rc,
+                                 rectified)
+            Zs, idx, inl, ok, n_inl = (x.cpu().numpy() for x in outs)
+            bucket = E
         matcher.batches += 1
-        Zs, idx, inl, ok, n_inl = (x.cpu().numpy() for x in outs)
-        matcher.last = {"ok": ok.tolist(), "num_inliers": n_inl.tolist()}
+        matcher.last = {"ok": ok.tolist(), "num_inliers": n_inl.tolist(), "edges": E,
+                        "edges_padded": bucket}
         out = []
         for e, (src, dst) in enumerate(edges):
             if not ok[e]:

@@ -109,7 +109,9 @@ def full_f32(fn):
 
 class Segments(NamedTuple):
     """Rows grouped by segment id for _seg_sum: the stable order of the ids
-    and each segment's offsets [num + 1] in that order."""
+    and each segment's offsets [num + 1] in that order (more when the rows
+    left out form segments of their own after the last, which _seg_sum
+    drops)."""
 
     order: torch.Tensor
     offsets: torch.Tensor
@@ -123,7 +125,25 @@ class SegmentPlan(NamedTuple):
     points: Segments
 
 
-def segments(ids, num: int) -> Segments:
+# Rows of a left-out segment: the left-out rows are dealt round-robin over
+# O // SPREAD_ROWS segments of their own, so none is longer than this.
+SPREAD_ROWS = 64
+
+
+def segments(ids, num: int, keep=None) -> Segments:
+    """The grouping of `ids` [O] into segments 0..num-1. With `keep` [O]
+    bool, the rows not kept (a padded problem's weight-0 rows, which carry
+    segment id 0) go to segments of their own after the last, at most
+    SPREAD_ROWS rows each (their number fixed by O, as a capture needs), so
+    no real segment holds them and none is long: the card adds each
+    segment's rows one after another in one thread, and one segment of
+    every padded row made each sum as slow as that segment is long
+    (PERF.md, PR 11)."""
+    if keep is not None:
+        spread = max(1, ids.shape[0] // SPREAD_ROWS)
+        rows = torch.arange(ids.shape[0], dtype=ids.dtype, device=ids.device)
+        ids = torch.where(keep, ids, num + rows % spread)
+        num += spread
     order = torch.argsort(ids, stable=True)
     bounds = torch.arange(num + 1, dtype=ids.dtype, device=ids.device)
     return Segments(order, torch.searchsorted(ids[order], bounds))
@@ -140,7 +160,7 @@ def _seg_sum(x, ids, num, seg: Optional[Segments] = None, group=None):
     if seg is None:
         seg = segments(ids, num)
     out = torch.segment_reduce(x[seg.order], "sum", offsets=seg.offsets, axis=0)
-    return all_reduce(out, group)
+    return all_reduce(out[:num], group)
 
 
 def _seg_sum_points(x, obs_point, num, dense_slots=None, seg=None, group=None):
@@ -591,8 +611,9 @@ def _cam_reduction(prob: BAProblem, dense_slots, cam_K, distributed: bool = Fals
     solve (a process group, or the point-aligned layout even on one rank;
     as in the JAX package): the SegmentPlan."""
     if dense_slots is None or distributed:
-        return SegmentPlan(segments(prob.obs_cam, prob.pose6.shape[0]),
-                           segments(prob.obs_point, prob.points.shape[0]))
+        real = prob.obs_weight > 0
+        return SegmentPlan(segments(prob.obs_cam, prob.pose6.shape[0], real),
+                           segments(prob.obs_point, prob.points.shape[0], real))
     C = prob.pose6.shape[0]
     O = prob.obs_cam.shape[0]
     if C * O <= (1 << 26):

@@ -239,6 +239,27 @@ def gn_step(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: Optional[EdgePla
 
 
 @full_f32
+def cg_iterations_run(prob: PoseGraphProblem, cfg: PoseGraphConfig):
+    """The PCG iterations that run in each Gauss-Newton step of `pg_solve`:
+    those whose exit test (||r|| > cg_tol ||b||) holds, i.e. the iterations
+    of the JAX package's `while_loop`. An eager measurement (one readback
+    at the end), the same solve as `pg_solve` step for step. Returns
+    (final problem, [iterations] int64 counts on the host)."""
+    plan = edge_plan(prob)
+    counts = []
+    for _ in range(cfg.iterations):
+        J, b, M_inv, _ = _normal_equations(prob, cfg, plan)
+        s = pcg_start(b, M_inv, cfg.cg_tol)
+        ran = torch.zeros((), dtype=torch.int64, device=b.device)
+        for _ in range(cfg.cg_iterations):
+            pcg_iteration(s, lambda x: _matvec(x, J, prob.vertex_mask, plan, cfg.damping), M_inv)
+            ran += s.active
+        counts.append(ran)
+        prob = prob._replace(poses=_apply_step(prob.poses, s.x, prob.vertex_mask))
+    return prob, torch.stack(counts).cpu().numpy()
+
+
+@full_f32
 def pg_solve(prob: PoseGraphProblem, cfg: PoseGraphConfig, group=None):
     """All `cfg.iterations` Gauss-Newton iterations (the reference runs a
     fixed 10 g2o iterations with no convergence exit, ref
@@ -412,6 +433,9 @@ class PoseGraphOptimizer:
         # the matcher has `.batch` (apps/slam.make_loop_matcher).
         n_loop = 0
         n_measured = 0
+        measured_edges = []
+        t_batch = 0.0
+        edges_padded = 0
         t_match = time.perf_counter()
         if (live and self.cfg.live_max_edges > 0
                 and len(self.loop_edges) > self.cfg.live_max_edges):
@@ -420,11 +444,15 @@ class PoseGraphOptimizer:
             # frame); the older ones are discarded, not deferred.
             self.loop_edges = self.loop_edges[-self.cfg.live_max_edges:]
         if self.loop_matcher is not None and self.loop_edges:
-            n_measured = len(self.loop_edges)
+            n_measured = edges_padded = len(self.loop_edges)
+            measured_edges = list(self.loop_edges)
+            t_batch = time.perf_counter()
             if hasattr(self.loop_matcher, "batch"):
                 measured = self.loop_matcher.batch(self.loop_edges)
+                edges_padded = self.loop_matcher.last["edges_padded"]
             else:
                 measured = [self.loop_matcher(s, d) for (s, d) in self.loop_edges]
+            t_batch = time.perf_counter() - t_batch
             for (src, dst), (Z, ok) in zip(self.loop_edges, measured):
                 if not ok:
                     continue
@@ -469,7 +497,9 @@ class PoseGraphOptimizer:
             "num_vertices": n,
             "num_edges": E,
             "loop_edges_measured": n_measured,
+            "loop_edges_padded": edges_padded,
             "num_loop_edges": n_loop,
+            "loop_edges": measured_edges,   # (src, dst), measured in this order
             "cost_initial": cost0,
             "cost_final": cost,
         }
@@ -502,10 +532,11 @@ class PoseGraphOptimizer:
                     stats["global_ba"] = {"deferred": True}
             else:
                 stats["global_ba"] = self.ba.optimize(lo, n - 1, max_seconds=ba_max_seconds)
-        # Phase split of the stall: edge measurement / GN solve + writeback /
-        # global BA.
+        # Phase split of the stall: edge measurement (of which the loop-edge
+        # batch) / GN solve + writeback / global BA.
         stats["wall_split_seconds"] = {
             "edge_measure": round(t_match, 4),
+            "loop_edge_batch": round(t_batch, 4),
             "pg_solve_writeback": round(t_solve, 4),
             "global_ba": round(time.perf_counter() - t_ba, 4),
         }

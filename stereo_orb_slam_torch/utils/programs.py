@@ -21,7 +21,8 @@ Programs live in a `ProgramCache` under a key: the unit, the shapes,
 dtypes and devices of its tensors and its static configuration
 (`jax.jit`'s static arguments). The cache is bounded; an evicted
 program's graphs are reset, which frees their memory pool. It counts
-captures, replays and capture milliseconds per body.
+captures, replays and capture milliseconds per body, and the programs
+built again for a key that it had evicted (`rebuilds`).
 
 The hand kernels count their launches in Python (`LAUNCHES` of
 ops/kernels), and a replay does not pass through Python: each capture
@@ -202,26 +203,34 @@ class Program:
 
 class ProgramCache:
     """Programs by key, least recently used first out; `stats` holds each
-    body's captures, replays and capture milliseconds."""
+    body's captures, replays and capture milliseconds, `rebuilds` the
+    programs built for a key that had been evicted (each such build
+    captures its bodies again)."""
 
-    def __init__(self, capacity: int = 16):
+    def __init__(self, capacity: int = 64):
         if capacity < 1:
             raise ValueError("a program cache needs room for one program")
         self.capacity = capacity
         self.stats: dict = {}
         self.builds = 0
         self.hits = 0
+        self.rebuilds = 0
+        self._evicted: set = set()
         self._programs: "OrderedDict[Hashable, Program]" = OrderedDict()
 
     def get(self, key: Hashable, build: Callable[[], Program]) -> Program:
         prog = self._programs.pop(key, None)
         if prog is None:
             while len(self._programs) >= self.capacity:
-                _, old = self._programs.popitem(last=False)
+                old_key, old = self._programs.popitem(last=False)
                 old.release()
+                self._evicted.add(old_key)
             prog = build()
             prog.stats = self.stats
             self.builds += 1
+            if key in self._evicted:
+                self._evicted.discard(key)
+                self.rebuilds += 1
         else:
             self.hits += 1
         self._programs[key] = prog
@@ -240,6 +249,7 @@ class ProgramCache:
     def summary(self) -> dict:
         """Programs built and found, and each body's counters."""
         return {"programs": len(self), "builds": self.builds, "hits": self.hits,
+                "rebuilds": self.rebuilds,
                 "bodies": {k: dict(v) for k, v in self.stats.items()}}
 
 

@@ -19,7 +19,24 @@ It is the witness for the smoke's canyon gate (`chip_smoke.CANYON_SLAM_ATE_M`
 card is held to the size the reference reaches on the same frames.
 
     python tests/canyon_witness.py [--out DIR] [--frames 192] [--port]
+        [--finish_seconds S] [--no_render]
     python tests/canyon_witness.py --vo 60 [--seeds 4]
+    python tests/canyon_witness.py --out DIR --trajectories T [T ...]
+
+With `--trajectories T...` it runs nothing and reads KITTI trajectories
+(the CLIs' trajectory_slam.txt) against the tree's ground truth
+(`--out DIR`'s, or `--gt`): per trajectory the ATE over the frames before
+each of `--bounds` and over all, and the frames with the largest
+per-frame relative translation errors.
+
+`--finish_seconds S` replaces the drive's 150 s finish budget (0: no
+budget, every solve to its iteration cap). Each run's JSON line carries
+`finish_s`, the StageTimers totals of its pose graph (with the global BA
+it triggers) and its final BA: on the CPU the budget can cut them, which
+makes the JAX package's ATE worse (at --frames 1216 it did, 138.95 s of
+150; PERF.md), so the long drive's witness is the run with
+--finish_seconds 0. `--no_render` reuses the tree a run with the same
+--out rendered.
 
 With `--vo N` it runs, instead, the first N frames through both packages'
 VisualOdometer on the CPU, with the shipped RansacConfig() and with
@@ -64,13 +81,18 @@ def run_slam(package, folder, gt, out_dir, extra=()):
     seconds = time.perf_counter() - t0
 
     def grab(pattern):
-        m = re.search(pattern, out)
+        m = re.search(pattern, out, re.M)
         return float(m.group(1)) if m else None
+
+    def timer_s(name):  # a StageTimers report line's total seconds
+        return grab(rf"^{re.escape(name)}\s+\d+ calls .* ([\d.]+) s total$")
 
     events = synth_canyon.loop_events(os.path.join(out_dir, "loop_matches.txt"))
     return {"package": package, "ate_live_m": grab(r"live ATE RMSE: ([\d.]+) m"),
             "ate_m": grab(r"(?<!live )ATE RMSE: ([\d.]+) m"),
-            "rpe_m": grab(r"RPE: ([\d.]+) m"), "loop_events": events, "seconds": seconds}
+            "rpe_m": grab(r"RPE: ([\d.]+) m"), "loop_events": events, "seconds": seconds,
+            "finish_s": {"pose_graph": timer_s("pose_graph.final"),
+                         "final_ba": timer_s("ba.final")}}
 
 
 def _relative_errors(poses, gt):
@@ -145,6 +167,32 @@ def run_vo(folder, gt_path, frames, seeds):
         print(json.dumps({"vo": rec}), flush=True)
 
 
+def _homogeneous(poses):
+    out = np.tile(np.eye(4), (len(poses), 1, 1))
+    out[:, :3, :] = np.asarray(poses, np.float64).reshape(-1, 3, 4)[:, :3, :]
+    return out
+
+
+def compare_trajectories(paths, gt_path, bounds, worst=8):
+    """Per trajectory: ATE (utils.evaluate.ate_rmse, aligned on the frames
+    it covers) over frames [0, b) for each bound b and over all frames,
+    and the `worst` frames by relative translation error (m)."""
+    from stereo_orb_slam_torch.utils import evaluate
+
+    gt = _homogeneous(evaluate.load_kitti_gt(gt_path))
+    rel_gt = np.linalg.inv(gt[:-1]) @ gt[1:]
+    for path in paths:
+        P = _homogeneous(np.loadtxt(path))
+        n = len(P)
+        ate = {f"0-{b}": evaluate.ate_rmse(P[:b], gt[:b]) for b in bounds if b < n}
+        ate[f"0-{n}"] = evaluate.ate_rmse(P, gt[:n])
+        err = np.linalg.norm((np.linalg.inv(P[:-1]) @ P[1:])[:, :3, 3] - rel_gt[: n - 1, :3, 3],
+                             axis=1)
+        top = sorted(int(i) + 1 for i in np.argsort(-err)[:worst])
+        print(json.dumps({"trajectory": path, "ate_m": ate,
+                          "worst_frames_m": {f: float(err[f - 1]) for f in top}}), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=synth_canyon.CANYON["frames"])
@@ -157,22 +205,48 @@ def main(argv=None):
                     help="instead of the SLAM runs: the first N frames through both "
                          "packages' VisualOdometer, shipped RANSAC and with the refit")
     ap.add_argument("--seeds", type=int, default=4, help="port seeds of --vo")
+    ap.add_argument("--finish_seconds", type=float, default=None,
+                    help="the SLAM runs' finish budget (default: the drive's, 150)")
+    ap.add_argument("--no_render", action="store_true",
+                    help="reuse the tree under --out instead of rendering it")
+    ap.add_argument("--trajectories", nargs="+", default=None, metavar="T",
+                    help="instead of the runs: these KITTI trajectories against the "
+                         "ground truth")
+    ap.add_argument("--gt", default=None, help="ground truth of --trajectories (default: "
+                                                "--out's tree)")
+    ap.add_argument("--bounds", type=int, nargs="*", default=[256, 512, 800],
+                    help="frame bounds of --trajectories' prefix ATEs")
     args = ap.parse_args(argv)
+    if args.trajectories:
+        if not (args.gt or args.out):
+            ap.error("--trajectories needs --gt or the --out of an earlier run")
+        compare_trajectories(args.trajectories,
+                             args.gt or os.path.join(args.out, "canyon", "gt.txt"),
+                             args.bounds)
+        return
+    if args.no_render and not args.out:
+        ap.error("--no_render needs the --out of an earlier run")
     with tempfile.TemporaryDirectory() as tmp:
         root = args.out or tmp
         folder = os.path.join(root, "canyon")
         t0 = time.perf_counter()
-        _, traj, gt = synth_canyon.render_tree(folder, args.frames,
-                                               workers=args.workers or None)
+        if args.no_render:
+            gt = os.path.join(folder, "gt.txt")
+            traj = np.loadtxt(gt).reshape(-1, 3, 4)
+        else:
+            _, traj, gt = synth_canyon.render_tree(folder, args.frames,
+                                                   workers=args.workers or None)
         tree = {"frames": len(traj), "path_m": synth_canyon.path_length(traj),
                 "render_seconds": time.perf_counter() - t0}
         print(json.dumps({"tree": tree}), flush=True)
         if args.vo:
             run_vo(folder, gt, args.vo, list(range(args.seeds)))
             return
-        runs = [("stereo_orb_slam_tpu", ())]
+        finish = () if args.finish_seconds is None else ("--finish_seconds",
+                                                          str(args.finish_seconds))
+        runs = [("stereo_orb_slam_tpu", finish)]
         if args.port:
-            runs.append(("stereo_orb_slam_torch", ("--device", "cpu")))
+            runs.append(("stereo_orb_slam_torch", ("--device", "cpu", *finish)))
         for package, extra in runs:
             rec = run_slam(package, folder, gt, os.path.join(root, f"out_{package}"), extra)
             print(json.dumps(rec), flush=True)

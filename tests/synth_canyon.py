@@ -180,24 +180,26 @@ def loop_events(trace_path, is_loop_thresh=0.9, not_loop_thresh=0.1):
     per-frame Bayes probability, a crossing at the first entry included
     (benchmarks/canyon_drive.py's count); `exits`, the times the filter,
     once in a loop (above is_loop_thresh), fell below not_loop_thresh: each
-    is a live pose-graph closure (loop/detector.py); the largest
-    probability, and the smallest after the first entry."""
+    is a live pose-graph closure (loop/detector.py), and `exit_frames`, the
+    trace line (the query's frame) of each; the largest probability, and the
+    smallest after the first entry."""
     probs = []
     if os.path.exists(trace_path):
         probs = [float(m.group(1)) for m in re.finditer(r"probability = ([\d.eE+-]+)",
                                                          open(trace_path).read())]
-    out = {"episodes": 0, "exits": 0, "max_probability": max(probs, default=0.0),
-           "min_after_entry": None}
+    out = {"episodes": 0, "exits": 0, "exit_frames": [],
+           "max_probability": max(probs, default=0.0), "min_after_entry": None}
     if not probs:
         return out
     above = np.asarray(probs) > is_loop_thresh
     out["episodes"] = int(np.sum(above[1:] & ~above[:-1]) + (1 if above[:1].any() else 0))
     in_loop = False
-    for p in probs:
+    for i, p in enumerate(probs):
         if p > is_loop_thresh:
             in_loop = True
         if p < not_loop_thresh and in_loop:
             out["exits"] += 1
+            out["exit_frames"].append(i)
             in_loop = False
     if above.any():
         out["min_after_entry"] = float(min(probs[int(np.argmax(above)):]))

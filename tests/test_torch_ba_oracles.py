@@ -392,6 +392,36 @@ def test_segment_sum_adds_each_segment_in_index_order(rng, num, shape):
     assert torch.equal(ba._seg_sum(x, ids, num, ba.segments(ids, num)), want)
 
 
+def test_padded_rows_fall_in_no_real_segment(rng):
+    """BundleAdjuster pads the observations to a power of two with weight-0
+    rows at camera 0 and point 0. The matrix-free plan's segments leave
+    them out of every real segment and deal them over segments of their
+    own of at most SPREAD_ROWS rows (with them in, camera 0's and point 0's segments held every
+    padded row, and on the card each sum took as long as that segment:
+    1.6 s of device time an LM iteration on the long canyon drive's final
+    BA), and the solve is bit for bit the one with them in."""
+    world, rig, *_ = synth_ba_world(rng, n_frames=6, n_points=150, noise_px=0.5)
+    setup, _ = flat_problem(world, rig)
+    prob, C, P = setup.prob, setup.C_pad, setup.P_pad
+    assert setup.O_pad - setup.num_obs > 100   # padded rows
+    plan = ba._cam_reduction(prob, None, None)
+    old = ba.SegmentPlan(ba.segments(prob.obs_cam, C), ba.segments(prob.obs_point, P))
+    for ids, num, new, was in ((prob.obs_cam, C, plan.cams, old.cams),
+                               (prob.obs_point, P, plan.points, old.points)):
+        real = np.bincount(ids[: setup.num_obs].numpy(), minlength=num)
+        assert torch.equal(torch.diff(new.offsets[: num + 1]), torch.as_tensor(real))
+        assert int(torch.diff(was.offsets).max()) == real[0] + setup.O_pad - setup.num_obs
+        assert int(torch.diff(new.offsets[num:]).max()) <= ba.SPREAD_ROWS
+        assert int(new.offsets[num]) == setup.num_obs and int(new.offsets[-1]) == setup.O_pad
+    cfg = BAConfig(cg_iterations=30)
+    (got, n_got, _), (want, n_want, _) = (
+        ba.ba_resume(ba.lm_init(prob, cfg, cam_red=red), 4, cfg, cam_red=red)
+        for red in (plan, old))
+    assert int(n_got) == int(n_want) == 4 and torch.equal(got.cost, want.cost)
+    assert torch.equal(got.prob.pose6, want.prob.pose6)
+    assert torch.equal(got.prob.points, want.prob.points)
+
+
 @pytest.mark.cuda
 def test_segment_sum_on_the_card_equals_the_cpu(rng):
     """On the card the segmented sum adds in the same order as on the CPU,

@@ -21,6 +21,14 @@ The same graphs, made with numpy from a seed, go through
 
 Also, in the port only: a second live closure before the first closure's
 polish was collected runs that polish first (the JAX package overwrites it).
+
+The CG iterations that run (`cg_iterations_run`, the port's masked PCG
+counting `active`) against the JAX package's `while_loop` trip counts
+(tests/pg_cg_witness.py) on the drift-plus-loop graph: equal in the first
+Gauss-Newton step; past it the right-hand side is float32 noise, which
+differs between the packages, and so do the counts (port 88, 75, 63, ...
+against JAX 86, 89, 86, ...), both below the 200 cap. The counted solve
+ends bit for bit where `pg_solve` does.
 """
 
 import jax.numpy as jnp
@@ -131,6 +139,24 @@ def test_pg_solve_converged_within_float32_noise():
     np.testing.assert_allclose(c0, rc0, rtol=1e-5)
     np.testing.assert_allclose([c1, rc1], [c1_64, c1_64], rtol=1e-2)
     assert c1 < 0.1 * c0
+
+
+def test_cg_iterations_run_match_the_reference_loop():
+    """The iterations whose exit test held in the port's masked PCG equal
+    the trip count of the JAX package's while_loop in the first
+    Gauss-Newton step of the same graph; in every step both exits fire
+    below the 200 cap; the counting solve is pg_solve, bit for bit."""
+    from pg_cg_witness import jax_cg_iterations
+
+    arrays = _drift_problem()
+    cfg = PoseGraphConfig()
+    prob = tpg.PoseGraphProblem(*(torch.as_tensor(a, dtype=dt) for a, dt in zip(
+        arrays, (torch.float32, torch.int64, torch.int64) + (torch.float32,) * 3)))
+    final, counts = tpg.cg_iterations_run(prob, cfg)
+    ref = jax_cg_iterations(arrays)
+    assert len(counts) == len(ref) == cfg.iterations and counts[0] == ref[0]
+    assert 0 < min(*counts, *ref) and max(*counts, *ref) < cfg.cg_iterations
+    assert torch.equal(final.poses, tpg.pg_solve(prob, cfg)[0].poses)
 
 
 def test_optimizer_matches_reference():

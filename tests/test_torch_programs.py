@@ -412,6 +412,19 @@ def test_cache_gives_back_one_program_per_key_and_evicts_when_full():
         programs.ProgramCache(capacity=0)
 
 
+def test_cache_counts_the_programs_built_again_after_eviction():
+    """A key built again after its program was evicted is a rebuild (its
+    bodies are captured again); a new key and a found key are not; the
+    default capacity holds 64 programs."""
+    cache = programs.ProgramCache(capacity=2)
+    for key in ("a", "b", "c", "a", "a", "d", "b"):
+        cache.get(key, lambda: _Unit(torch.zeros(1)))
+    assert (cache.builds, cache.hits, cache.rebuilds) == (6, 1, 2)
+    assert cache.summary()["rebuilds"] == 2
+    cache.clear()
+    assert programs.ProgramCache().capacity == 64
+
+
 class _FakeGraph:
     """A graph's replay: the device work of the body, with none of its
     Python side effects."""
