@@ -85,7 +85,9 @@ Phases, each of which fails the run when it fails:
      pg_solve on the final graph, the last two with a TF32-on control, the
      loop-edge batch's ms and hamming_top2 launches (one) at E = 1, 8 and
      all of the final graph's committed edges, and the time of the first
-     forward-mode use in a process;
+     forward-mode use in a process; for each pose-graph solve its real and
+     padded sizes (n, N_pad, E, E_pad), whether it built a GNProgram and
+     pg_solve's ms split into the capture and the rest;
   8. multi-sequence tracking (BASELINE.json config 4): first the
      four kernels at batch 3 in one launch each, bit for bit against B = 1
      launches and against their batched plain versions (the oriented
@@ -162,8 +164,8 @@ Phases, each of which fails the run when it fails:
      through which every phase above runs its pose-graph
      solves, LM solves and front-end steps on both rigs): each held bit for
      bit against its eager function on the card (pg_solve on phase 7's
-     final graph; ba_solve on phase 6's last window and on the map
-     problem; 60 VO frames of `track` against one eager frontend_chain;
+     final graph padded to its bucket; ba_solve on phase 6's last window
+     and on the map problem; 60 VO frames of `track` against one eager frontend_chain;
      frontend_chain_program against frontend_chain at K = 4 and 32; the
      multi-sequence step at S = 3 over 20 steps; on the general rig 60
      `track` frames against one eager frontend_chain, K = 4 chains with
@@ -192,16 +194,26 @@ Phases, each of which fails the run when it fails:
      the trajectory gives (the 16-frame remainder runs frame by frame) and
      no program built again after an eviction (each loop-edge bucket
      captured once); live fps, median ms, finish split, exit frames beside
-     JAX's, each closure's stall split (pg_solve, the loop-edge batch with
-     E and E_pad, the rest), points, peak memory. Then the loop-edge batch
-     captured (`apps.slam.EdgeProgram`, one replay at E_pad) against eager
+     JAX's, each closure's stall split (pg_solve with its capture and its
+     bucket, the loop-edge batch with E and E_pad, the rest), each
+     pose-graph solve's sizes, build and capture, no more GNProgram
+     captures than pose-graph buckets, points, peak memory. Then the
+     loop-edge batch captured (`apps.slam.EdgeProgram`, one replay at
+     E_pad) against eager
      at E on the largest recorded batch of each bucket reached, bit for
      bit and timed, and from device rings before and after they are
      replaced by grown copies; the CG iterations that run in every
-     Gauss-Newton step of the drive's pose-graph solves (an eager count;
-     with --out DIR the graphs go to DIR/canyon_long_graphs.npz for
-     tests/pg_cg_witness.py); hamming_top2 at the largest batch's shape
-     (B = E_pad) against its plain version (record path "canyon_long").
+     Gauss-Newton step of the drive's pose-graph solves (an eager count on
+     the padded problems, all 200 in every step; with --out DIR the graphs
+     go to DIR/canyon_long_graphs.npz for tests/pg_cg_witness.py); those
+     graphs solved again (`phase_canyon_long_buckets`): cold, after
+     `SlamSystem.prewarm_closure_path(1216)` and a second time in one
+     fresh cache (each solve's capture ms: 0 where the bucket was warmed
+     or met), and bucketed against exact-size and against a float64 solve
+     (PG_EXACT_BOUNDS, PG_F64_BOUNDS); the drive's
+     programs and the prewarm's within the cache's capacity; hamming_top2
+     at the largest batch's shape (B = E_pad) against its plain version
+     (record path "canyon_long").
      The front end's kernels at this path's frame 1 are phase 12's: the
      same scene, rig, image size and configs.
 The line before the last is the kernels' JSON record; the last line is
@@ -1787,6 +1799,23 @@ def _recording_graphs():
         pose_graph.pg_solve_program = solve
 
 
+@contextlib.contextmanager
+def _recording_keys(cache):
+    """While inside, every key looked up in `cache` is added to the yielded
+    set: the programs a run uses, built or found."""
+    get, keys = cache.get, set()
+
+    def recording(key, build):
+        keys.add(key)
+        return get(key, build)
+
+    cache.get = recording
+    try:
+        yield keys
+    finally:
+        del cache.get
+
+
 def _program_delta(before, after):
     """Each body's program-cache counters between two `stats` snapshots."""
     return {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v} for k, v in after.items()}
@@ -1819,7 +1848,7 @@ def phase_canyon_long(c, out_dir, device="cuda"):
     if _is_cuda(device):
         torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    with _recording_graphs() as graphs:
+    with _recording_graphs() as graphs, _recording_keys(cache) as keys:
         summary = slam.main(["--dataset", "kitti", "--folder", c["folder"], "--camera",
                              c["camera"], "--output_dir", out_dir, "--gt", c["gt"],
                              *synth_canyon.CANYON_FLAGS, "--device", device])
@@ -1848,12 +1877,17 @@ def phase_canyon_long(c, out_dir, device="cuda"):
             "live": h["live"], "frame": h["num_vertices"], "edges": h["loop_edges_measured"],
             "edges_padded": h["loop_edges_padded"], "loop_edges": h["num_loop_edges"],
             "stall_s": h["wall_seconds"], "pg_solve_s": split["pg_solve_writeback"],
+            "pg_capture_s": h["pg_capture_ms"] / 1e3,
+            "pg_bucket": [h["vertices_padded"], h["edges_padded"]],
             "loop_edge_batch_s": split["loop_edge_batch"],
             "rest_s": h["wall_seconds"] - split["pg_solve_writeback"]
             - split["loop_edge_batch"]})
     programs_drive = _program_delta(stats0, cache.stats)
     edge_bodies = programs_drive.get("EdgeProgram.measure", {})
     buckets = sorted({h["loop_edges_padded"] for h in hist if h["loop_edges_measured"]})
+    pg_solves = _pg_solves(hist)
+    pg_buckets = sorted({(s["N_pad"], s["E_pad"]) for s in pg_solves})
+    gn_captures = programs_drive.get("GNProgram.assemble", {}).get("captures", 0)
     rec = {
         "frames": n, "tracked": world.num_frames, "batch_frames": k,
         "live_fps": summary["live_fps"], "fps": summary["fps"],
@@ -1870,7 +1904,8 @@ def phase_canyon_long(c, out_dir, device="cuda"):
         "edges_measured": edges, "loop_edge_batches": edge_batches, "buckets": buckets,
         "points": world.num_points, "peak_memory_bytes": peak,
         "programs": {"builds": cache.builds - builds0, "rebuilds": cache.rebuilds - rebuilds0,
-                     "bodies": programs_drive},
+                     "used": len(keys), "capacity": cache.capacity, "bodies": programs_drive},
+        "pg_solves": pg_solves, "pg_buckets": pg_buckets, "gn_captures": gn_captures,
         "pose_graphs": len(graphs), "timers": timers, "launches": launches,
         "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
                               "orb_describe_oriented": 0, "extract_patches": 0,
@@ -1890,13 +1925,16 @@ def phase_canyon_long(c, out_dir, device="cuda"):
     log(f"  finish BAs (iterations, observations, path, chunked): {rec['finish_ba']}")
     for h in closures:
         log(f"  {'live' if h['live'] else 'finish'} closure at frame {h['frame']}: stall "
-            f"{h['stall_s']:.4f} s = pg_solve {h['pg_solve_s']:.4f} + loop-edge batch "
+            f"{h['stall_s']:.4f} s = pg_solve {h['pg_solve_s']:.4f} (capture "
+            f"{h['pg_capture_s']:.4f}, bucket {h['pg_bucket']}) + loop-edge batch "
             f"{h['loop_edge_batch_s']:.4f} (E = {h['edges']}, E_pad = {h['edges_padded']}, "
             f"{h['loop_edges']} kept) + rest {h['rest_s']:.4f}")
+    _log_pg_solves(pg_solves)
     log(f"  launches {launches}, expected {rec['launches_expected']} ({rec['bow_batches']} BoW "
         f"batches, {edges} loop edges in {edge_batches} batches, buckets {buckets}); programs "
-        f"built {rec['programs']['builds']}, rebuilt {rec['programs']['rebuilds']}; loop-edge "
-        f"program {edge_bodies}")
+        f"used {len(keys)}, built {rec['programs']['builds']}, rebuilt "
+        f"{rec['programs']['rebuilds']}; loop-edge program {edge_bodies}; GNProgram captures "
+        f"{gn_captures} for pose-graph buckets {pg_buckets}")
     poses = world.pose_global[: world.num_frames]
     if not (np.isfinite(poses).all() and world.num_frames == n == c["frames"]):
         raise AssertionError("long canyon SLAM: poses are not finite, or frames were lost")
@@ -1922,6 +1960,9 @@ def phase_canyon_long(c, out_dir, device="cuda"):
         raise AssertionError(f"long canyon SLAM: {rec['programs']['rebuilds']} programs built "
                              f"again after eviction, or loop-edge captures {edge_bodies} for "
                              f"buckets {buckets}")
+    if _is_cuda(device) and gn_captures > len(pg_buckets):
+        raise AssertionError(f"long canyon SLAM: {gn_captures} GNProgram captures for the "
+                             f"{len(pg_buckets)} pose-graph buckets {pg_buckets}")
     return rec, system, graphs
 
 
@@ -2127,10 +2168,13 @@ def phase_canyon_long_edges(system, device="cuda", reps=4):
 
 def phase_canyon_long_cg(graphs, out_path=None, device="cuda"):
     """The CG iterations that run in each Gauss-Newton step of the drive's
-    pose-graph solves (every live closure and the finish), counted by an
-    eager solve on the card (`pose_graph.cg_iterations_run`, not the
-    captured program); with `out_path`, the graphs and counts as an .npz
-    for tests/pg_cg_witness.py (the port and the JAX package on the CPU)."""
+    pose-graph solves (every live closure and the finish), on the padded
+    problems the optimizer solved, counted by an eager solve on the card
+    (`pose_graph.cg_iterations_run`, not the captured program); on the card
+    every step must run all cg_iterations (the exit never fires in float32
+    on these graphs, PERF.md). With `out_path`, the graphs and counts as
+    an .npz for tests/pg_cg_witness.py (the port and the JAX package on
+    the CPU)."""
     from stereo_orb_slam_torch.backend import pose_graph
 
     out, arrays = [], {}
@@ -2151,7 +2195,184 @@ def phase_canyon_long_cg(graphs, out_path=None, device="cuda"):
     log(f"pose-graph CG iterations run per GN step (cap {cap}), {len(out)} solves: "
         + "; ".join(f"{r['vertices']} v: {r['cg_iterations_run']}" for r in out)
         + f"; {below} of {total} steps exit below the cap")
+    if _is_cuda(device) and below:
+        raise AssertionError(f"long canyon pose graphs: {below} of {total} GN steps ran fewer "
+                             f"than {cap} CG iterations (every step ran {cap} on these graphs so far)")
     return {"solves": out, "steps_below_cap": below, "steps": total, "cap": cap}
+
+
+# A bucketed pose-graph solve's real vertices against the float64 solve
+# and against the float32 solve of the same graph at its own size: the
+# largest rotation-matrix entry and translation (m) gaps. The long drive's
+# graphs read at most 1.4e-6 / 7.3e-6 m and 7.2e-7 / 3.3e-6 m on the card
+# (PERF.md §6); padded with their last real edge at weight 1 in place
+# of the null edges, they read 1.3e-3 / 4.7e-3 m and more from the
+# exact-size solve (tests/pg_cg_witness.py, on the CPU).
+PG_F64_BOUNDS = (1e-5, 5e-5)
+PG_EXACT_BOUNDS = (1e-5, 3e-5)
+
+
+@contextlib.contextmanager
+def _process_programs(cache):
+    """While inside, `cache` is the process's program cache (the one the
+    entry points and SlamSystem.prewarm_closure_path use)."""
+    from stereo_orb_slam_torch.utils import programs
+
+    old, programs.PROGRAMS = programs.PROGRAMS, cache
+    try:
+        yield
+    finally:
+        programs.PROGRAMS = old
+
+
+def _pg_call(prob, cfg, cache, device):
+    """One pg_solve_program call through `cache` with the optimizer's
+    readback: (poses and costs, wall ms, the GNProgram capture's ms in it,
+    whether it built a program)."""
+    import torch
+
+    from stereo_orb_slam_torch.backend import pose_graph
+
+    builds, cap = cache.builds, cache.capture_ms
+    _sync(device)
+    t0 = time.perf_counter()
+    p, c0, c1 = pose_graph.pg_solve_program(prob, cfg, cache=cache)
+    torch.stack([c0, c1]).cpu()
+    p.poses.cpu()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (p.poses, c0, c1), ms, cache.capture_ms - cap, cache.builds > builds
+
+
+def _pose_gaps(P, R):
+    """(largest rotation-matrix entry gap, largest translation gap in m)."""
+    d = (P.double() - R.double()).abs()
+    return float(d[:, :3, :3].max()), float(d[:, :3, 3].max())
+
+
+def _bucketed_gaps(prob, n, E, cfg, poses):
+    """A bucketed solve's real vertices (`poses` [n, 4, 4], of the padded
+    problem `prob`) against the solve of the same graph at its own size (its
+    n vertices and E edges), in float32 and in float64, each through
+    pg_solve_program in a scratch cache: the gaps, and whether they are
+    within PG_F64_BOUNDS and PG_EXACT_BOUNDS."""
+    from stereo_orb_slam_torch.backend import pose_graph
+    from stereo_orb_slam_torch.utils import programs
+
+    scratch = programs.ProgramCache()
+    exact = pose_graph.PoseGraphProblem(prob.poses[:n], prob.edge_a[:E], prob.edge_b[:E],
+                                        prob.edge_meas[:E], prob.edge_weight[:E],
+                                        prob.vertex_mask[:n])
+    f32 = pose_graph.pg_solve_program(exact, cfg, cache=scratch)[0].poses
+    f64 = pose_graph.pg_solve_program(pose_graph.PoseGraphProblem(
+        *(t.double() if t.is_floating_point() else t for t in exact)), cfg,
+        cache=scratch)[0].poses
+    scratch.clear()
+    b64, e64, b32 = _pose_gaps(poses, f64), _pose_gaps(f32, f64), _pose_gaps(poses, f32)
+    return {"n": n, "bucketed_vs_f64": list(b64), "exact_vs_f64": list(e64),
+            "bucketed_vs_exact": list(b32),
+            "within": all(x <= b for x, b in zip(b64 + b32, PG_F64_BOUNDS + PG_EXACT_BOUNDS))}
+
+
+def _log_bucketed_gaps(gaps):
+    log("pose graph bucketed / exact-size against float64 (rotation, translation m; bounds "
+        f"{PG_F64_BOUNDS}): " + "; ".join(
+            f"n {g['n']}: {g['bucketed_vs_f64'][0]:.3g}, {g['bucketed_vs_f64'][1]:.3g} / "
+            f"{g['exact_vs_f64'][0]:.3g}, {g['exact_vs_f64'][1]:.3g} (bucketed against exact "
+            f"{g['bucketed_vs_exact'][0]:.3g}, {g['bucketed_vs_exact'][1]:.3g}; bounds "
+            f"{PG_EXACT_BOUNDS})" for g in gaps))
+
+
+def phase_canyon_long_buckets(system, graphs, programs_used, max_frames=CANYON_LONG_FRAMES,
+                              device="cuda"):
+    """The drive's pose graphs, as the optimizer solved them (padded to
+    their buckets), solved again off the drive:
+    - in a fresh ProgramCache, three ways: cold; after
+      `SlamSystem.prewarm_closure_path(max_frames)` (into that cache, made
+      the process's); a second time in the same cache: each solve's wall
+      ms, its capture ms and whether it built a GNProgram. A solve whose
+      bucket the prewarm covered or the same cache met before must build
+      nothing and capture for 0 ms;
+    - the cold bucketed solve, bit for bit eager pg_solve on the same
+      padded problem, against the solve of the graph cut to its real
+      vertices and edges, in float32 (within PG_EXACT_BOUNDS) and in
+      float64 (within PG_F64_BOUNDS), and the float32 exact-size solve
+      against float64 beside them.
+    Also: the programs the drive used plus those the prewarm builds fit in
+    the process cache's capacity, so a prewarmed drive would evict none."""
+    import torch
+
+    from stereo_orb_slam_torch.backend import pose_graph
+    from stereo_orb_slam_torch.utils import programs
+
+    sizes = [(h["num_vertices"], h["num_edges"]) for h in system.pgo.history]
+    if len(sizes) != len(graphs):
+        raise AssertionError(f"{len(graphs)} recorded pose graphs for {len(sizes)} solves")
+    buckets = [(p.poses.shape[0], p.edge_a.shape[0]) for p, _ in graphs]
+    rec = {"graphs": [{"n": n, "E": E, "bucket": list(b)} for (n, E), b in zip(sizes, buckets)]}
+
+    def resolve(cache, covered):
+        out, results = [], []
+        for (prob, cfg), b in zip(graphs, buckets):
+            res, ms, cap_ms, built = _pg_call(prob, cfg, cache, device)
+            out.append({"bucket": list(b), "covered": b in covered, "built": built,
+                        "capture_ms": cap_ms, "pg_solve_ms": ms})
+            results.append(res)
+            covered = covered | {b}
+        return out, results
+
+    cold_cache, warm_cache = programs.ProgramCache(), programs.ProgramCache()
+    cold, bucketed = resolve(cold_cache, set())
+    with _process_programs(warm_cache):
+        t0 = time.perf_counter()
+        system.prewarm_closure_path(max_frames)
+        prewarm_s = time.perf_counter() - t0
+    progs = list(warm_cache._programs.values())
+    prewarmed = {(p.prob.poses.shape[0], p.prob.edge_a.shape[0]) for p in progs
+                 if isinstance(p, pose_graph.GNProgram)}
+    prewarm = {"seconds": prewarm_s, "builds": warm_cache.builds,
+               "pose_graph_buckets": sorted(prewarmed),
+               "edge_buckets": sorted(p.keys.shape[0] for p in progs
+                                      if not isinstance(p, pose_graph.GNProgram)),
+               "capture_ms": {k: v["capture_ms"] for k, v in warm_cache.stats.items()}}
+    warm, _ = resolve(warm_cache, prewarmed)
+    again, _ = resolve(warm_cache, set(buckets))
+    rec.update(cold=cold, prewarm=prewarm, warm=warm, again=again)
+    for name, rows in (("cold", cold), ("after prewarm", warm), ("again", again)):
+        log(f"pose-graph re-solve, {name}: " + "; ".join(
+            f"{r['bucket']} pg_solve {r['pg_solve_ms']:.1f} ms = capture {r['capture_ms']:.1f} "
+            f"+ {r['pg_solve_ms'] - r['capture_ms']:.1f} (built {r['built']}, covered "
+            f"{r['covered']})" for r in rows))
+    log(f"prewarm_closure_path({max_frames}): {prewarm_s:.2f} s, {prewarm['builds']} programs, "
+        f"pose-graph buckets {prewarm['pose_graph_buckets']}, loop-edge buckets "
+        f"{prewarm['edge_buckets']}; programs the drive used {programs_used}, cache capacity "
+        f"{programs.PROGRAMS.capacity}")
+    warm_cache.clear()
+    cold_cache.clear()
+
+    bits = all(_bits_equal(got, (p.poses, c0, c1))
+               for got, (p, c0, c1) in zip(bucketed, (pose_graph.pg_solve(p, cfg)
+                                                      for p, cfg in graphs)))
+    gaps = [_bucketed_gaps(prob, n, E, cfg, poses[:n])
+            for (n, E), (prob, cfg), (poses, _, _) in zip(sizes, graphs, bucketed)]
+    rec.update(bits_equal=bits, against_f64=gaps)
+    log(f"pose-graph re-solve, cold: bit for bit eager pg_solve {bits}")
+    _log_bucketed_gaps(gaps)
+
+    paid = [r for rows in (cold, warm, again) for r in rows
+            if r["covered"] and (r["built"] or r["capture_ms"] > 0)]
+    if not bits:
+        raise AssertionError("pose-graph program against eager pg_solve: bits differ")
+    if paid or not all(r["covered"] for r in again):
+        raise AssertionError(f"pose-graph re-solve: a solve at a covered bucket built or "
+                             f"captured: {paid}")
+    if not all(g["within"] for g in gaps):
+        raise AssertionError(f"pose graph: a bucketed solve is further than {PG_F64_BOUNDS} "
+                             f"from float64 or {PG_EXACT_BOUNDS} from exact-size: {gaps}")
+    if programs_used + prewarm["builds"] > programs.PROGRAMS.capacity:
+        raise AssertionError(f"the drive's {programs_used} programs and the prewarm's "
+                             f"{prewarm['builds']} overflow the program cache "
+                             f"({programs.PROGRAMS.capacity})")
+    return rec
 
 
 def phase_canyon_long_kernel(system, edges, device="cuda"):
@@ -2835,6 +3056,30 @@ SLAM_PG_ONE_STEP = (2e-6, 3e-5)
 SLAM_PG_SOLVE = (1e-6, 1e-6)
 
 
+def _pg_solves(hist):
+    """Each pose-graph solve of an optimizer's history: the real and padded
+    vertex and edge counts (n, N_pad, E, E_pad), whether it built a
+    GNProgram (a bucket met for the first time: on the card its bodies were
+    captured), and pg_solve's wall ms split into the capture's ms and the
+    rest (replays, upload and readback)."""
+    out = []
+    for h in hist:
+        ms = h["wall_split_seconds"]["pg_solve_writeback"] * 1e3
+        out.append({"live": h["live"], "n": h["num_vertices"], "N_pad": h["vertices_padded"],
+                    "E": h["num_edges"], "E_pad": h["edges_padded"],
+                    "built": h["program_built"], "pg_solve_ms": ms,
+                    "capture_ms": h["pg_capture_ms"], "replay_ms": ms - h["pg_capture_ms"]})
+    return out
+
+
+def _log_pg_solves(solves):
+    for s in solves:
+        log(f"  pose-graph solve ({'live' if s['live'] else 'finish'}): n {s['n']}, N_pad "
+            f"{s['N_pad']}, E {s['E']}, E_pad {s['E_pad']}, GNProgram built {s['built']}; "
+            f"pg_solve {s['pg_solve_ms']:.1f} ms = capture {s['capture_ms']:.1f} + replay and "
+            f"copies {s['replay_ms']:.1f}")
+
+
 def _slam_launches_expected(system, frames, k):
     """hamming_top2 launches of a SLAM run from what the run did: one per
     frame (the front end's stereo + temporal pair), one per BoW scoring
@@ -2897,6 +3142,7 @@ def phase_slam(seq, gt, out_dir, batch_frames):
                                          "wall_split_seconds", "wall_seconds")}
                      for h in hist],
         "live_stall_splits": splits, "ba_log": system.ba_log[-3:],
+        "pg_solves": _pg_solves(hist),
         "timers": system.timers.summary(), "launches": launches,
         "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
                               "orb_describe_oriented": 0, "extract_patches": 0,
@@ -2915,6 +3161,7 @@ def phase_slam(seq, gt, out_dir, batch_frames):
             f"vertices, {h['num_edges']} edges, loop edges {h['num_loop_edges']} of "
             f"{h['loop_edges_measured']} measured, split {h['wall_split_seconds']} s, "
             f"total {h['wall_seconds']} s")
+    _log_pg_solves(rec["pg_solves"])
     log(f"  launches {launches}, expected {rec['launches_expected']} ({rec['bow_batches']} "
         f"BoW batches, {edges} loop edges in {edge_batches} batches); live closure stall "
         f"splits {splits}")
@@ -3643,10 +3890,13 @@ def _stat_delta(before, after):
 
 
 def _program_pose_graph(slam_graph):
-    """pg_solve on phase 7's final graph, eager and captured in turns (eager,
-    the program's first call with its captures, a call of replays only,
-    eager): the poses and both costs bit for bit, wall ms, kernels and
-    graph replays per solve, kernels per body."""
+    """pg_solve on phase 7's final graph padded to its bucket as the
+    optimizer pads it, eager and captured in turns (eager, the program's
+    first call with its captures, a call of replays only, eager): the
+    poses and both costs bit for bit, wall ms, kernels and graph replays
+    per solve, kernels per body; and the captured solve against the
+    solve of the graph at its own size, in float32 and float64
+    (`_bucketed_gaps`)."""
     import copy as copy_mod
 
     import torch
@@ -3656,12 +3906,7 @@ def _program_pose_graph(slam_graph):
     from stereo_orb_slam_torch.utils import programs
 
     dev = torch.device("cuda")
-    vm = np.ones(len(slam_graph[0]), np.float32)
-    vm[0] = 0.0
-    prob = pose_graph.PoseGraphProblem(
-        *(torch.as_tensor(x, device=dev) for x in slam_graph),
-        edge_weight=torch.ones(len(slam_graph[1]), device=dev),
-        vertex_mask=torch.as_tensor(vm, device=dev))
+    prob = pose_graph.bucketed_problem(*slam_graph, dev)
     cfg = PoseGraphConfig()
     cache = programs.ProgramCache()
 
@@ -3681,7 +3926,9 @@ def _program_pose_graph(slam_graph):
     graph_kernels, graph_dev = _kernels_in(lambda: pose_graph.pg_solve_program(prob, cfg,
                                                                                cache=cache))
     prog = next(iter(cache._programs.values()))
-    rec = {"vertices": prob.poses.shape[0], "edges": prob.edge_a.shape[0], "bits_equal": bits,
+    rec = {"vertices": len(slam_graph[0]), "edges": len(slam_graph[1]),
+           "vertices_padded": prob.poses.shape[0], "edges_padded": prob.edge_a.shape[0],
+           "bits_equal": bits,
            "eager_ms": [eager_ms, eager2_ms], "first_call_ms": capture_ms,
            "captured_ms": replay_ms, "eager_kernels": eager_kernels,
            "eager_device_ms": eager_dev, "captured_kernels_seen": graph_kernels,
@@ -3690,11 +3937,19 @@ def _program_pose_graph(slam_graph):
            "capture_ms": {k: v["capture_ms"] for k, v in cache.stats.items()},
            "nodes": _body_kernels(prog, ("assemble", "cg", "update"))}
     cache.clear()
-    log(f"programs, pose graph ({rec['vertices']} vertices, {rec['edges']} edges): bits equal "
+    n, E = rec["vertices"], rec["edges"]
+    rec["against_f64"] = _bucketed_gaps(prob, n, E, cfg, first[0][:n])
+    log(f"programs, pose graph ({n} vertices, {E} edges, padded to "
+        f"({rec['vertices_padded']}, {rec['edges_padded']})): bits equal "
         f"{bits}; eager {eager_ms:.1f} / {eager2_ms:.1f} ms, {eager_kernels} kernels, "
         f"{eager_dev:.1f} ms device; captured {replay_ms:.1f} ms ({rec['graph_replays_per_solve']}"
         f" graph replays, {graph_kernels} kernels seen, {graph_dev:.1f} ms device), first call "
         f"{capture_ms:.1f} ms (captures {rec['capture_ms']}); kernels per body {rec['nodes']}")
+    _log_bucketed_gaps([rec["against_f64"]])
+    if not rec["against_f64"]["within"]:
+        raise AssertionError(f"pose graph (phase 7's): the bucketed solve is further than "
+                             f"{PG_F64_BOUNDS} from float64 or {PG_EXACT_BOUNDS} from "
+                             f"exact-size: {rec['against_f64']}")
     return rec
 
 
@@ -4041,12 +4296,7 @@ def phase_programs_profile(seq, window, slam_graph, path, frames=20, warm=5, lm_
     pairs = datasets.load_dataset("kitti", seq)[: warm + frames]
     imgs = [(datasets.read_grayscale(a), datasets.read_grayscale(b)) for a, b in pairs]
     rig = calib.load_camera(os.path.join(seq, "calib.txt"))
-    vm = np.ones(len(slam_graph[0]), np.float32)
-    vm[0] = 0.0
-    graph = pose_graph.PoseGraphProblem(
-        *(torch.as_tensor(x, device="cuda") for x in slam_graph),
-        edge_weight=torch.ones(len(slam_graph[1]), device="cuda"),
-        vertex_mask=torch.as_tensor(vm, device="cuda"))
+    graph = pose_graph.bucketed_problem(*slam_graph, "cuda")
     world, start, end = window
     adj = ba.BundleAdjuster(copy.deepcopy(world), rig, BAConfig())
     setup = adj.prepare(start, end)
@@ -4293,9 +4543,13 @@ def _dist_gloo_rank(rank, world_size, world, rig_np, map_size, graph):
                         warm=False)
 
 
-def _graph_numpy(prob):
-    return (prob.poses.cpu().numpy(), prob.edge_a.cpu().numpy(), prob.edge_b.cpu().numpy(),
-            prob.edge_meas.cpu().numpy())
+def _graph_numpy(pgo):
+    """The optimizer's last graph at its own size (the solve's problem is
+    padded to its bucket): poses, edge ends and measurements as NumPy."""
+    prob, st = pgo.last_problem, pgo.last_stats
+    n, E = st["num_vertices"], st["num_edges"]
+    return (prob.poses[:n].cpu().numpy(), prob.edge_a[:E].cpu().numpy(),
+            prob.edge_b[:E].cpu().numpy(), prob.edge_meas[:E].cpu().numpy())
 
 
 def _pose_gap(a, b):
@@ -4583,7 +4837,7 @@ def main(argv=None):
                                          os.path.join(tmp, f"slam_out_{k}"), k)
             if k == 1:
                 slam_devices = timed("slam_devices", phase_slam_devices, system)
-                slam_graph = _graph_numpy(system.pgo.last_problem)
+                slam_graph = _graph_numpy(system.pgo)
             del system
         canyon_data = timed("render_canyon", _render_canyon, tmp)
         canyon = {"slam": timed("canyon_slam", phase_canyon_slam, canyon_data,
@@ -4607,6 +4861,9 @@ def main(argv=None):
         canyon_long["cg"] = timed(
             "canyon_long_cg", phase_canyon_long_cg, long_graphs,
             os.path.join(args.out, "canyon_long_graphs.npz") if args.out else None)
+        canyon_long["buckets"] = timed("canyon_long_buckets", phase_canyon_long_buckets,
+                                       long_system, long_graphs,
+                                       long_rec["programs"]["used"])
         records += timed("canyon_long_kernels", phase_canyon_long_kernel, long_system,
                          long_edges)
         canyon_long["final_ba"] = timed("canyon_long_ba", phase_canyon_long_ba, long_system)

@@ -42,7 +42,9 @@ import numpy as np
 import torch
 
 from stereo_orb_slam_torch.backend.ba import BundleAdjuster
-from stereo_orb_slam_torch.backend.pose_graph import PoseGraphOptimizer
+from stereo_orb_slam_torch.backend.pose_graph import (
+    PoseGraphOptimizer, bucket, pad_problem, pg_solve_program,
+)
 from stereo_orb_slam_torch.config import SlamConfig
 from stereo_orb_slam_torch.frontend import ransac as ransac_mod
 from stereo_orb_slam_torch.frontend.odometer import VisualOdometer, empty_banks
@@ -185,6 +187,20 @@ class EdgeProgram(programs.Program):
                 rows[:, -1].astype(np.int64))
 
 
+def _edge_program(src, dst, samplers, rig: cam_mod.StereoRig, fe, rc, banks, world,
+                  cache: Optional[programs.ProgramCache]) -> EdgeProgram:
+    """The cache's `EdgeProgram` of the bucket of E = len(src), loaded with
+    the E edges and run once."""
+    n = fe.num_features
+    cache = programs.PROGRAMS if cache is None else cache
+    E_pad = edge_bucket(len(src))
+    prog = cache.get(EdgeProgram.key(E_pad, n, rig, fe, rc),
+                     lambda: EdgeProgram(E_pad, n, rig, fe, rc))
+    prog.load(src, dst, samplers, banks, world)
+    prog.run("measure", prog.measure)
+    return prog
+
+
 def measure_edges_program(src, dst, samplers, rig: cam_mod.StereoRig, fe, rc, banks=None,
                           world: Optional[WorldMap] = None,
                           cache: Optional[programs.ProgramCache] = None):
@@ -194,15 +210,7 @@ def measure_edges_program(src, dst, samplers, rig: cam_mod.StereoRig, fe, rc, ba
     `ransac.KeyedSampler` per edge. Returns `EdgeProgram.outputs(E)`: the
     first E rows of `measure_edges` at E_pad, which are those of
     `measure_edges` at E bit for bit."""
-    E = len(src)
-    n = fe.num_features
-    cache = programs.PROGRAMS if cache is None else cache
-    E_pad = edge_bucket(E)
-    prog = cache.get(EdgeProgram.key(E_pad, n, rig, fe, rc),
-                     lambda: EdgeProgram(E_pad, n, rig, fe, rc))
-    prog.load(src, dst, samplers, banks, world)
-    prog.run("measure", prog.measure)
-    return prog.outputs(E)
+    return _edge_program(src, dst, samplers, rig, fe, rc, banks, world, cache).outputs(len(src))
 
 
 def make_loop_matcher(world: WorldMap, rig: cam_mod.StereoRig, cfg: SlamConfig,
@@ -394,6 +402,43 @@ class SlamSystem:
             self.loop = LoopDetector(self.vocab, self.cfg.loop, optimizer=self.pgo)
             for f in range(n):
                 self.loop.track(self.world.frame_desc[f], self.world.frame_feat_valid[f])
+
+    def prewarm_closure_path(self, max_frames: int, edge_ladder=None):
+        """Build and capture, off the live loop, the loop-closure path's
+        programs for a drive of up to `max_frames` frames, as the JAX
+        package compiles them: `GNProgram` at the top two vertex buckets N
+        (N_top = the bucket of max_frames, and N_top / 2) with E_pad = N and
+        2N edges, each through a solve of a zero-weight problem, and
+        `EdgeProgram` at each E of `edge_ladder` (default: 16 and the
+        bucket of live_max_edges, the live closure's cap), through a
+        measurement of frame 0 against itself with keys drawn by
+        `KeyedSampler`s, from the device rings or, before tracking made
+        them, throwaway zero rings. Everything goes into the process's
+        program cache (`programs.PROGRAMS`, which the live loop's entry
+        points use); one device sync at the end. Without it, a closure
+        whose bucket is new pays its capture inside the stall."""
+        cfg, dev = self.cfg, self.device
+        N_top = bucket(max(max_frames, 2))
+        none = np.zeros((0, 4, 4), np.float32)
+        for N in sorted({max(8, N_top // 2), N_top}):
+            for E_pad in (N, 2 * N):
+                # No real vertex or edge: all padding, every weight 0.
+                pg_solve_program(pad_problem(none, [], [], none, N, E_pad, dev),
+                                 cfg.pose_graph)
+        if edge_ladder is None:
+            cap_e = cfg.pose_graph.live_max_edges or 512
+            edge_ladder = (16, max(16, 1 << (cap_e - 1).bit_length()))
+        fe, rc = cfg.frontend, cfg.ransac
+        banks = self._bank_dev
+        if banks is None:
+            banks = empty_banks(0, fe.num_features, dev)   # one scratch row: frame 0
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        for E in edge_ladder:
+            samplers = [ransac_mod.gumbel_sampler(gen, rc.num_hypotheses) for _ in range(E)]
+            _edge_program([0] * E, [0] * E, samplers, self.rig, fe, rc, banks, None, None)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     # ----------------------------------------------------------------- frames
     def sync_feature_banks(self):

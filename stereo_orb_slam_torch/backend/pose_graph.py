@@ -24,21 +24,25 @@ vertex sum is taken locally in edge order and then summed over the ranks
 
 How it runs: the JAX package jits the whole solve (`pg_solve_impl`, a
 `lax.scan` of GN steps whose CG is a `while_loop`) into one device
-program. Here `PoseGraphOptimizer` runs `pg_solve_program`: a
-`GNProgram` (utils/programs.py) whose three bodies (the assembly, one
-CG iteration, the step's update) are captured once per graph size as
-CUDA graphs and replayed iterations x (cg_iterations + 2) times a
-solve, about 2,000 graph launches where the eager solve launches some
-94,000 kernels. `pg_solve` is the same solve as eager launches (the
-plain version the tests and the smoke hold the program to, bit for
-bit) and the solve of the distributed pose graph, whose gloo
-all_reduces cannot be captured.
-
-The JAX package pads the vertex and edge counts to powers of two so that
-XLA compiles a program per bucket, not per graph; the padding adds exact
-zeros and fixed identity vertices, so it changes no value, and the port
-solves the graph at its own size and captures its program once per
-solve (padding would change the reduction trees and so the bits).
+program, and its optimizer pads the graph to power-of-two buckets so that
+XLA compiles one program per bucket, not per graph. The port pads as it
+does (`pad_problem`: identity vertices held fixed, edges (0, 0) with
+the identity measurement and weight 0; the padded rows fall in no real
+vertex's segment, `edge_plan`), and `PoseGraphOptimizer` runs
+`pg_solve_program`: a `GNProgram` (utils/programs.py) whose three bodies
+(the assembly, one masked CG iteration, the step's update) are captured
+once per bucket as CUDA graphs and replayed iterations x (cg_iterations
++ 2) times a solve, so a closure whose graph falls in a bucket met before
+captures nothing; `SlamSystem.prewarm_closure_path` captures the large
+buckets ahead. `pg_solve` is the same solve as eager launches (the plain
+version the tests and the smoke hold the program to, bit for bit) and
+the solve of the distributed pose graph, whose gloo all_reduces cannot
+be captured.
+The padding adds exact zeros and changes no real vertex's segment sum,
+but it changes the trees of the whole-vector reductions (CG's dot
+products, the cost), so a bucketed solve equals the exact-size one only
+within float32 noise (tests/test_torch_pose_graph.py holds both to a
+float64 solve).
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ import torch
 from torch.func import jvp, vmap
 
 from stereo_orb_slam_torch.backend.ba import (
-    CGState, Segments, _inv6_gj, _seg_sum, full_f32, pcg, pcg_iteration, pcg_start, segments,
+    SPREAD_ROWS, CGState, Segments, _inv6_gj, _seg_sum, full_f32, pcg, pcg_iteration, pcg_start,
+    segments,
 )
 from stereo_orb_slam_torch.backend.residuals import bmv
 from stereo_orb_slam_torch.config import PoseGraphConfig
@@ -67,6 +72,45 @@ class PoseGraphProblem(NamedTuple):
     edge_meas: torch.Tensor    # [E,4,4] measurement Z: expected T_a^-1 @ T_b
     edge_weight: torch.Tensor  # [E] 1.0 real / 0.0 padding
     vertex_mask: torch.Tensor  # [N] 1.0 free / 0.0 fixed (gauge)
+
+
+def bucket(count: int) -> int:
+    """The padded size of a vertex or edge count: the next power of two,
+    at least 8 (the JAX optimizer's N_pad and E_pad)."""
+    return max(8, 1 << (count - 1).bit_length())
+
+
+def pad_problem(poses, edge_a, edge_b, edge_meas, N_pad: int, E_pad: int, device,
+                fixed_vertex: int = 0) -> PoseGraphProblem:
+    """The graph of n = len(poses) vertices and E edges (host arrays) as a
+    problem of N_pad vertices and E_pad edges on `device`: the real vertices
+    free but `fixed_vertex` (the gauge), the padded ones identity poses held
+    fixed (vertex_mask 0) with no edge; the padded edges (0, 0) with the
+    identity measurement and weight 0, which change no sum."""
+    n, E = len(poses), len(edge_a)
+    ea = np.zeros(E_pad, np.int64)
+    eb = np.zeros(E_pad, np.int64)
+    em = np.tile(np.eye(4, dtype=np.float32), (E_pad, 1, 1))
+    ew = np.zeros(E_pad, np.float32)
+    ea[:E] = edge_a
+    eb[:E] = edge_b
+    em[:E] = edge_meas
+    ew[:E] = 1.0
+    P = np.tile(np.eye(4, dtype=np.float32), (N_pad, 1, 1))
+    P[:n] = poses
+    vmask = np.zeros(N_pad, np.float32)
+    vmask[:n] = 1.0
+    vmask[fixed_vertex] = 0.0
+    return PoseGraphProblem(*(torch.as_tensor(a, device=device)
+                              for a in (P, ea, eb, em, ew, vmask)))
+
+
+def bucketed_problem(poses, edge_a, edge_b, edge_meas, device) -> PoseGraphProblem:
+    """The graph padded as the JAX optimizer pads it: to bucket(n) vertices
+    and bucket(E) edges, vertex 0 fixed (the gauge, ref :61-65, frame 0
+    fixed at :119-121)."""
+    return pad_problem(poses, edge_a, edge_b, edge_meas, bucket(len(poses)),
+                       bucket(len(edge_a)), device)
 
 
 def edge_residual(Ta, Tb, Z, da, db):
@@ -155,7 +199,11 @@ class EdgePlan(NamedTuple):
     [2E] and their grouping for the vertex sums, edge_a's rows in segments
     0..N-1 and edge_b's in N..2N-1 (ba.segments), so one segmented sum gives
     both per-vertex sums and adding the two halves gives the JAX package's
-    `seg_sum(a) + seg_sum(b)`, each segment added in edge order."""
+    `seg_sum(a) + seg_sum(b)`, each segment added in edge order. The rows
+    of weight-0 (padded) edges, which carry vertex 0, go to segments of
+    their own after the 2N, which the sums drop: in vertex 0's segments
+    they would make its sums as long as the padding (the card adds a
+    segment's rows one after another)."""
 
     ends: torch.Tensor
     seg: Segments
@@ -163,8 +211,10 @@ class EdgePlan(NamedTuple):
 
 def edge_plan(prob: PoseGraphProblem) -> EdgePlan:
     N = prob.poses.shape[0]
+    keep = prob.edge_weight > 0
     return EdgePlan(torch.cat([prob.edge_a, prob.edge_b]),
-                    segments(torch.cat([prob.edge_a, prob.edge_b + N]), 2 * N))
+                    segments(torch.cat([prob.edge_a, prob.edge_b + N]), 2 * N,
+                             keep=torch.cat([keep, keep])))
 
 
 def _vertex_sum(rows_a, rows_b, plan: EdgePlan, N: int, group=None):
@@ -280,12 +330,12 @@ def pg_solve(prob: PoseGraphProblem, cfg: PoseGraphConfig, group=None):
 
 
 class GNProgram(programs.Program):
-    """`pg_solve` as a captured program for one graph size: the problem,
-    its edge plan, the step's J and preconditioner and the PCG state in
-    static tensors, and three bodies: `assemble` (the normal equations and
-    PCG's start), `cg` (one PCG iteration) and `update` (the step applied
-    to the poses). A solve replays them as iterations x (1 + cg_iterations
-    + 1)."""
+    """`pg_solve` as a captured program for one (vertex, edge) bucket: the
+    problem, its edge plan, the step's J and preconditioner and the PCG
+    state in static tensors, and three bodies: `assemble` (the normal
+    equations and PCG's start), `cg` (one PCG iteration) and `update` (the
+    step applied to the poses). A solve replays them as iterations x (1 +
+    cg_iterations + 1)."""
 
     def __init__(self, prob: PoseGraphProblem, cfg: PoseGraphConfig):
         super().__init__(prob.poses.device)
@@ -293,9 +343,12 @@ class GNProgram(programs.Program):
         N, E = prob.poses.shape[0], prob.edge_a.shape[0]
         dt, dev = prob.poses.dtype, prob.poses.device
         self.prob = PoseGraphProblem(*(torch.empty_like(t) for t in prob))
+        # edge_plan's shapes: 2E rows; 2N segments and the 2E // SPREAD_ROWS
+        # (at least 1) that the weight-0 rows are spread over.
+        n_seg = 2 * N + max(1, 2 * E // SPREAD_ROWS)
         self.plan = EdgePlan(torch.empty(2 * E, dtype=torch.int64, device=dev),
                              Segments(torch.empty(2 * E, dtype=torch.int64, device=dev),
-                                      torch.empty(2 * N + 1, dtype=torch.int64, device=dev)))
+                                      torch.empty(n_seg + 1, dtype=torch.int64, device=dev)))
         self.J = torch.empty((2 * E, 6, 6), dtype=dt, device=dev)
         self.M_inv = torch.empty((N, 6, 6), dtype=dt, device=dev)
         self.cost = torch.empty((), dtype=dt, device=dev)
@@ -344,11 +397,11 @@ class GNProgram(programs.Program):
 def pg_solve_program(prob: PoseGraphProblem, cfg: PoseGraphConfig,
                      cache: Optional[programs.ProgramCache] = None):
     """`pg_solve` (no group) through its captured program: on the card the
-    three bodies are captured once per graph size, at the graph's own size
-    (padding to JAX's buckets would change the reduction trees and so the
-    bits), and a solve is iterations x (cg_iterations + 2) graph replays;
-    on the CPU the bodies run as they are. Equal to `pg_solve` bit for
-    bit. Returns what `pg_solve` returns, as new tensors."""
+    three bodies are captured once per problem shape, which the optimizer
+    makes a power-of-two bucket (`bucketed_problem`), and a solve is
+    iterations x (cg_iterations + 2) graph replays; on the CPU the bodies
+    run as they are. Equal to `pg_solve` on the same problem bit for bit.
+    Returns what `pg_solve` returns, as new tensors."""
     cache = programs.PROGRAMS if cache is None else cache
     prog = cache.get(GNProgram.key(prob, cfg), lambda: GNProgram(prob, cfg))
     prog.load(prob)
@@ -379,7 +432,7 @@ class PoseGraphOptimizer:
         self.committed_edges: list = []   # all (a, b) ever optimized (for PLY)
         self.last_stats = {}
         self.history: list = []           # the stats of every solve, in order
-        self.last_problem = None          # the last solve's input problem
+        self.last_problem = None          # the last solve's input problem, padded
         # Wall seconds of each LIVE (loop-exit) optimize() call, the closure
         # stall, and its split (edge measure / solve / global BA).
         self.live_stall_log: list = []
@@ -464,28 +517,22 @@ class PoseGraphOptimizer:
         self.loop_edges.clear()  # consumed (ref :216)
 
         E = len(edge_a)
-        vmask = np.zeros(n, np.float32)
-        vmask[1:n] = 1.0  # gauge fix (ref :61-65, frame 0 fixed at :119-121)
-        dev = self.device
-        prob = PoseGraphProblem(
-            poses=torch.as_tensor(np.ascontiguousarray(world.pose_global[:n], np.float32),
-                                  device=dev),
-            edge_a=torch.as_tensor(np.asarray(edge_a, np.int64), device=dev),
-            edge_b=torch.as_tensor(np.asarray(edge_b, np.int64), device=dev),
-            edge_meas=torch.as_tensor(np.stack(meas).astype(np.float32), device=dev),
-            edge_weight=torch.ones(E, dtype=torch.float32, device=dev),
-            vertex_mask=torch.as_tensor(vmask, device=dev),
-        )
+        # Padded to the graph's bucket (the JAX optimizer's N_pad, E_pad), so
+        # that a closure reuses its bucket's program.
+        prob = bucketed_problem(world.pose_global[:n], edge_a, edge_b, np.stack(meas),
+                                self.device)
         t_match = time.perf_counter() - t_match
 
         # All GN iterations launched at once (the captured program on the
         # card); one readback.
         t_solve = time.perf_counter()
         self.last_problem = prob
+        cache = programs.PROGRAMS
+        builds, capture_ms = cache.builds, cache.capture_ms
         prob, c0, c_last = pg_solve_program(prob, self.cfg)
         costs = torch.stack([c0, c_last]).cpu().numpy()
         cost0, cost = float(costs[0]), float(costs[1])
-        new_poses = prob.poses.cpu().numpy()
+        new_poses = prob.poses[:n].cpu().numpy()
         t_solve = time.perf_counter() - t_solve
         world.set_global_poses(np.arange(n, dtype=np.int32), new_poses)
         # Tail propagation is a no-op here (all frames optimized), kept for
@@ -496,6 +543,12 @@ class PoseGraphOptimizer:
             "live": live,
             "num_vertices": n,
             "num_edges": E,
+            "vertices_padded": int(prob.poses.shape[0]),
+            "edges_padded": int(prob.edge_a.shape[0]),
+            # The solve's GNProgram: built for a bucket met for the first
+            # time (so captured on the card), and the capture's ms.
+            "program_built": cache.builds > builds,
+            "pg_capture_ms": cache.capture_ms - capture_ms,
             "loop_edges_measured": n_measured,
             "loop_edges_padded": edges_padded,
             "num_loop_edges": n_loop,

@@ -12,11 +12,10 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from stereo_orb_slam_torch.backend.pose_graph import (
-    PoseGraphProblem, gn_step, pg_solve, pg_solve_program,
+    PoseGraphProblem, gn_step, pad_problem, pg_solve, pg_solve_program,
 )
 from stereo_orb_slam_torch.config import PoseGraphConfig
 from stereo_orb_slam_torch.parallel.mesh import Mesh
@@ -62,28 +61,9 @@ def padded_problem(poses, edge_a, edge_b, edge_meas, mesh: Mesh,
     """The whole graph on the mesh's device, its edges padded to a
     multiple of the mesh size with zero-weight identity edges and
     `fixed_vertex` held fixed (the gauge)."""
-    n_dev = mesh.size
-    E = len(edge_a)
-    E_pad = -(-max(E, 1) // n_dev) * n_dev
-
-    ea = np.zeros(E_pad, np.int64)
-    eb = np.zeros(E_pad, np.int64)
-    em = np.tile(np.eye(4, dtype=np.float32), (E_pad, 1, 1))
-    ew = np.zeros(E_pad, np.float32)
-    ea[:E] = edge_a
-    eb[:E] = edge_b
-    em[:E] = edge_meas
-    ew[:E] = 1.0
-
-    vmask = np.ones(len(poses), np.float32)
-    vmask[fixed_vertex] = 0.0
-    dev = mesh.device
-    return PoseGraphProblem(
-        poses=torch.as_tensor(np.asarray(poses, np.float32), device=dev),
-        edge_a=torch.as_tensor(ea, device=dev), edge_b=torch.as_tensor(eb, device=dev),
-        edge_meas=torch.as_tensor(em, device=dev), edge_weight=torch.as_tensor(ew, device=dev),
-        vertex_mask=torch.as_tensor(vmask, device=dev),
-    )
+    E_pad = -(-max(len(edge_a), 1) // mesh.size) * mesh.size
+    return pad_problem(poses, edge_a, edge_b, edge_meas, len(poses), E_pad, mesh.device,
+                       fixed_vertex)
 
 
 def solve(poses, edge_a, edge_b, edge_meas, mesh: Mesh,

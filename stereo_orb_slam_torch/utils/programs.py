@@ -236,6 +236,12 @@ class ProgramCache:
         self._programs[key] = prog
         return prog
 
+    @property
+    def capture_ms(self) -> float:
+        """The milliseconds of every capture of the cache's programs so far
+        (a caller differences two readings for the captures between them)."""
+        return sum(v["capture_ms"] for v in self.stats.values())
+
     def __len__(self) -> int:
         return len(self._programs)
 

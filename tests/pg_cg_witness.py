@@ -20,9 +20,17 @@ GRAPHS.npz holds graphs as `chip_smoke.py --out DIR` writes them for the
 long canyon drive (`DIR/canyon_long_graphs.npz`: for graph g the arrays
 `g{g}_poses` [N, 4, 4], `g{g}_edge_a`, `g{g}_edge_b` [E], `g{g}_edge_meas`
 [E, 4, 4], `g{g}_edge_weight` [E], `g{g}_vertex_mask` [N], and `g{g}_card`,
-the card's counts). It prints one JSON line per graph: its size and the
-counts of the card, of the port on the CPU and of the JAX package on the
-CPU.
+the card's counts), each as the optimizer solved it: padded to its
+power-of-two bucket (identity vertices held fixed after the real n, edges
+of weight 0 after the real E), or at its own size. Both packages count on
+the graph as given. It prints one JSON line per graph: its real and
+padded sizes, the counts of the card, of the port on the CPU and of the
+JAX package on the CPU, and, for a padded graph, the port's counts on the
+graph cut to its real vertices and edges and the largest rotation and
+translation gaps between the two solves' real vertices; then the same
+gaps for a faulty padding (`faulty`: the padded edges repeat the last
+real edge at weight 1), what chip_smoke.py's bucketed-against-exact gate
+would read for it.
 """
 
 from __future__ import annotations
@@ -72,8 +80,37 @@ def jax_cg_iterations(arrays, **cfg) -> list:
     return counts
 
 
-def port_cg_iterations(arrays, **cfg) -> list:
-    """The port's counts for the same graph (`cg_iterations_run`) on the CPU."""
+def real_size(arrays) -> tuple:
+    """(n, E) of a graph in FIELDS order: its vertices up to the last free
+    one (vertex 0 is the fixed gauge) and its edges of weight > 0, which
+    the padding puts after the real ones."""
+    return int(np.flatnonzero(arrays[5]).max()) + 1, int((arrays[4] > 0).sum())
+
+
+def cut(arrays) -> list:
+    """The graph cut to its real vertices and edges."""
+    n, E = real_size(arrays)
+    return [a[:n] if i in (0, 5) else a[:E] for i, a in enumerate(arrays)]
+
+
+def faulty(arrays) -> list:
+    """The graph with a faulty padding: its padded edges repeat the last
+    real edge at weight 1 in place of the null edges (0, 0) of weight 0."""
+    _, E = real_size(arrays)
+    out = [np.array(a) for a in arrays]
+    for i in (1, 2, 3, 4):
+        out[i][E:] = arrays[i][E - 1]
+    return out
+
+
+def _gaps(P, R) -> dict:
+    gap = np.abs(P - R)
+    return {"rotation": float(gap[:, :3, :3].max()), "translation": float(gap[:, :3, 3].max())}
+
+
+def port_cg_iterations(arrays, **cfg) -> tuple:
+    """The port's counts for the same graph (`cg_iterations_run`) on the
+    CPU, and its final poses [N, 4, 4] as float64."""
     import torch
 
     from stereo_orb_slam_torch.backend import pose_graph
@@ -83,7 +120,8 @@ def port_cg_iterations(arrays, **cfg) -> list:
               torch.float32)
     prob = pose_graph.PoseGraphProblem(*(torch.as_tensor(np.asarray(a), dtype=dt)
                                          for a, dt in zip(arrays, dtypes)))
-    return [int(c) for c in pose_graph.cg_iterations_run(prob, PoseGraphConfig(**cfg))[1]]
+    final, counts = pose_graph.cg_iterations_run(prob, PoseGraphConfig(**cfg))
+    return [int(c) for c in counts], final.poses.double().numpy()
 
 
 def main(argv=None):
@@ -98,10 +136,15 @@ def main(argv=None):
     for g in picks:
         arrays = [data[f"g{g}_{f}"] for f in FIELDS]
         card = data[f"g{g}_card"].tolist() if f"g{g}_card" in data.files else None
-        print(json.dumps({"graph": g, "vertices": int(arrays[0].shape[0]),
-                          "edges": int(arrays[1].shape[0]), "card": card,
-                          "port_cpu": port_cg_iterations(arrays),
-                          "jax_cpu": jax_cg_iterations(arrays)}), flush=True)
+        (n, E), padded = real_size(arrays), [int(arrays[0].shape[0]), int(arrays[1].shape[0])]
+        counts, poses = port_cg_iterations(arrays)
+        line = {"graph": g, "vertices": n, "edges": E, "padded": padded, "card": card,
+                "port_cpu": counts, "jax_cpu": jax_cg_iterations(arrays)}
+        if padded != [n, E]:
+            exact_counts, exact = port_cg_iterations(cut(arrays))
+            line.update(port_cpu_exact=exact_counts, padded_vs_exact=_gaps(poses[:n], exact),
+                        faulty_vs_exact=_gaps(port_cg_iterations(faulty(arrays))[1][:n], exact))
+        print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

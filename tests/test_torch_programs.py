@@ -5,8 +5,9 @@ Every unit's program must equal its eager function BIT FOR BIT: a replay
 runs the same kernels in the same order on the same data, and on the CPU
 the program runs its in-place bodies in the order the card replays them.
 So any difference is a stale or aliased static tensor, never float noise.
-The units: `pg_solve` (a 40-vertex graph with 2 loop edges), `ba_solve`
-on the dense, banded and matrix-free paths and the chunked `lm_init` +
+The units: `pg_solve` (a 40-vertex graph with 2 loop edges; padded to its
+bucket, and graphs of two real sizes in one bucket sharing one program),
+`ba_solve` on the dense, banded and matrix-free paths and the chunked `lm_init` +
 `ba_resume` (a 64-camera banded problem), `frontend_step`,
 `frontend_chain` and `frontend_chain_bow` over 5 rectified PlaneScene
 frames and over 5 frames of the distorted rig (tests/synth_distorted.py:
@@ -104,6 +105,46 @@ def test_pose_graph_program_equals_eager(device, cache):
     assert cache.builds == 1 and cache.hits == 1
 
 
+def _bucketed_graph(device, n):
+    """_pose_graph's chain of n vertices padded to its bucket, as the
+    optimizer pads it."""
+    prob = _pose_graph("cpu", n)
+    return pg.bucketed_problem(prob.poses.numpy(), prob.edge_a.numpy(), prob.edge_b.numpy(),
+                               prob.edge_meas.numpy(), device)
+
+
+def test_graphs_of_one_bucket_share_one_program(device, cache):
+    """Graphs of 40 and 50 vertices (41 and 51 edges) both pad to the
+    (64, 64) bucket: one GNProgram is built, and each solve through it is
+    bit for bit the eager pg_solve of its padded problem."""
+    for n in (40, 50, 40):
+        prob, cfg = _bucketed_graph(device, n), PoseGraphConfig()
+        assert (prob.poses.shape[0], prob.edge_a.shape[0]) == (64, 64)
+        want = pg.pg_solve(prob, cfg)
+        got = pg.pg_solve_program(prob, cfg, cache=cache)
+        assert _equal(got[0].poses, want[0].poses) and _equal(got[1:], want[1:])
+    assert (cache.builds, cache.hits) == (1, 2)
+
+
+@pytest.mark.parametrize("graph", ["exact", "bucketed", "bucketed_wide", "all_padding"])
+def test_pose_graph_program_plan_has_the_edge_plans_shapes(graph):
+    """GNProgram sizes its static edge plan from the problem's shapes
+    (2E rows; 2N segments and the weight-0 rows' spread): each tensor has
+    the shape of `edge_plan`'s for the same problem, at its own size, at a
+    bucket, at a bucket of more than SPREAD_ROWS padded rows, and for the
+    all-padding problem the prewarm solves."""
+    if graph == "exact":
+        prob = _pose_graph("cpu")
+    elif graph == "all_padding":
+        none = np.zeros((0, 4, 4), np.float32)
+        prob = pg.pad_problem(none, [], [], none, 64, 128, "cpu")
+    else:
+        prob = _bucketed_graph("cpu", 40 if graph == "bucketed" else 200)
+    got = pg.GNProgram(prob, PoseGraphConfig()).plan
+    want = pg.edge_plan(prob)
+    assert [t.shape for t in (got.ends, *got.seg)] == [t.shape for t in (want.ends, *want.seg)]
+
+
 def test_pose_graph_optimizer_runs_the_program(monkeypatch):
     from stereo_orb_slam_torch.worldmap import WorldMap
 
@@ -116,8 +157,15 @@ def test_pose_graph_optimizer_runs_the_program(monkeypatch):
     real = pg.pg_solve_program
     monkeypatch.setattr(pg, "pg_solve_program", lambda *a, **k: calls.append(1) or real(*a, **k))
     monkeypatch.setattr(pg, "pg_solve", None)   # the optimizer must not need it
-    stats = pg.PoseGraphOptimizer(world, device="cpu").optimize(run_global_ba=False)
+    monkeypatch.setattr(programs, "PROGRAMS", programs.ProgramCache())
+    pgo = pg.PoseGraphOptimizer(world, device="cpu")
+    stats = pgo.optimize(run_global_ba=False)
     assert calls == [1] and stats["num_edges"] == 5
+    # The first solve builds its bucket's program, the second finds it; the
+    # CPU captures nothing.
+    again = pgo.optimize(run_global_ba=False)
+    assert (stats["program_built"], again["program_built"]) == (True, False)
+    assert stats["pg_capture_ms"] == again["pg_capture_ms"] == 0.0
 
 
 # -- bundle adjustment ------------------------------------------------------
@@ -474,6 +522,18 @@ def test_replays_count_the_launches_their_capture_took_back(monkeypatch):
     assert int(unit.x) == 1 + 1 + 4
     stat = unit.stats["_Captured.body"]
     assert (stat["captures"], stat["replays"]) == (1, 4) and stat["capture_ms"] >= 0
+
+
+def test_cache_sums_the_capture_ms_of_its_programs(monkeypatch):
+    monkeypatch.setattr(hamming, "LAUNCHES", 0)
+    cache = programs.ProgramCache()
+    unit = cache.get("u", lambda: _Captured(torch.zeros(1)))
+    assert cache.capture_ms == 0.0
+    unit.run("body", unit.body)            # the capture
+    captured = cache.capture_ms
+    assert captured == unit.stats["_Captured.body"]["capture_ms"] > 0.0
+    unit.run("body", unit.body)            # a replay captures nothing
+    assert cache.capture_ms == captured
 
 
 def test_a_failed_capture_raises_and_keeps_no_graph(monkeypatch):
