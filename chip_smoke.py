@@ -98,17 +98,26 @@ Phases, each of which fails the run when it fails:
      < 0.01 m per sequence, 1 hamming_top2, 2 orb_describe and 0
      extract_patches launches per step; steps/s beside single-sequence
      VO (after phase 5);
-  9. distribution (BASELINE.json config 5; after phase 7):
+  9. distribution (BASELINE.json config 5; after phase 14):
      `DistributedBundleAdjuster` (both layouts) on the tracked world,
-     the point-aligned solve of the map problem (DIST_LM_ITERATIONS LM
-     iterations each) and `dist_pose_graph.solve` on phase 7's final
-     graph: at 1 NCCL rank in this process, bit for bit against the same
-     code with no process group and with the same device syncs; at 2 and
-     4 gloo ranks spawned on the card (the pose graph at 4), within the
-     DIST_* bounds of the single-process card solves, every rank's
-     replica the same; ms, all_reduces and bytes per LM iteration and
-     peak memory per rank. Then `apps.refine --distributed` under
-     torchrun (1 NCCL rank) and `apps.scaling_bench` at 1 NCCL rank;
+     the point-aligned solve of the map problem (MAP_SIZE, DIST_LM_ITERATIONS
+     LM iterations each) and `dist_pose_graph.solve` on phase 7's final
+     graph: at 1 NCCL rank in this process each solve runs as its
+     captured program (the all_reduces inside the CUDA graphs, one per
+     build), held bit for bit against its eager body with the same group
+     (`_eager_distributed`) and against the no-group program, with equal
+     all_reduces and bytes per LM iteration (or solve) captured and eager,
+     0 device syncs per LM iteration, and the three times side by side
+     (the captures' ms apart); at 2 and 4 gloo ranks spawned on the card
+     (eager, by gloo's backend; the pose graph at 4, 2,010 all_reduces a
+     solve), within the DIST_* bounds of the single-process card solves,
+     every rank's replica the same; ms, all_reduces and bytes per LM
+     iteration and peak memory per rank. Then the same three-way
+     comparison at full width on the long canyon's 1,200-vertex finish
+     graph (phase 14's) in a fresh 1-rank NCCL group, `apps.refine
+     --distributed` under torchrun (1 NCCL rank; its log must say the
+     solve ran captured) and `apps.scaling_bench` at 1 NCCL rank (captured
+     LM iterations a second);
   10. with --profile PATH: a torch.profiler breakdown of 20 main-path
      frames (to PATH), of 20 frames of the general rig (_general), of 10
      oriented frames with the fused kernel and with
@@ -4445,13 +4454,15 @@ def phase_programs(seq, gt, window, slam_graph, multi_state, slam_data, canyon_d
 # The distributed phase (BASELINE.json config 5): bounds of
 # tests/test_dist_ba.py and tests/test_dist_pose_graph.py for ranks above 1
 # (their sums run in another order); 1 rank is held bit for bit against
-# the same code with no process group.
+# its eager bodies with the same group and against the same code with no
+# process group.
 DIST_LM_ITERATIONS = 6
 DIST_COST_RTOL, DIST_COST_ATOL = 1e-3, 1e-4
 DIST_POSE_ATOL, DIST_POINT_ATOL = 5e-3, 2e-2
 DIST_PG_ATOL = 2e-3
 DIST_GLOO_RANKS = (2, 4)
-DIST_PG_GLOO_RANKS = (4,)   # the pose graph's gloo run (2,030 all_reduces a solve)
+DIST_PG_GLOO_RANKS = (4,)   # the pose graph's gloo run (2,010 all_reduces a solve)
+DIST_TIMED_SOLVES = 3       # timed solves of each captured variant at 1 NCCL rank
 
 
 def _rig_numpy(rig):
@@ -4466,27 +4477,31 @@ def _collectives():
     return mesh_mod.ALL_REDUCES, mesh_mod.ALL_REDUCE_BYTES
 
 
-def _dist_solves(mesh, world, rig_np, map_size, graph, iters=DIST_LM_ITERATIONS, warm=True):
-    """On this rank: DistributedBundleAdjuster (both layouts) over copies of
-    the tracked world, the point-aligned solve of the map problem, and the
-    pose graph when `graph` is given. Per solve: results as NumPy, wall ms
-    per LM iteration (host set-up, solve and write-back; lm_init counted in
-    the map solve's), all_reduces and their bytes per LM iteration, peak
-    device memory. `warm`: each solve first runs once off the clock (the
-    process's first use of its shapes)."""
-    import torch
-
-    from stereo_orb_slam_torch import convert
-    from stereo_orb_slam_torch.config import BAConfig, PoseGraphConfig
+@contextlib.contextmanager
+def _eager_distributed():
+    """While inside, the distributed entry points run their eager bodies
+    with their group (as gloo runs them, and as every group ran them before
+    they were captured): the eager side of the captured-against-eager
+    figures at 1 NCCL rank."""
     from stereo_orb_slam_torch.parallel import dist_ba, dist_pose_graph
 
-    dev = mesh.device
-    rig = convert.rig_from_numpy(rig_np, dev)
-    out = {}
+    saved = dist_ba.capturable, dist_pose_graph.capturable
+    dist_ba.capturable = dist_pose_graph.capturable = lambda group: False
+    try:
+        yield
+    finally:
+        dist_ba.capturable, dist_pose_graph.capturable = saved
+
+
+def _measured(dev, fn, n_it=1, reps=1):
+    """fn()'s last result and, per call: wall ms per iteration (host set-up
+    included; the median of `reps` calls, each listed), all_reduces and
+    their bytes per iteration (the last call's), peak device memory."""
+    import torch
 
     cuda = _is_cuda(dev)
-
-    def measured(fn, n_it):
+    runs = []
+    for _ in range(reps):
         _sync(dev)
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
@@ -4494,46 +4509,113 @@ def _dist_solves(mesh, world, rig_np, map_size, graph, iters=DIST_LM_ITERATIONS,
         t0 = time.perf_counter()
         res = fn()
         _sync(dev)
-        ms = (time.perf_counter() - t0) * 1e3
+        runs.append((time.perf_counter() - t0) * 1e3 / n_it)
         n1, b1 = _collectives()
-        return res, {"ms_per_iteration": ms / n_it, "all_reduces_per_iteration": (n1 - n0) / n_it,
-                     "all_reduce_bytes_per_iteration": (b1 - b0) / n_it,
-                     "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None}
+    return res, {"ms_per_iteration": statistics.median(runs), "ms_per_iteration_runs": runs,
+                 "all_reduces_per_iteration": (n1 - n0) / n_it,
+                 "all_reduce_bytes_per_iteration": (b1 - b0) / n_it,
+                 "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None}
+
+
+def _warm(dev, fn):
+    """Run fn() once off the clock (the process's first use of its shapes:
+    a capturable solve captures its programs there); returns the capture
+    milliseconds it took."""
+    from stereo_orb_slam_torch.utils import programs
+
+    ms = programs.PROGRAMS.capture_ms
+    fn()
+    _sync(dev)
+    return programs.PROGRAMS.capture_ms - ms
+
+
+def _dist_pose_graph(mesh, graph, warm=True, reps=1, eager=False):
+    """dist_pose_graph.solve of `graph` on this rank: ((poses, costs),
+    measurement per solve with the warm-up's capture ms, whether it ran
+    captured). `warm` runs one solve first (with one GN step when `eager`:
+    the eager solve keys no program)."""
+    from stereo_orb_slam_torch.config import PoseGraphConfig
+    from stereo_orb_slam_torch.parallel import dist_pose_graph
+
+    cfg = PoseGraphConfig()
+    warm_cfg = PoseGraphConfig(iterations=1) if eager else cfg
+    capture_ms = _warm(mesh.device, lambda: dist_pose_graph.solve(*graph, mesh, warm_cfg)) \
+        if warm else 0.0
+    res, m = _measured(mesh.device, lambda: dist_pose_graph.solve(*graph, mesh, cfg), 1, reps)
+    captured = _is_cuda(mesh.device) and dist_pose_graph.capturable(mesh.group)
+    return res, dict(m, capture_ms=capture_ms, captured=captured)
+
+
+def _dist_solves(mesh, world, rig_np, map_size, graph, iters=DIST_LM_ITERATIONS, warm=True,
+                 reps=1, eager=False):
+    """On this rank: DistributedBundleAdjuster (both layouts) over copies of
+    the tracked world, the point-aligned solve of the map problem, and the
+    pose graph when `graph` is given. Per solve: results as NumPy, wall ms
+    per LM iteration (host set-up, solve and write-back; lm_init counted in
+    the map solve's; the median of `reps` solves), all_reduces and their
+    bytes per LM iteration, peak device memory, and whether the solve ran
+    as a captured program. `warm`: each solve first runs once off the clock
+    with the same configuration (the process's first use of its shapes; a
+    captured solve builds and captures its programs there, and their
+    capture ms are kept apart). `eager`: the eager bodies with the mesh's
+    group (`_eager_distributed`)."""
+    if eager:
+        with _eager_distributed():
+            return _dist_solves(mesh, world, rig_np, map_size, graph, iters, warm, reps)
+    import torch
+
+    from stereo_orb_slam_torch import convert
+    from stereo_orb_slam_torch.config import BAConfig
+    from stereo_orb_slam_torch.parallel import dist_ba
+
+    dev = mesh.device
+    rig = convert.rig_from_numpy(rig_np, dev)
+    out = {}
 
     for scheme in ("point_aligned", "obs"):
-        w = copy.deepcopy(world)
-        adj = dist_ba.DistributedBundleAdjuster(w, rig, mesh, BAConfig(max_iterations=iters),
-                                                scheme=scheme)
-        if warm:
-            dist_ba.DistributedBundleAdjuster(copy.deepcopy(world), rig, mesh,
-                                              BAConfig(max_iterations=1),
-                                              scheme=scheme).optimize(0, world.num_frames)
-        stats, m = measured(lambda: adj.optimize(0, w.num_frames), iters)
-        out[f"window_{scheme}"] = dict(m, stats=stats, poses=w.pose_global[:w.num_frames].copy(),
+        cfg = BAConfig(max_iterations=iters)
+        capture_ms = _warm(dev, lambda: dist_ba.DistributedBundleAdjuster(
+            copy.deepcopy(world), rig, mesh, cfg, scheme=scheme).optimize(
+                0, world.num_frames, max_iterations=1)) if warm else 0.0
+        runs = []
+
+        def solve():
+            w = copy.deepcopy(world)
+            adj = dist_ba.DistributedBundleAdjuster(w, rig, mesh, cfg, scheme=scheme)
+            runs.append(w)
+            return adj.optimize(0, w.num_frames)
+
+        stats, m = _measured(dev, solve, iters, reps)
+        w = runs[-1]
+        out[f"window_{scheme}"] = dict(m, capture_ms=capture_ms, stats=stats,
+                                       captured=stats["captured"],
+                                       poses=w.pose_global[:w.num_frames].copy(),
                                        points=w.points[:w.num_points].copy())
 
     shard = dist_ba.place_point_aligned(mesh, *dist_ba.build_point_aligned(
         *(x.numpy() for x in _map_host(map_size)), mesh.size))
     cfg = BAConfig(cg_iterations=40, function_tolerance=0.0)
     solve = dist_ba.sharded_ba_solve_point_aligned(mesh, cfg)
-    if warm:
-        solve(shard, 1)
-    (carry, n_it, c0), m = measured(lambda: solve(shard, iters), iters)
-    out["map"] = dict(m, iterations=int(n_it), cost_initial=float(c0), cost=float(carry.cost),
-                      pose6=carry.prob.pose6.cpu().numpy())
+    capture_ms = _warm(dev, lambda: solve(shard, 1)) if warm else 0.0
+    (carry, n_it, c0), m = _measured(dev, lambda: solve(shard, iters), iters, reps)
+    out["map"] = dict(m, capture_ms=capture_ms, iterations=int(n_it), cost_initial=float(c0),
+                      cost=float(carry.cost), pose6=carry.prob.pose6.cpu().numpy(),
+                      captured=_is_cuda(dev) and dist_ba.capturable(mesh.group))
+    del carry, shard
+    if _is_cuda(dev):
+        torch.cuda.empty_cache()
 
     if graph is not None:
-        if warm:
-            dist_pose_graph.solve(*graph, mesh, PoseGraphConfig(iterations=1))
-        (poses, costs), m = measured(lambda: dist_pose_graph.solve(*graph, mesh), 1)
+        pg_eager = not _is_cuda(dev) or not dist_ba.capturable(mesh.group)
+        (poses, costs), m = _dist_pose_graph(mesh, graph, warm, reps, pg_eager)
         out["pose_graph"] = dict(m, poses=poses, costs=costs)
     return out
 
 
 def _dist_gloo_rank(rank, world_size, world, rig_np, map_size, graph):
     """A spawned gloo rank on the card (all ranks share cuda:0): the solves
-    of _dist_solves, not warmed (gloo ranks on one card are timed for
-    their collectives' count, not their speed)."""
+    of _dist_solves, eager (gloo's backend), not warmed (gloo ranks on one
+    card are timed for their collectives' count, not their speed)."""
     import torch
 
     from stereo_orb_slam_torch.parallel.mesh import make_mesh
@@ -4556,17 +4638,71 @@ def _pose_gap(a, b):
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
 
 
+_RESULT_FIELDS = ("poses", "points", "pose6")
+_SUMMARY_FIELDS = ("ms_per_iteration", "ms_per_iteration_runs", "capture_ms",
+                   "all_reduces_per_iteration", "all_reduce_bytes_per_iteration", "peak_bytes",
+                   "captured")
+
+
+def _nccl_variants(name, captured, eager, alone):
+    """The 1-NCCL-rank comparison of each solve: the captured solve's bits
+    against its eager body with the group and against the no-group
+    program, all_reduces and bytes captured against eager (equal), and the
+    three times side by side. Raises when a solve differs or did not run
+    as it should."""
+    rec = {}
+    for key in captured:
+        fields = [f for f in _RESULT_FIELDS if f in captured[key]]
+        same = {other: all(np.array_equal(captured[key][f], ref[key][f]) for f in fields)
+                for other, ref in (("eager", eager), ("no_group", alone))}
+        counts = (captured[key]["all_reduces_per_iteration"],
+                  captured[key]["all_reduce_bytes_per_iteration"])
+        eager_counts = (eager[key]["all_reduces_per_iteration"],
+                        eager[key]["all_reduce_bytes_per_iteration"])
+        rec[key] = {"bit_for_bit": same, "all_reduces_equal": counts == eager_counts,
+                    "captured": {f: captured[key].get(f) for f in _SUMMARY_FIELDS},
+                    "eager_with_group": {f: eager[key].get(f) for f in _SUMMARY_FIELDS},
+                    "no_group_program": {f: alone[key].get(f) for f in _SUMMARY_FIELDS}}
+        log(f"{name}, 1 NCCL rank, {key}: captured {captured[key]['ms_per_iteration']:.3f} ms, "
+            f"eager with the group {eager[key]['ms_per_iteration']:.3f} ms, no-group program "
+            f"{alone[key]['ms_per_iteration']:.3f} ms per "
+            f"{'solve' if 'pose_graph' in key else 'LM iteration'} (capture "
+            f"{captured[key]['capture_ms']:.1f} ms apart, no group "
+            f"{alone[key]['capture_ms']:.1f} ms); all_reduces {counts[0]:g} captured / "
+            f"{eager_counts[0]:g} eager, bytes {counts[1]:g} / {eager_counts[1]:g}; bit for bit "
+            f"{same}")
+        if not all(same.values()):
+            raise AssertionError(f"{name} {key}: the captured solve differs: {same}")
+        if counts != eager_counts:
+            raise AssertionError(f"{name} {key}: all_reduces {counts} captured, {eager_counts} "
+                                 "eager")
+        if not captured[key]["captured"] or eager[key]["captured"]:
+            raise AssertionError(f"{name} {key}: captured {captured[key]['captured']}, eager "
+                                 f"{eager[key]['captured']}")
+    return rec
+
+
+def _pg_all_reduces_expected():
+    from stereo_orb_slam_torch.config import PoseGraphConfig
+
+    cfg = PoseGraphConfig()
+    return cfg.iterations * (1 + cfg.cg_iterations)
+
+
 def phase_distributed(tmp, seq, world, slam_graph, map_size=MAP_SIZE):
     """Distributed BA and pose graph on the card (parallel/): at 1 rank
-    under NCCL in this process, held bit for bit against the same code
-    with no process group; at 2 and 4 gloo ranks spawned on cuda:0, held
-    against the single-process card solve within the DIST_* bounds; every
-    rank's replica the same. The tracked 60-frame world (both layouts),
-    the map problem (point-aligned, matrix-free) and the SLAM phase's final
-    pose graph, each DIST_LM_ITERATIONS LM iterations (the graph
-    PoseGraphConfig's 10 GN steps). Also ms, all_reduces and bytes per LM
-    iteration, peak memory per rank, and device syncs per LM iteration at 1
-    NCCL rank (the single-process count expected)."""
+    under NCCL in this process, each solve captured (one program per
+    solve, its all_reduces in the graphs), held bit for bit against its
+    eager body with the same group and against the same code with no
+    process group, with equal all_reduce counts and bytes and the three
+    times side by side (capture ms apart); at 2 and 4 gloo ranks spawned on
+    cuda:0 (eager, gloo's backend), held against the single-process card
+    solve within the DIST_* bounds; every rank's replica the same. The
+    tracked 60-frame world (both layouts), the map problem (point-aligned,
+    matrix-free) and the SLAM phase's final pose graph, each
+    DIST_LM_ITERATIONS LM iterations (the graph PoseGraphConfig's 10 GN
+    steps, 10 x (1 + 200) = 2,010 all_reduces). Also peak memory per rank
+    and device syncs per LM iteration at 1 NCCL rank (0)."""
     import torch
 
     from stereo_orb_slam_torch.backend import pose_graph
@@ -4580,6 +4716,7 @@ def phase_distributed(tmp, seq, world, slam_graph, map_size=MAP_SIZE):
     rig = calib.load_camera(os.path.join(seq, "calib.txt"))
     rig_np = _rig_numpy(rig)
     iters = DIST_LM_ITERATIONS
+    pg_expected = _pg_all_reduces_expected()
     rec = {}
 
     # The single-process card solves the ranks are held against.
@@ -4612,6 +4749,9 @@ def phase_distributed(tmp, seq, world, slam_graph, map_size=MAP_SIZE):
             raise AssertionError(f"{name}: map solve differs from single-process by {g['map']}")
         if g.get("pose_graph", 0.0) > DIST_PG_ATOL:
             raise AssertionError(f"{name}: pose graph differs by {g['pose_graph']}")
+        if "pose_graph" in got and got["pose_graph"]["all_reduces_per_iteration"] != pg_expected:
+            raise AssertionError(f"{name}: {got['pose_graph']['all_reduces_per_iteration']} "
+                                 f"all_reduces a pose-graph solve, not {pg_expected}")
         return g
 
     def summary(got):
@@ -4619,19 +4759,18 @@ def phase_distributed(tmp, seq, world, slam_graph, map_size=MAP_SIZE):
                                       "all_reduce_bytes_per_iteration", "peak_bytes")}
                 for k, v in got.items()}
 
-    # 1 rank under NCCL, in this process.
+    # 1 rank under NCCL, in this process: eager with the group, captured,
+    # and with no group.
     multihost.initialize(init_method="file://" + os.path.join(tmp, "nccl_store"),
                          num_processes=1, process_id=0, backend="nccl")
     try:
         nccl = make_mesh(device=dev)
-        got = _dist_solves(nccl, world, rig_np, map_size, slam_graph)
-        alone = _dist_solves(Mesh(None, 0, 1, dev), world, rig_np, map_size, slam_graph)
-        identical = {}
-        for key in got:
-            fields = [f for f in ("poses", "points", "pose6") if f in got[key]]
-            identical[key] = all(np.array_equal(got[key][f], alone[key][f]) for f in fields)
+        eager = _dist_solves(nccl, world, rig_np, map_size, slam_graph, eager=True)
+        got = _dist_solves(nccl, world, rig_np, map_size, slam_graph, reps=DIST_TIMED_SOLVES)
+        alone = _dist_solves(Mesh(None, 0, 1, dev), world, rig_np, map_size, slam_graph,
+                             reps=DIST_TIMED_SOLVES)
         # Device syncs per LM iteration: the map solve with the NCCL group
-        # and without one.
+        # (captured) and without one.
         shard = dist_ba.place_point_aligned(nccl, *dist_ba.build_point_aligned(
             *(x.numpy() for x in _map_host(map_size)), 1))
         cfg = BAConfig(cg_iterations=40, function_tolerance=0.0)
@@ -4639,19 +4778,17 @@ def phase_distributed(tmp, seq, world, slam_graph, map_size=MAP_SIZE):
             lambda: dist_ba.sharded_ba_solve_point_aligned(nccl, cfg)(shard, 2))
         _, syncs_alone = _syncs_per_call(
             lambda: dist_ba.sharded_ba_solve_point_aligned(Mesh(None, 0, 1, dev), cfg)(shard, 2))
+        del shard
     finally:
         multihost.shutdown()
-    rec["nccl_1"] = {"identical_to_no_group": identical, "gaps_to_single": held("nccl x1", got),
-                     "per_solve": summary(got), "per_solve_no_group": summary(alone),
+    solves = _nccl_variants("distributed", got, eager, alone)
+    rec["nccl_1"] = {"solves": solves, "gaps_to_single": held("nccl x1", got),
                      "syncs_per_lm_iteration": syncs_nccl / 2,
                      "syncs_per_lm_iteration_no_group": syncs_alone / 2}
-    log(f"distributed, 1 NCCL rank: bit for bit against no group {identical}; gaps to the "
-        f"single-process solves {rec['nccl_1']['gaps_to_single']}; syncs per LM iteration "
-        f"{syncs_nccl / 2} (no group: {syncs_alone / 2}); per solve {rec['nccl_1']['per_solve']}"
-        f"; with no group {rec['nccl_1']['per_solve_no_group']}")
-    if not all(identical.values()):
-        raise AssertionError(f"1 NCCL rank is not bit for bit the solve with no group: {identical}")
-    if syncs_nccl != syncs_alone:
+    log(f"distributed, 1 NCCL rank: gaps to the single-process solves "
+        f"{rec['nccl_1']['gaps_to_single']}; syncs per LM iteration {syncs_nccl / 2} (no group: "
+        f"{syncs_alone / 2})")
+    if syncs_nccl != 0 or syncs_alone != 0:
         raise AssertionError(f"1 NCCL rank syncs {syncs_nccl} times, no group {syncs_alone}")
 
     for n in DIST_GLOO_RANKS:
@@ -4668,14 +4805,59 @@ def phase_distributed(tmp, seq, world, slam_graph, map_size=MAP_SIZE):
             if graph is not None and not np.array_equal(other["pose_graph"]["poses"],
                                                         outs[0]["pose_graph"]["poses"]):
                 raise AssertionError(f"gloo x{n}: ranks hold different pose graphs")
+        if any(o[key]["captured"] for o in outs for key in o):
+            raise AssertionError(f"gloo x{n}: a solve ran captured")
         rec[f"gloo_{n}"] = {"gaps_to_single": held(f"gloo x{n}", outs[0]),
                             "per_solve_rank0": summary(outs[0]),
                             "peak_bytes_per_rank": [o["map"]["peak_bytes"] for o in outs],
                             "spawn_wall_s": wall_s}
-        log(f"distributed, {n} gloo ranks on one card (correctness and collective counts, not "
-            f"scaling): gaps to single {rec[f'gloo_{n}']['gaps_to_single']}; rank 0 per solve "
-            f"{rec[f'gloo_{n}']['per_solve_rank0']}; map peak bytes per rank "
+        log(f"distributed, {n} gloo ranks on one card (eager; correctness and collective "
+            f"counts, not scaling): gaps to single {rec[f'gloo_{n}']['gaps_to_single']}; rank 0 "
+            f"per solve {rec[f'gloo_{n}']['per_solve_rank0']}; map peak bytes per rank "
             f"{rec[f'gloo_{n}']['peak_bytes_per_rank']}; {wall_s:.1f} s with the spawn")
+    return rec
+
+
+def phase_distributed_long(tmp, graph):
+    """dist_pose_graph.solve at full width: the long canyon's finish graph
+    (phase 14's last pose-graph solve at its own size, 1,200 vertices) at 1
+    NCCL rank in a fresh group made as phase_distributed makes one:
+    captured against its eager body with the group and against the
+    no-group program, bit for bit, with equal all_reduce counts (2,010 a
+    solve) and bytes, the three times side by side and the capture ms
+    apart."""
+    import torch
+
+    from stereo_orb_slam_torch.parallel import multihost
+    from stereo_orb_slam_torch.parallel.mesh import Mesh, make_mesh
+
+    dev = torch.device("cuda", 0)
+    multihost.initialize(init_method="file://" + os.path.join(tmp, "nccl_long_store"),
+                         num_processes=1, process_id=0, backend="nccl")
+    try:
+        nccl = make_mesh(device=dev)
+        out = {}
+        with _eager_distributed():
+            (poses, costs), m = _dist_pose_graph(nccl, graph, eager=True)
+            out["eager"] = dict(m, poses=poses, costs=costs)
+        for name, mesh in (("captured", nccl), ("no_group", Mesh(None, 0, 1, dev))):
+            (poses, costs), m = _dist_pose_graph(mesh, graph, reps=DIST_TIMED_SOLVES)
+            out[name] = dict(m, poses=poses, costs=costs)
+    finally:
+        multihost.shutdown()
+    key = "pose_graph_canyon_long"
+    rec = _nccl_variants("distributed (full width)", {key: out["captured"]},
+                         {key: out["eager"]}, {key: out["no_group"]})[key]
+    n, E = len(graph[0]), len(graph[1])
+    rec.update(vertices=n, edges=E, costs=out["captured"]["costs"])
+    if out["captured"]["all_reduces_per_iteration"] != _pg_all_reduces_expected():
+        raise AssertionError(f"full-width pose graph: {out['captured']['all_reduces_per_iteration']}"
+                             f" all_reduces a solve")
+    if not (np.isfinite(out["captured"]["poses"]).all()
+            and out["captured"]["costs"][1] <= out["captured"]["costs"][0]):
+        raise AssertionError(f"full-width pose graph: costs {out['captured']['costs']}")
+    log(f"distributed (full width): the long canyon's finish graph, {n} vertices, {E} edges, "
+        f"costs {out['captured']['costs']}")
     return rec
 
 
@@ -4687,7 +4869,8 @@ def _map_host(map_size):
 
 def phase_refine_torchrun(tmp, seq, gt, iterations=50):
     """`apps.refine --distributed` under torchrun (one NCCL rank) over the
-    dump phase 6c wrote: cost not above its initial value, ATE < 0.01 m."""
+    dump phase 6c wrote: cost not above its initial value, ATE < 0.01 m,
+    and the log's stats saying the solve ran captured."""
     from stereo_orb_slam_torch.io import export
     from stereo_orb_slam_torch.utils import evaluate
 
@@ -4705,22 +4888,30 @@ def phase_refine_torchrun(tmp, seq, gt, iterations=50):
     line = [ln for ln in (proc.stdout + proc.stderr).splitlines() if "global BA:" in ln][-1]
     poses = export.read_poses_txt(os.path.join(out, "poses.txt"))
     ate = evaluate.ate_rmse(poses, evaluate.load_kitti_gt(gt)[:len(poses)])
+    captured = "'captured': True" in line
     log(f"refine --distributed under torchrun (1 NCCL rank): {wall_s:.1f} s wall with the "
-        f"launch; {line.strip()[:300]}; ATE {ate:.5f} m")
+        f"launch; {line.strip()[:420]}; ATE {ate:.5f} m; captured {captured}")
     if not ate < 0.01:
         raise AssertionError(f"torchrun refine: ATE {ate} m is not below 0.01 m")
-    return {"wall_s": wall_s, "ate_m": ate, "log": line.strip()}
+    if not captured:
+        raise AssertionError("torchrun refine: the log does not say the solve ran captured")
+    return {"wall_s": wall_s, "ate_m": ate, "captured": captured, "log": line.strip()}
 
 
 def phase_scaling_bench():
-    """apps.scaling_bench at 1 NCCL rank: LM iterations/s of the sharded LM
-    step on its C = 200, P = 20,000 problem (CUDA events)."""
+    """apps.scaling_bench at 1 NCCL rank: captured LM iterations/s of the
+    sharded LM step (one LMStepProgram replay a step) on its C = 200, P =
+    20,000 problem (CUDA events)."""
     from stereo_orb_slam_torch.apps import scaling_bench
 
     res = scaling_bench.run([1], n_iter=8, device="cuda", backend="nccl")["1"]
     log(f"scaling_bench, 1 NCCL rank (C=200, P=20000, O=120000, cg 25): "
-        f"{res['ba_iterations_per_sec']:.2f} LM iterations/s, {res['all_reduces_per_iteration']:.0f}"
-        f" all_reduces per iteration, peak {res['peak_bytes'] / 2**20:.1f} MiB")
+        f"{res['ba_iterations_per_sec']:.2f} LM iterations/s "
+        f"({'captured' if res['captured'] else 'eager'}), "
+        f"{res['all_reduces_per_iteration']:.0f} all_reduces per iteration, peak "
+        f"{res['peak_bytes'] / 2**20:.1f} MiB")
+    if not res["captured"]:
+        raise AssertionError("scaling_bench at 1 NCCL rank did not run captured")
     return res
 
 
@@ -4853,6 +5044,7 @@ def main(argv=None):
         long_data = timed("render_canyon_long_wait", _finish_canyon_long_render, *long_render)
         long_rec, long_system, long_graphs = timed(
             "canyon_long", phase_canyon_long, long_data, os.path.join(tmp, "canyon_long_out"))
+        long_finish_graph = _graph_numpy(long_system.pgo)   # for phase 9 at full width
         canyon_long = {"slam": long_rec, "render_seconds": long_data["render_seconds"]}
         canyon_long["edges"], long_edges = timed("canyon_long_edges", phase_canyon_long_edges,
                                                  long_system)
@@ -4881,6 +5073,8 @@ def main(argv=None):
         distributed = {
             "ba_pose_graph": timed("distributed", phase_distributed, tmp, seq, dist_world,
                                    slam_graph),
+            "pose_graph_full_width": timed("distributed_long", phase_distributed_long, tmp,
+                                           long_finish_graph),
             "refine_torchrun": timed("refine_torchrun", phase_refine_torchrun, tmp, seq, gt),
             "scaling_bench": timed("scaling_bench", phase_scaling_bench),
         }

@@ -21,7 +21,9 @@ torchrun, one process per rank:
 Every rank loads the dump and solves its shard; rank 0 writes the output.
 `--backend` is the process group's (nccl: one card per rank; gloo: CPU
 tensors, or several ranks sharing one card). Without torchrun's
-environment it runs as a group of one.
+environment it runs as a group of one. Under NCCL the solve is one
+captured program, its all_reduces inside the graphs; under gloo it runs
+eagerly. The log's stats say which ("captured").
 """
 
 from __future__ import annotations

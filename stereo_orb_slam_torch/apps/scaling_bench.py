@@ -13,7 +13,10 @@ CPU from the host clock.
 
 NCCL takes one card per rank; several ranks on one card need
 `--backend gloo`, which stages every all_reduce through the host: such a
-run measures the collectives' count and correctness, not scaling.
+run measures the collectives' count and correctness, not scaling. Under
+NCCL each step is one captured program (`backend.ba.lm_step_program`, as
+the JAX package jits its sharded step); under gloo it runs eagerly. Each
+result says which ("captured").
 """
 
 from __future__ import annotations
@@ -93,6 +96,7 @@ def measure(mesh, n_iter: int, cfg) -> dict:
             float(prob.pose6[0, 0])
             times.append(time.perf_counter() - t0)
     return {"ba_iterations_per_sec": 1.0 / float(np.median(times)),
+            "captured": cuda and mesh_mod.capturable(mesh.group),
             "all_reduces_per_iteration": (mesh_mod.ALL_REDUCES - n0) / n_iter,
             "all_reduce_bytes_per_iteration": (mesh_mod.ALL_REDUCE_BYTES - b0) / n_iter,
             "peak_bytes": torch.cuda.max_memory_allocated(mesh.device) if cuda else None}
@@ -133,7 +137,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     results = run(args.ranks, args.iters, args.device, args.backend)
     for n, r in results.items():
-        print(f"ranks={n}: {r['ba_iterations_per_sec']:.2f} it/s, efficiency "
+        print(f"ranks={n}: {r['ba_iterations_per_sec']:.2f} it/s "
+              f"({'captured' if r['captured'] else 'eager'}), efficiency "
               f"{r['scaling_efficiency']:.2%}, {r['all_reduces_per_iteration']:.0f} "
               f"all_reduces per iteration")
     print(json.dumps({"scaling": results}))

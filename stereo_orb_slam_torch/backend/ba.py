@@ -26,14 +26,19 @@ rejected by the LM). The results come back in one packed readback, and
 the chunked path of BundleAdjuster reads one count per chunk.
 
 How it runs: the JAX package jits `ba_solve_impl` / `lm_iteration_impl`
-into device programs. BundleAdjuster runs `lm_program`: an `LMProgram`
+into device programs, and its distributed solves (`jax.jit(shard_map)`)
+likewise. BundleAdjuster runs `lm_program`: an `LMProgram`
 (utils/programs.py) whose `start` (plans + lm_init) and `iteration`
-(one masked lm_iteration) bodies are captured once per padded shape and
-path as CUDA graphs, so a solve is 1 + max_iters graph launches. The
-eager `ba_solve` / `ba_resume` / `_lm_loop` are the same solve as
-launch streams: the plain versions the program is held to bit for bit,
-and the distributed solves' path (`group` given; gloo cannot be
-captured).
+(one masked lm_iteration) bodies are captured once per padded shape,
+path and process group as CUDA graphs, so a solve is 1 + max_iters graph
+launches; one `lm_step` is an `LMStepProgram`. The distributed solves
+(parallel/dist_ba.py) run the same programs with their group when
+`mesh.capturable(group)`: one process, or an NCCL group, whose
+all_reduces the graphs record. The eager `ba_solve` / `ba_resume` /
+`_lm_loop` / `lm_step` are the same solves as launch streams: the plain
+versions the programs are held to bit for bit, and the solves of a gloo
+group (which stages its collectives through the host, so no graph can
+hold them).
 
 Every solver entry point (`lm_step`, `lm_init`, `lm_iteration`,
 `ba_solve`, `ba_resume`, `BundleAdjuster.optimize*`) runs with TF32 off
@@ -44,8 +49,11 @@ reductions.
 Distributed solves (parallel/dist_ba.py) pass `group`, a process group,
 wherever the JAX package takes `axis_name`: each rank holds its shard of
 the observations (and, with `point_sharded`, of the points), sums it
-locally in the same fixed order, and one `all_reduce` (parallel/mesh.py,
-JAX's `psum`) completes each reduction. `group` None is one process.
+locally in the same fixed order, and an `all_reduce` (parallel/mesh.py,
+JAX's `psum`) completes each reduction; the independent sums of one
+build (the camera sum, the cost and, on the "obs" layout, the point sum)
+go in one `all_reduce_many`, as XLA's combiner merges them. `group` None
+is one process.
 
 Window semantics match the reference (ref `src/bundle_adjuster.cpp:39-133`):
 cameras parameterized as world->camera pose6, first camera in the window
@@ -69,7 +77,7 @@ from stereo_orb_slam_torch.backend import schur_dense
 from stereo_orb_slam_torch.backend.residuals import bmv
 from stereo_orb_slam_torch.config import BAConfig
 from stereo_orb_slam_torch.geometry import se3_np
-from stereo_orb_slam_torch.parallel.mesh import all_reduce
+from stereo_orb_slam_torch.parallel.mesh import all_reduce, all_reduce_many
 from stereo_orb_slam_torch.utils import programs
 
 
@@ -233,7 +241,8 @@ def build_normal_equations(prob: BAProblem, huber_delta: float,
     With `group`, prob's observations are this rank's shard: the camera
     blocks and the cost are summed over the ranks, and so are the point
     blocks unless `point_sharded` (the point-aligned layout, where every
-    point's observations are on one rank, so they stay local)."""
+    point's observations are on one rank, so they stay local). The sums
+    are independent, so they go in ONE all_reduce (`all_reduce_many`)."""
     C = prob.pose6.shape[0]
     P = prob.points.shape[0]
     cam_rows, pt_rows, W, cost = res_mod.build_rows_soa(
@@ -241,9 +250,7 @@ def build_normal_equations(prob: BAProblem, huber_delta: float,
         prob.obs_weight, prob.P_l, prob.P_r, huber_delta,
     )
     # Camera-side reductions fused into one row per observation.
-    cam_sum = _seg_sum_cams(cam_rows, prob.obs_cam, C, cam_red, group)
-    H_cc = cam_sum[:, :36].reshape(-1, 6, 6)
-    b_c = -cam_sum[:, 36:]
+    cam_sum = _seg_sum_cams(cam_rows, prob.obs_cam, C, cam_red)
     Wg = None
     if dense_slots is not None:
         # One slot gather for the whole point side: pt_rows (12 cols,
@@ -255,11 +262,16 @@ def build_normal_equations(prob: BAProblem, huber_delta: float,
         pt_red = g[..., :12].sum(dim=1)
         Wg = g[..., 12:].reshape(sto.shape[0], -1, 6, 3)
     else:
-        pt_red = _seg_sum_points(pt_rows, prob.obs_point, P, seg=_plan(cam_red).points,
-                                 group=None if point_sharded else group)
+        pt_red = _seg_sum_points(pt_rows, prob.obs_point, P, seg=_plan(cam_red).points)
+    if dense_slots is None and not point_sharded:
+        cam_sum, pt_red, cost = all_reduce_many([cam_sum, pt_red, cost], group)
+    else:
+        cam_sum, cost = all_reduce_many([cam_sum, cost], group)
+    H_cc = cam_sum[:, :36].reshape(-1, 6, 6)
+    b_c = -cam_sum[:, 36:]
     H_pp = pt_red[:, :9].reshape(-1, 3, 3)
     b_p = pt_red[:, 9:]
-    return H_cc, H_pp, W, b_c, b_p, all_reduce(cost, group), Wg
+    return H_cc, H_pp, W, b_c, b_p, cost, Wg
 
 
 def _damp_blocks(H, lam, eps=1e-8):
@@ -700,14 +712,15 @@ def ba_resume(carry: LMCarry, max_iters: int, cfg: BAConfig, dense_slots=None,
                     _band(band_bases, band_B, band_Pc), group, point_sharded)
 
 
-def _solve_plans(prob: BAProblem, dense_K, cam_K, chunked: bool):
-    """(dense_slots, cam_red) of a solve: as `ba_solve` derives them, or
+def _solve_plans(prob: BAProblem, dense_K, cam_K, chunked: bool, distributed: bool = False):
+    """(dense_slots, cam_red) of a solve: as `ba_solve` derives them (with
+    `distributed`, as it does for a group or the point-aligned layout), or
     (`chunked`) as BundleAdjuster's chunked path does (camera-run slot
     maps or segmented sums, never the one-hot)."""
     ds = None if dense_K is None else build_slots_device(
         prob.obs_point, prob.obs_cam, prob.obs_weight, prob.points.shape[0], dense_K)
     if not chunked:
-        return ds, _cam_reduction(prob, ds, cam_K)
+        return ds, _cam_reduction(prob, ds, cam_K, distributed)
     if ds is None:
         return None, _cam_reduction(prob, None, None)
     return ds, (None if cam_K is None else build_cam_slots_device(
@@ -721,17 +734,24 @@ class LMProgram(programs.Program):
     the convergence flag in static tensors, and two bodies: `start` (the
     plans and lm_init) and `iteration` (one lm_iteration, masked once the
     exit has fired). A solve replays `iteration` max_iters times, so
-    `iters` and `done` stay on the device as in the eager loop."""
+    `iters` and `done` stay on the device as in the eager loop.
 
-    def __init__(self, prob: BAProblem, cfg: BAConfig, dense_K, cam_K, band, chunked: bool):
-        super().__init__(prob.pose6.device)
+    A distributed solve's program (parallel/dist_ba.py) holds this rank's
+    shard and sums over `group` (see ba_solve; `point_sharded` for the
+    point-aligned layout); either takes ba_solve's distributed plan."""
+
+    def __init__(self, prob: BAProblem, cfg: BAConfig, dense_K, cam_K, band, chunked: bool,
+                 group=None, point_sharded: bool = False):
+        super().__init__(prob.pose6.device, group)
         self.cfg, self.dense_K, self.cam_K, self.band, self.chunked = (
             cfg, dense_K, cam_K, band, chunked)
+        self.point_sharded = point_sharded
+        self.distributed = group is not None or point_sharded
         dev = prob.pose6.device
         self.prob = BAProblem(*(torch.empty_like(t) for t in prob))
         # The plans' shapes, from one eager build; `start` rebuilds their
         # values for every problem.
-        self.plans = _solve_plans(prob, dense_K, cam_K, chunked)
+        self.plans = _solve_plans(prob, dense_K, cam_K, chunked, self.distributed)
         C, P, O = prob.pose6.shape[0], prob.points.shape[0], prob.obs_cam.shape[0]
 
         def f32(*shape):
@@ -744,17 +764,19 @@ class LMProgram(programs.Program):
         self.done = torch.empty((), dtype=torch.bool, device=dev)
 
     @staticmethod
-    def key(prob: BAProblem, cfg: BAConfig, dense_K, cam_K, band, chunked: bool):
+    def key(prob: BAProblem, cfg: BAConfig, dense_K, cam_K, band, chunked: bool, group=None,
+            point_sharded: bool = False):
         band_key = None if band is None else (tuple(int(b) for b in band[0]), band[1], band[2])
-        return (LMProgram, programs.tensor_key(*prob), cfg, dense_K, cam_K, band_key, chunked)
+        return (LMProgram, programs.tensor_key(*prob), cfg, dense_K, cam_K, band_key, chunked,
+                group, point_sharded)
 
     def load(self, prob: BAProblem):
         programs.copy_into(self.prob, prob)
 
     def start(self):
         programs.copy_into(self.plans, _solve_plans(self.prob, self.dense_K, self.cam_K,
-                                                    self.chunked))
-        carry = lm_init(self.prob, self.cfg, *self.plans)
+                                                    self.chunked, self.distributed))
+        carry = lm_init(self.prob, self.cfg, *self.plans, self.group, self.point_sharded)
         programs.copy_into(self.carry[1:], carry[1:])
         self.cost_init.copy_(carry.cost)
         self.iters.zero_()
@@ -763,7 +785,7 @@ class LMProgram(programs.Program):
     def iteration(self):
         active = ~self.done
         new, accepted, c0, c1 = lm_iteration(self.carry, self.cfg, *self.plans, self.band,
-                                             active)
+                                             active, self.group, self.point_sharded)
         # c0 is the carry's cost tensor: the exit test reads it before the
         # carry is overwritten.
         converged = accepted & (c0 > 0) & ((c0 - c1) < self.cfg.function_tolerance * c0)
@@ -786,26 +808,93 @@ class LMProgram(programs.Program):
 
 def lm_program(prob: BAProblem, cfg: BAConfig, dense_K=None, cam_K=None, band=None,
                chunked: bool = False,
-               cache: Optional[programs.ProgramCache] = None) -> LMProgram:
-    """The cache's LMProgram for this problem's shapes and path."""
+               cache: Optional[programs.ProgramCache] = None, group=None,
+               point_sharded: bool = False) -> LMProgram:
+    """The cache's LMProgram for this problem's shapes, path and group."""
     cache = programs.PROGRAMS if cache is None else cache
-    return cache.get(LMProgram.key(prob, cfg, dense_K, cam_K, band, chunked),
-                     lambda: LMProgram(prob, cfg, dense_K, cam_K, band, chunked))
+    return cache.get(LMProgram.key(prob, cfg, dense_K, cam_K, band, chunked, group,
+                                   point_sharded),
+                     lambda: LMProgram(prob, cfg, dense_K, cam_K, band, chunked, group,
+                                       point_sharded))
 
 
 @full_f32
 def ba_solve_program(prob: BAProblem, max_iters: int, cfg: BAConfig, dense_K=None, cam_K=None,
                      band_bases=None, band_B=None, band_Pc=None,
-                     cache: Optional[programs.ProgramCache] = None):
-    """`ba_solve` (no group, slot maps derived on the device) through its
-    captured program: on the card `start` and `iteration` are captured
-    once per padded shape and path and a solve is 1 + max_iters graph
+                     cache: Optional[programs.ProgramCache] = None, group=None,
+                     point_sharded: bool = False):
+    """`ba_solve` (slot maps derived on the device) through its captured
+    program: on the card `start` and `iteration` are captured once per
+    padded shape, path and group and a solve is 1 + max_iters graph
     replays; on the CPU the bodies run as they are. Equal to `ba_solve`
-    bit for bit. Returns what `ba_solve` returns, as new tensors."""
+    with the same `group` and `point_sharded` bit for bit. Returns what
+    `ba_solve` returns, as new tensors."""
     prog = lm_program(prob, cfg, dense_K, cam_K, _band(band_bases, band_B, band_Pc), False,
-                      cache)
+                      cache, group, point_sharded)
     prog.solve(prob, max_iters)
     return programs.clone(prog.carry), prog.iters.clone(), prog.cost_init.clone()
+
+
+def lm_step_on_shard(prob: BAProblem, lam, cfg: BAConfig, dense_K=None, group=None,
+                    point_sharded: bool = False):
+    """One distributed LM step (lm_step) over this rank's shard with its
+    plans: none on the "obs" layout (lm_step's own segmented sums); on the
+    point-aligned layout the local slot maps (with `dense_K`) and the
+    distributed plan. The eager body of `lm_step_program`."""
+    ds = cam_red = None
+    if point_sharded:
+        ds = (build_slots_device(prob.obs_point, prob.obs_cam, prob.obs_weight,
+                                 prob.points.shape[0], dense_K)
+              if dense_K is not None else None)
+        cam_red = _cam_reduction(prob, ds, None, distributed=True)
+    return lm_step(prob, lam, cfg, ds, cam_red, group, point_sharded)
+
+
+class LMStepProgram(programs.Program):
+    """One `lm_step_on_shard` as a captured program, one body, for one shard
+    shape, path and group: the problem and lambda in static tensors, the
+    stepped pose6 and points, lambda, the accept flag and both costs out
+    (the scaling harness's step)."""
+
+    def __init__(self, prob: BAProblem, lam, cfg: BAConfig, dense_K, group=None,
+                 point_sharded: bool = False):
+        super().__init__(prob.pose6.device, group)
+        self.cfg, self.dense_K, self.point_sharded = cfg, dense_K, point_sharded
+        self.prob = BAProblem(*(torch.empty_like(t) for t in prob))
+        self.lam = torch.empty_like(lam)
+        self.out = (torch.empty_like(prob.pose6), torch.empty_like(prob.points),
+                    torch.empty_like(lam),
+                    torch.empty((), dtype=torch.bool, device=self.device),
+                    torch.empty((), dtype=torch.float32, device=self.device),
+                    torch.empty((), dtype=torch.float32, device=self.device))
+
+    @staticmethod
+    def key(prob: BAProblem, lam, cfg: BAConfig, dense_K, group=None,
+            point_sharded: bool = False):
+        return (LMStepProgram, programs.tensor_key(*prob, lam), cfg, dense_K, group,
+                point_sharded)
+
+    def step(self):
+        new, lam, accepted, c0, c1 = lm_step_on_shard(self.prob, self.lam, self.cfg,
+                                                      self.dense_K, self.group,
+                                                      self.point_sharded)
+        programs.copy_into(self.out, (new.pose6, new.points, lam, accepted, c0, c1))
+
+
+def lm_step_program(prob: BAProblem, lam, cfg: BAConfig, dense_K=None, group=None,
+                    point_sharded: bool = False,
+                    cache: Optional[programs.ProgramCache] = None):
+    """`lm_step_on_shard` through its captured program (one graph replay a
+    step on the card; the body as it is on the CPU). Equal to the eager
+    step bit for bit. Returns what lm_step returns, as new tensors."""
+    cache = programs.PROGRAMS if cache is None else cache
+    prog = cache.get(LMStepProgram.key(prob, lam, cfg, dense_K, group, point_sharded),
+                     lambda: LMStepProgram(prob, lam, cfg, dense_K, group, point_sharded))
+    programs.copy_into(prog.prob, prob)
+    prog.lam.copy_(lam)
+    prog.run("step", prog.step)
+    pose6, points, lam_new, accepted, c0, c1 = programs.clone(prog.out)
+    return prob._replace(pose6=pose6, points=points), lam_new, accepted, c0, c1
 
 
 def _pad_to(n: int, mult: int = 256) -> int:

@@ -20,7 +20,10 @@ g2o information matrix is indexed in the reference.
 Distributed (parallel/dist_pose_graph.py): with `group`, the problem's
 edges are this rank's shard and the vertex state is replicated; each
 vertex sum is taken locally in edge order and then summed over the ranks
-(one all_reduce, JAX's `psum`), and so is the cost.
+(JAX's `psum`), and so is the cost: the assembly's three sums (gradient,
+block diagonal, cost) in one all_reduce (`all_reduce_many`, as XLA's
+combiner merges them), and one per CG matvec, so a Gauss-Newton step
+makes 1 + cg_iterations all_reduces.
 
 How it runs: the JAX package jits the whole solve (`pg_solve_impl`, a
 `lax.scan` of GN steps whose CG is a `while_loop`) into one device
@@ -34,10 +37,12 @@ vertex's segment, `edge_plan`), and `PoseGraphOptimizer` runs
 once per bucket as CUDA graphs and replayed iterations x (cg_iterations
 + 2) times a solve, so a closure whose graph falls in a bucket met before
 captures nothing; `SlamSystem.prewarm_closure_path` captures the large
-buckets ahead. `pg_solve` is the same solve as eager launches (the plain
-version the tests and the smoke hold the program to, bit for bit) and
-the solve of the distributed pose graph, whose gloo all_reduces cannot
-be captured.
+buckets ahead. The distributed pose graph runs the same program with its
+process group when `mesh.capturable(group)` (an NCCL group: the graphs
+record its all_reduces). `pg_solve` and `gn_step` are the same solve as
+eager launches: the plain versions the tests and the smoke hold the
+program to, bit for bit, and the solve of a gloo group, which stages its
+collectives through the host and so cannot be captured.
 The padding adds exact zeros and changes no real vertex's segment sum,
 but it changes the trees of the whole-vector reductions (CG's dot
 products, the cost), so a bucketed solve equals the exact-size one only
@@ -61,7 +66,7 @@ from stereo_orb_slam_torch.backend.ba import (
 from stereo_orb_slam_torch.backend.residuals import bmv
 from stereo_orb_slam_torch.config import PoseGraphConfig
 from stereo_orb_slam_torch.geometry import se3
-from stereo_orb_slam_torch.parallel.mesh import all_reduce
+from stereo_orb_slam_torch.parallel.mesh import all_reduce, all_reduce_many
 from stereo_orb_slam_torch.utils import programs
 
 
@@ -217,11 +222,11 @@ def edge_plan(prob: PoseGraphProblem) -> EdgePlan:
                              keep=torch.cat([keep, keep])))
 
 
-def _vertex_sum(rows_a, rows_b, plan: EdgePlan, N: int, group=None):
+def _vertex_sum(rows_a, rows_b, plan: EdgePlan, N: int):
     """seg_sum(rows_a by edge_a) + seg_sum(rows_b by edge_b), rows [E, ...],
-    summed over `group`'s ranks when given."""
+    this rank's share."""
     both = _seg_sum(torch.cat([rows_a, rows_b]), None, 2 * N, plan.seg)
-    return all_reduce(both.view((2, N) + both.shape[1:]).sum(0), group)
+    return both.view((2, N) + both.shape[1:]).sum(0)
 
 
 def _normal_equations(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: EdgePlan,
@@ -229,7 +234,8 @@ def _normal_equations(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: EdgePl
     """A GN step's system at prob's poses: (J [2E,6,6], the rows of
     `plan.ends`; b [N,6] = -(J^T r) per vertex; M_inv [N,6,6], the inverse
     of H's damped block diagonal, identity for fixed vertices; the cost, a
-    0-d tensor, this rank's share with `group`)."""
+    0-d tensor). With `group`, the two vertex sums and the cost are summed
+    over the ranks in one all_reduce."""
     dt, dev = prob.poses.dtype, prob.poses.device
     # Made on the device: a host tensor would be a copy and a sync per step.
     info_sqrt = torch.cat([torch.full((3,), float(np.sqrt(cfg.info_translation)), dtype=dt,
@@ -241,12 +247,12 @@ def _normal_equations(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: EdgePl
     N = prob.poses.shape[0]
     vm = prob.vertex_mask[:, None]
 
-    # Gradient: b = -(J^T r) accumulated per vertex.
-    b = -_vertex_sum(_bmtv(J_a, r), _bmtv(J_b, r), plan, N, group) * vm
-
-    # Block diagonal of H for the Jacobi preconditioner.
-    diag = _vertex_sum(J_a.transpose(-1, -2) @ J_a, J_b.transpose(-1, -2) @ J_b, plan, N,
-                       group)
+    # Gradient: b = -(J^T r) accumulated per vertex, and the block
+    # diagonal of H for the Jacobi preconditioner.
+    grad = _vertex_sum(_bmtv(J_a, r), _bmtv(J_b, r), plan, N)
+    diag = _vertex_sum(J_a.transpose(-1, -2) @ J_a, J_b.transpose(-1, -2) @ J_b, plan, N)
+    grad, diag, cost = all_reduce_many([grad, diag, cost], group)
+    b = -grad * vm
     eye6 = torch.eye(6, dtype=dt, device=dev)
     diag = diag + cfg.damping * eye6[None]
     diag = torch.where(prob.vertex_mask[:, None, None] > 0, diag, eye6[None])
@@ -284,8 +290,7 @@ def gn_step(prob: PoseGraphProblem, cfg: PoseGraphConfig, plan: Optional[EdgePla
         return _matvec(x, J, prob.vertex_mask, plan, cfg.damping, group)
 
     delta = pcg(matvec, b, M_inv, cfg.cg_iterations, cfg.cg_tol)
-    return (prob._replace(poses=_apply_step(prob.poses, delta, prob.vertex_mask)),
-            all_reduce(cost, group))
+    return prob._replace(poses=_apply_step(prob.poses, delta, prob.vertex_mask)), cost
 
 
 @full_f32
@@ -315,8 +320,8 @@ def pg_solve(prob: PoseGraphProblem, cfg: PoseGraphConfig, group=None):
     fixed 10 g2o iterations with no convergence exit, ref
     pose_graph_optimizer.cpp:68-69) as a stream of eager launches with no
     host sync; TF32 is off for its products. This is the plain version of
-    `pg_solve_program`, which the optimizer runs, and the solve of the
-    distributed pose graph (`group` given; gloo cannot be captured).
+    `pg_solve_program`, which the optimizer runs, and the solve of a gloo
+    group's distributed pose graph (which cannot be captured).
 
     Returns (final problem, cost_initial, cost_final), the costs as 0-d
     tensors: the cost before the first and before the last step. `group`
@@ -335,10 +340,12 @@ class GNProgram(programs.Program):
     state in static tensors, and three bodies: `assemble` (the normal
     equations and PCG's start), `cg` (one PCG iteration) and `update` (the
     step applied to the poses). A solve replays them as iterations x (1 +
-    cg_iterations + 1)."""
+    cg_iterations + 1). With `group`, prob's edges are this rank's shard
+    and the bodies sum over the ranks (gn_step's `group`); `cost` is the
+    summed cost."""
 
-    def __init__(self, prob: PoseGraphProblem, cfg: PoseGraphConfig):
-        super().__init__(prob.poses.device)
+    def __init__(self, prob: PoseGraphProblem, cfg: PoseGraphConfig, group=None):
+        super().__init__(prob.poses.device, group)
         self.cfg = cfg
         N, E = prob.poses.shape[0], prob.edge_a.shape[0]
         dt, dev = prob.poses.dtype, prob.poses.device
@@ -360,15 +367,15 @@ class GNProgram(programs.Program):
                              torch.empty((), dtype=torch.bool, device=dev))
 
     @staticmethod
-    def key(prob: PoseGraphProblem, cfg: PoseGraphConfig):
-        return (GNProgram, programs.tensor_key(*prob), cfg)
+    def key(prob: PoseGraphProblem, cfg: PoseGraphConfig, group=None):
+        return (GNProgram, programs.tensor_key(*prob), cfg, group)
 
     def load(self, prob: PoseGraphProblem):
         programs.copy_into(self.prob, prob)
         programs.copy_into(self.plan, edge_plan(prob))
 
     def assemble(self):
-        J, b, M_inv, cost = _normal_equations(self.prob, self.cfg, self.plan)
+        J, b, M_inv, cost = _normal_equations(self.prob, self.cfg, self.plan, self.group)
         self.J.copy_(J)
         self.M_inv.copy_(M_inv)
         self.cost.copy_(cost)
@@ -378,35 +385,60 @@ class GNProgram(programs.Program):
         pcg_iteration(self.state, self._matvec, self.M_inv)
 
     def _matvec(self, x):
-        return _matvec(x, self.J, self.prob.vertex_mask, self.plan, self.cfg.damping)
+        return _matvec(x, self.J, self.prob.vertex_mask, self.plan, self.cfg.damping,
+                       self.group)
 
     def update(self):
         self.prob.poses.copy_(_apply_step(self.prob.poses, self.state.x, self.prob.vertex_mask))
 
+    def step(self):
+        """One Gauss-Newton step (gn_step); `cost` is the cost before it."""
+        self.run("assemble", self.assemble)
+        for _ in range(self.cfg.cg_iterations):
+            self.run("cg", self.cg)
+        self.run("update", self.update)
+
     def solve(self):
         for it in range(self.cfg.iterations):
-            self.run("assemble", self.assemble)
+            self.step()
             if it == 0:
                 self.cost0.copy_(self.cost)
-            for _ in range(self.cfg.cg_iterations):
-                self.run("cg", self.cg)
-            self.run("update", self.update)
+
+
+def gn_program(prob: PoseGraphProblem, cfg: PoseGraphConfig, group=None,
+               cache: Optional[programs.ProgramCache] = None) -> GNProgram:
+    """The cache's GNProgram for this problem's shapes and group, loaded
+    with `prob`."""
+    cache = programs.PROGRAMS if cache is None else cache
+    prog = cache.get(GNProgram.key(prob, cfg, group), lambda: GNProgram(prob, cfg, group))
+    prog.load(prob)
+    return prog
 
 
 @full_f32
 def pg_solve_program(prob: PoseGraphProblem, cfg: PoseGraphConfig,
-                     cache: Optional[programs.ProgramCache] = None):
-    """`pg_solve` (no group) through its captured program: on the card the
-    three bodies are captured once per problem shape, which the optimizer
-    makes a power-of-two bucket (`bucketed_problem`), and a solve is
-    iterations x (cg_iterations + 2) graph replays; on the CPU the bodies
-    run as they are. Equal to `pg_solve` on the same problem bit for bit.
-    Returns what `pg_solve` returns, as new tensors."""
-    cache = programs.PROGRAMS if cache is None else cache
-    prog = cache.get(GNProgram.key(prob, cfg), lambda: GNProgram(prob, cfg))
-    prog.load(prob)
+                     cache: Optional[programs.ProgramCache] = None, group=None):
+    """`pg_solve` through its captured program: on the card the three
+    bodies are captured once per problem shape and group (the optimizer
+    makes the shape a power-of-two bucket, `bucketed_problem`), and a solve
+    is iterations x (cg_iterations + 2) graph replays; on the CPU the
+    bodies run as they are. Equal to `pg_solve` with the same `group` on
+    the same problem bit for bit. Returns what `pg_solve` returns, as new
+    tensors."""
+    prog = gn_program(prob, cfg, group, cache)
     prog.solve()
     return prob._replace(poses=prog.prob.poses.clone()), prog.cost0.clone(), prog.cost.clone()
+
+
+@full_f32
+def gn_step_program(prob: PoseGraphProblem, cfg: PoseGraphConfig, group=None,
+                    cache: Optional[programs.ProgramCache] = None):
+    """`gn_step` through the GNProgram of pg_solve_program (one step's
+    replays). Equal to `gn_step` with the same `group` bit for bit;
+    returns what it returns, as new tensors."""
+    prog = gn_program(prob, cfg, group, cache)
+    prog.step()
+    return prob._replace(poses=prog.prob.poses.clone()), prog.cost.clone()
 
 
 class PoseGraphOptimizer:

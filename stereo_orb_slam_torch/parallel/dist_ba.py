@@ -21,7 +21,18 @@ Two layouts, as in the JAX package:
 SPMD: every rank builds the same host problem from its replica of the
 world and keeps its shard; after a solve, the points are summed over the
 ranks from a zero-filled full array (the shards are disjoint, so the sum
-is exact), and every rank writes the same cameras and points back.
+is exact; one eager all_reduce outside the solve's program, as the JAX
+package gathers outside its program), and every rank writes the same
+cameras and points back.
+
+How it runs: the JAX package compiles each sharded solve and step into
+one program (`jax.jit(shard_map(...))`). Here each runs through its
+captured program (backend/ba.py: `ba_solve_program`, `lm_step_program`)
+with the mesh's group when `mesh.capturable(group)`: one process, or an
+NCCL group, whose all_reduces the CUDA graphs record. Under gloo, which
+stages every collective through the host, the same solves run as their
+eager bodies (`ba_solve`, `lm_step_on_shard`), chosen by the group's
+backend.
 """
 
 from __future__ import annotations
@@ -35,7 +46,10 @@ from stereo_orb_slam_torch.backend import ba as ba_mod
 from stereo_orb_slam_torch.backend.ba import BAProblem, full_f32
 from stereo_orb_slam_torch.config import BAConfig
 from stereo_orb_slam_torch.geometry import se3_np
-from stereo_orb_slam_torch.parallel.mesh import Mesh, all_reduce, obs_sharding, replicated
+from stereo_orb_slam_torch.parallel.mesh import (
+    Mesh, all_reduce, capturable, obs_sharding, replicated,
+)
+from stereo_orb_slam_torch.utils import programs
 
 _OBS_FIELDS = ("obs_cam", "obs_point", "obs_uv", "obs_weight")
 _INDEX_FIELDS = ("obs_cam", "obs_point")
@@ -58,21 +72,39 @@ def shard_problem(mesh: Mesh, prob: BAProblem) -> BAProblem:
     })
 
 
+def _step(mesh: Mesh, cfg: BAConfig, dense_K, point_sharded: bool):
+    """fn(prob_shard, lam) -> lm_step's results: through LMStepProgram when
+    the group is capturable, else the eager step."""
+    def step(prob, lam):
+        fn = (ba_mod.lm_step_program if capturable(mesh.group)
+              else ba_mod.lm_step_on_shard)
+        return fn(prob, lam, cfg, dense_K, mesh.group, point_sharded)
+    return step
+
+
+def _solve(mesh: Mesh, cfg: BAConfig, dense_K, point_sharded: bool):
+    """fn(prob_shard, max_iters) -> ba_solve's results: through its LMProgram
+    when the group is capturable, else the eager solve."""
+    def solve(prob, max_iters):
+        fn = ba_mod.ba_solve_program if capturable(mesh.group) else ba_mod.ba_solve
+        return fn(prob, max_iters, cfg, dense_K=dense_K, group=mesh.group,
+                  point_sharded=point_sharded)
+    return solve
+
+
 def sharded_lm_step(mesh: Mesh, cfg: BAConfig):
     """fn(prob_shard, lam) -> (prob', lam', accepted, c0, c1): backend.ba's
-    lm_step over this rank's shard of the "obs" layout."""
-    def step(prob, lam):
-        return ba_mod.lm_step(prob, lam, cfg, group=mesh.group)
-    return step
+    lm_step over this rank's shard of the "obs" layout (one captured
+    program when the group is capturable)."""
+    return _step(mesh, cfg, None, False)
 
 
 def sharded_ba_solve(mesh: Mesh, cfg: BAConfig):
     """fn(prob_shard, max_iters) -> (carry, iterations, cost_initial): the
     whole LM solve (backend.ba.ba_solve) over this rank's shard of the
-    "obs" layout, with no host sync."""
-    def solve(prob, max_iters):
-        return ba_mod.ba_solve(prob, max_iters, cfg, group=mesh.group)
-    return solve
+    "obs" layout, with no host sync (one captured program when the group
+    is capturable)."""
+    return _solve(mesh, cfg, None, False)
 
 
 class DistributedBundleAdjuster:
@@ -81,7 +113,11 @@ class DistributedBundleAdjuster:
     Every rank constructs it over its own replica of the same world and
     calls `optimize` with the same arguments; afterwards every replica
     holds the same cameras and points. scheme="point_aligned" (default)
-    or "obs" (see the module docstring)."""
+    or "obs" (see the module docstring). `last_stats` says whether the
+    solve ran as a captured program on the card ("captured"; a capturable
+    group's program runs its bodies as they are on the CPU), whether this
+    call built a program ("program_built") and the milliseconds of its
+    captures ("capture_ms")."""
 
     def __init__(self, world, rig, mesh: Mesh, cfg: Optional[BAConfig] = None,
                  scheme: str = "point_aligned"):
@@ -110,6 +146,8 @@ class DistributedBundleAdjuster:
         if n_obs == 0:
             return {}
         iters = max_iterations or self.cfg.max_iterations
+        cache = programs.PROGRAMS
+        builds, capture_ms = cache.builds, cache.capture_ms
         if self.scheme == "obs":
             pose6, points, n_it, c0, c1, extra = self._solve_obs(problem, iters)
         else:
@@ -125,6 +163,9 @@ class DistributedBundleAdjuster:
             "num_obs": n_obs,
             "num_devices": self.mesh.size,
             "scheme": self.scheme,
+            "captured": capturable(self.mesh.group) and self.mesh.device.type == "cuda",
+            "program_built": cache.builds > builds,
+            "capture_ms": cache.capture_ms - capture_ms,
             **extra,
         }
         return self.last_stats
@@ -296,24 +337,16 @@ def sharded_ba_solve_point_aligned(mesh: Mesh, cfg: BAConfig, dense_K=None):
 
     `dense_K` (pow2 >= the most observations of any point) takes the
     distributed dense Schur: each rank assembles its points' share of S,
-    one [6C, 6C] all_reduce, the Cholesky replicated: 4 all_reduces per LM
-    iteration (camera blocks, cost, right-hand side, S) instead of one per
-    CG iteration. dense_K None is matrix-free."""
-    def solve(prob, max_iters):
-        return ba_mod.ba_solve(prob, max_iters, cfg, dense_K=dense_K, group=mesh.group,
-                               point_sharded=True)
-    return solve
+    one [6C, 6C] all_reduce, the Cholesky replicated: 3 all_reduces per LM
+    iteration (the right-hand side, S, and the trial build's camera blocks
+    and cost in one) instead of one per CG iteration. dense_K None is
+    matrix-free. One captured program when the group is capturable."""
+    return _solve(mesh, cfg, dense_K, True)
 
 
 def sharded_lm_step_point_aligned(mesh: Mesh, cfg: BAConfig, dense_K=None):
     """fn(prob_shard, lam) -> (prob', lam', accepted, c0, c1): one LM step
     over this rank's shard of a point-aligned problem (the scaling
-    harness's step). `dense_K`: see sharded_ba_solve_point_aligned."""
-    def step(prob, lam):
-        ds = (ba_mod.build_slots_device(prob.obs_point, prob.obs_cam, prob.obs_weight,
-                                        prob.points.shape[0], dense_K)
-              if dense_K is not None else None)
-        cam_red = ba_mod._cam_reduction(prob, ds, None, distributed=True)
-        return ba_mod.lm_step(prob, lam, cfg, dense_slots=ds, cam_red=cam_red,
-                              group=mesh.group, point_sharded=True)
-    return step
+    harness's step). `dense_K`: see sharded_ba_solve_point_aligned. One
+    captured program when the group is capturable."""
+    return _step(mesh, cfg, dense_K, True)

@@ -3,9 +3,16 @@
 PyTorch counterpart of the JAX package's `parallel/dist_pose_graph.py`:
 edges sharded over the ranks, vertex state replicated; the per-edge
 Hessian and gradient contributions and the vertex sum inside each CG
-matvec are summed over the ranks (backend/pose_graph.py with `group`).
-Every rank runs the same steps on the same replicated vertices, so all
-ranks end with the same poses.
+matvec are summed over the ranks (backend/pose_graph.py with `group`):
+1 + cg_iterations all_reduces a Gauss-Newton step. Every rank runs the
+same steps on the same replicated vertices, so all ranks end with the
+same poses.
+
+The JAX package compiles the sharded solve into one program
+(`jax.jit(shard_map(...))`); here it runs as the captured `GNProgram`
+with the mesh's group when `mesh.capturable(group)` (one process, or
+NCCL), and as the eager `pg_solve` / `gn_step` under gloo, chosen by the
+group's backend.
 """
 
 from __future__ import annotations
@@ -15,10 +22,10 @@ from typing import Optional
 import torch
 
 from stereo_orb_slam_torch.backend.pose_graph import (
-    PoseGraphProblem, gn_step, pad_problem, pg_solve, pg_solve_program,
+    PoseGraphProblem, gn_step, gn_step_program, pad_problem, pg_solve, pg_solve_program,
 )
 from stereo_orb_slam_torch.config import PoseGraphConfig
-from stereo_orb_slam_torch.parallel.mesh import Mesh
+from stereo_orb_slam_torch.parallel.mesh import Mesh, capturable
 
 
 def _shard(mesh: Mesh, prob: PoseGraphProblem) -> PoseGraphProblem:
@@ -35,23 +42,24 @@ def _shard(mesh: Mesh, prob: PoseGraphProblem) -> PoseGraphProblem:
 
 def sharded_gn_step(mesh: Mesh, cfg: PoseGraphConfig):
     """fn(prob) -> (prob', cost): one GN step with prob's edges split over
-    the mesh (prob holds all edges; each rank keeps its slice)."""
+    the mesh (prob holds all edges; each rank keeps its slice): the
+    GNProgram's step when the group is capturable, gn_step under gloo."""
     def step(prob):
-        new, cost = gn_step(_shard(mesh, prob), cfg, group=mesh.group)
+        fn = gn_step_program if capturable(mesh.group) else gn_step
+        new, cost = fn(_shard(mesh, prob), cfg, group=mesh.group)
         return prob._replace(poses=new.poses), cost
     return step
 
 
 def sharded_pg_solve(mesh: Mesh, cfg: PoseGraphConfig):
     """fn(prob) -> (prob', cost0, cost_final): all GN iterations
-    (backend.pose_graph.pg_solve) with prob's edges split over the mesh."""
+    (backend.pose_graph.pg_solve) with prob's edges split over the mesh:
+    the captured program when the group is capturable (as
+    PoseGraphOptimizer runs it at one process), the eager solve under
+    gloo, whose host-staged all_reduces no graph can hold."""
     def run(prob):
-        if mesh.group is None:
-            # One process: the captured program, as PoseGraphOptimizer runs it.
-            new, c0, c1 = pg_solve_program(_shard(mesh, prob), cfg)
-        else:
-            # Eager: a gloo all_reduce cannot be captured in a CUDA graph.
-            new, c0, c1 = pg_solve(_shard(mesh, prob), cfg, group=mesh.group)
+        fn = pg_solve_program if capturable(mesh.group) else pg_solve
+        new, c0, c1 = fn(_shard(mesh, prob), cfg, group=mesh.group)
         return prob._replace(poses=new.poses), c0, c1
     return run
 

@@ -11,6 +11,15 @@ leading (observation or edge) axis; `replicated` keeps a tensor whole.
 over the ranks of `group`, in place, or the identity when `group` is None
 (one process). It counts its calls and bytes (`ALL_REDUCES`,
 `ALL_REDUCE_BYTES`) and, inside `recording()`, the shape of each call.
+`all_reduce_many` sums several independent tensors in one call over their
+flat concatenation, as XLA's all-reduce combiner merges the independent
+`psum`s of one program.
+
+`capturable(group)` says whether a solve with this group can run as a
+captured program (utils/programs.py): with no group, or with an NCCL
+group, whose collectives are kernels on the card that a CUDA graph
+records. gloo stages every collective through the host, which a graph
+cannot hold, so its solves run their eager bodies.
 """
 
 from __future__ import annotations
@@ -83,15 +92,44 @@ def replicated(mesh: Mesh, x):
 def all_reduce(x, group=None):
     """Sum x over the ranks of `group` in place and return it; x itself
     when `group` is None. Counted in ALL_REDUCES / ALL_REDUCE_BYTES."""
-    global ALL_REDUCES, ALL_REDUCE_BYTES
     if group is None:
         return x
     dist.all_reduce(x, group=group)
+    _count(x)
+    return x
+
+
+def _count(x):
+    """One all_reduce of x: its call, its bytes and, in every recorder, its
+    shape."""
+    global ALL_REDUCES, ALL_REDUCE_BYTES
     ALL_REDUCES += 1
     ALL_REDUCE_BYTES += x.numel() * x.element_size()
     for rec in _recorders:
         rec.append(tuple(x.shape))
-    return x
+
+
+def all_reduce_many(tensors, group=None):
+    """Sum each of `tensors` (one dtype) over the ranks of `group` with ONE
+    all_reduce of their flat concatenation; returns the sums as views of
+    that buffer, in order and in their shapes. With `group` None the
+    inputs come back untouched (no concatenation). Counted as one call of
+    the buffer's bytes, one shape in `recording()`."""
+    tensors = list(tensors)
+    if group is None:
+        return tensors
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]), group)
+    out, lo = [], 0
+    for t in tensors:
+        out.append(flat[lo:lo + t.numel()].view(t.shape))
+        lo += t.numel()
+    return out
+
+
+def capturable(group) -> bool:
+    """True when a solve over `group` can be captured: no group (one
+    process) or an NCCL group; False for any other backend (gloo)."""
+    return group is None or dist.get_backend(group) == "nccl"
 
 
 @contextlib.contextmanager
@@ -104,3 +142,24 @@ def recording():
         yield rec
     finally:
         _recorders.remove(rec)
+
+
+@contextlib.contextmanager
+def captured():
+    """For a capture, which runs nothing: yields the list of the shapes of
+    the all_reduces recorded inside the block, and takes them back from
+    every recorder that was open before it."""
+    outer = [(rec, len(rec)) for rec in _recorders]
+    try:
+        with recording() as rec:
+            yield rec
+    finally:
+        for r, n in outer:
+            del r[n:]
+
+
+def replayed(shapes):
+    """Record `shapes` (a capture's, see `captured`) in every open recorder,
+    as a replay of that capture would have made them."""
+    for rec in _recorders:
+        rec.extend(shapes)

@@ -80,8 +80,13 @@ def is_primary() -> bool:
 
 
 def shutdown():
-    """Leave the default process group, if this process is in one."""
+    """Leave the default process group, if this process is in one, after
+    releasing the captured programs that sum over a group (a replay after
+    the group is destroyed would fault)."""
     if dist.is_initialized():
+        from stereo_orb_slam_torch.utils import programs
+
+        programs.release_groups()
         dist.destroy_process_group()
 
 

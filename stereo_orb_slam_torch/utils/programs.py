@@ -25,9 +25,20 @@ captures, replays and capture milliseconds per body, and the programs
 built again for a key that it had evicted (`rebuilds`).
 
 The hand kernels count their launches in Python (`LAUNCHES` of
-ops/kernels), and a replay does not pass through Python: each capture
-records how many launches of each kernel its body made, takes them back
-(a capture launches nothing), and every replay adds them again.
+ops/kernels), and so does `parallel.mesh` its all_reduces and their
+bytes; a replay does not pass through Python: each capture records how
+many launches of each kernel and how many collectives its body made (and
+the collectives' shapes that `mesh.recording()` would have seen), takes
+them back (a capture launches nothing), and every replay adds them again.
+
+A distributed solve's program carries its process group (`group`, part of
+its key, so a new group never replays an old group's graph). Only a group
+that `mesh.capturable` accepts (NCCL) is captured on the card: its
+all_reduce is recorded in the graph like any kernel, and the group's
+communicator is made in the eager warm-up, never inside the capture.
+`release_groups()` releases every program that holds a group before the
+groups are destroyed (`multihost.shutdown`): a replay of a graph whose
+communicator is gone faults.
 
 A failed capture or replay raises; nothing falls back to the eager body.
 """
@@ -36,18 +47,24 @@ from __future__ import annotations
 
 import importlib
 import time
+import weakref
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
-# (module, attribute) of every kernel launch counter a body can advance.
+from stereo_orb_slam_torch.parallel import mesh as mesh_mod
+
+# (module, attribute) of every kernel launch and collective counter a body
+# can advance.
 COUNTERS = (
     ("stereo_orb_slam_torch.ops.kernels.hamming", "LAUNCHES"),
     ("stereo_orb_slam_torch.ops.kernels.describe", "LAUNCHES"),
     ("stereo_orb_slam_torch.ops.kernels.describe", "ORIENTED_LAUNCHES"),
     ("stereo_orb_slam_torch.ops.kernels.patches", "LAUNCHES"),
     ("stereo_orb_slam_torch.ops.kernels.dlt", "LAUNCHES"),
+    ("stereo_orb_slam_torch.parallel.mesh", "ALL_REDUCES"),
+    ("stereo_orb_slam_torch.parallel.mesh", "ALL_REDUCE_BYTES"),
 )
 
 
@@ -109,13 +126,21 @@ class Program:
     the card, eagerly and then captured on its first call, replayed on
     every later one. The bodies of one program share one memory pool, so
     a body's intermediates must be dead when it returns (they are, when it
-    writes its results into the static tensors)."""
+    writes its results into the static tensors).
 
-    def __init__(self, device):
+    `group` is the process group the bodies sum over (None for one
+    process); on the card it must be one that `mesh.capturable` accepts."""
+
+    def __init__(self, device, group=None):
         self.device = torch.device(device)
+        self.group = group
+        if self.captures and not mesh_mod.capturable(group):
+            raise ValueError("a program on the card needs no process group or an NCCL "
+                             "one; a gloo group's solves run their eager bodies")
         self.stats: Optional[dict] = None   # the owning cache's counters
         self._graphs: dict = {}
         self._deltas: dict = {}
+        self._shapes: dict = {}
         self._pool = None
 
     @property
@@ -132,6 +157,7 @@ class Program:
             return
         graph.replay()
         _add_counters(self._deltas[name])
+        mesh_mod.replayed(self._shapes[name])
         self._stat(name)["replays"] += 1
 
     def _stat(self, name: str) -> dict:
@@ -145,11 +171,13 @@ class Program:
         self._warm_up(body)
         before = read_counters()
         try:
-            graph = self._record(body)
+            with mesh_mod.captured() as shapes:
+                graph = self._record(body)
             after = read_counters()
         finally:
             _set_counters(before)   # the capture launched nothing
         self._deltas[name] = tuple(a - b for a, b in zip(after, before))
+        self._shapes[name] = list(shapes)
         self._graphs[name] = graph
         stat = self._stat(name)
         stat["captures"] += 1
@@ -198,6 +226,7 @@ class Program:
             graph.reset()
         self._graphs.clear()
         self._deltas.clear()
+        self._shapes.clear()
         self._pool = None
 
 
@@ -217,6 +246,7 @@ class ProgramCache:
         self.rebuilds = 0
         self._evicted: set = set()
         self._programs: "OrderedDict[Hashable, Program]" = OrderedDict()
+        _caches.add(self)
 
     def get(self, key: Hashable, build: Callable[[], Program]) -> Program:
         prog = self._programs.pop(key, None)
@@ -252,11 +282,27 @@ class ProgramCache:
         while self._programs:
             self._programs.popitem(last=False)[1].release()
 
+    def release_groups(self):
+        """Release and drop every program that holds a process group (its
+        key can never come back: the group is about to be destroyed)."""
+        for key in [k for k, p in self._programs.items() if p.group is not None]:
+            self._programs.pop(key).release()
+
     def summary(self) -> dict:
         """Programs built and found, and each body's counters."""
         return {"programs": len(self), "builds": self.builds, "hits": self.hits,
                 "rebuilds": self.rebuilds,
                 "bodies": {k: dict(v) for k, v in self.stats.items()}}
+
+
+_caches: "weakref.WeakSet[ProgramCache]" = weakref.WeakSet()
+
+
+def release_groups():
+    """Release the programs of every process group in every cache; called
+    before the groups are destroyed (parallel/multihost.py's shutdown)."""
+    for cache in list(_caches):
+        cache.release_groups()
 
 
 # The process's cache, the one the entry points use (as jax.jit keeps one

@@ -12,9 +12,10 @@ tests/test_multihost.py and tests/test_scaling.py.
   1e-5, c1 rtol 2e-3, pose6 atol 2e-3: the float32 sums run in another
   order and the CG amplifies it).
 - The point-aligned LM step all-reduces only camera-sized tensors
-  ([C, ...] rows, the [6, C, 6, C] dense system, the scalar cost), counted
-  through `parallel.mesh.recording`: 5 per step on the dense path (JAX's
-  test allows 6), 4 + cg_iterations matrix-free (JAX:
+  ([C, ...] rows, the [6, C, 6, C] dense system, the scalar cost, and the
+  build's camera blocks and cost in one flat [C * 42 + 1] sum), counted
+  through `parallel.mesh.recording`: 4 per step on the dense path (JAX's
+  test allows 6), 3 + cg_iterations matrix-free (JAX:
   tests/test_scaling.py:71-93 reads them off the compiled program).
 
 - `apps.refine --distributed` on 2 ranks (gloo, CPU) against the same
@@ -124,15 +125,17 @@ def test_one_and_two_ranks_agree_and_collectives_are_camera_sized(file_store):
     for name in ("obs", "matrix_free", "dense"):   # both ranks hold the same state
         np.testing.assert_array_equal(outs[0][name][0], outs[1][name][0])
 
-    # Per step: camera blocks, cost, rhs, one [C, 6] sum per CG iteration
-    # (matrix-free) or S (dense), the trial cost.
-    for name, count in (("matrix_free", 4 + cg), ("dense", 5)):
+    # Per step: the build's camera blocks and cost in one flat sum
+    # ([C * 42 + 1]), rhs, one [C, 6] sum per CG iteration (matrix-free) or
+    # S (dense), the trial cost.
+    flat = (40 * 42 + 1,)
+    for name, count in (("matrix_free", 3 + cg), ("dense", 4)):
         shapes = outs[0][name][3]
         assert len(shapes) == count, (name, shapes)
         for shape in shapes:
-            assert shape == () or shape[0] == 40 or shape == (6, 40, 6, 40), (name, shapes)
-    # The dense step's reductions: camera blocks, cost, rhs, S, trial cost.
-    assert sorted(outs[0]["dense"][3]) == sorted([(), (), (40, 6), (40, 42), (6, 40, 6, 40)])
+            assert shape in ((), flat, (6, 40, 6, 40)) or shape[0] == 40, (name, shapes)
+    # The dense step's reductions: camera blocks with the cost, rhs, S, trial cost.
+    assert sorted(outs[0]["dense"][3]) == sorted([(), flat, (40, 6), (6, 40, 6, 40)])
 
 
 def test_refine_distributed_on_two_ranks(tmp_path, file_store):
