@@ -29,7 +29,8 @@ Phases, each of which fails the run when it fails:
      and 45-100 m deep, a quarter of the slots zero: within DLT_PLAIN_ATOL
      of its plain version (the near points), within DLT_F64_RTOL of a
      float64 DLT relative to the depth, finite everywhere, timed beside
-     torch.linalg.svd, with its bound from the run's Jacobi sweeps;
+     torch.linalg.svd, with its bound from a fixed reference Jacobi's
+     sweeps on the run's systems;
      then the CUDA path against the CPU path on one full-size frame
      (corners and descriptors);
   4. the main path at full width: 60 synthetic KITTI-sized stereo frames
@@ -148,7 +149,10 @@ Phases, each of which fails the run when it fails:
      this path's shapes (510 x 782 padded images) and triangulate_dlt on
      frame 1's correspondences alone and stacked (S = 2, one projection
      pair per problem) on its own inputs, held against their plain
-     versions and timed (records with path "general");
+     versions and timed (records with path "general"), and triangulate_dlt
+     at the SLAM run's loop-edge shape (its largest batch's dst banks
+     padded to E_pad, B = E_pad x 1024; path "slam_general"), each DLT
+     record with its histogram of Jacobi sweeps;
   12. the canyon (after phase 7): benchmarks/canyon_drive.py's production
      drive in the port, its tree written by tests/synth_canyon.py (a
      376 x 1241 CanyonScene: continuous multi-plane texture, sensor noise
@@ -1040,18 +1044,68 @@ def _dlt_systems(P1, P2, uv1, uv2):
     return torch.stack(rows, dim=-2).reshape(-1, 4, 4)
 
 
+def _dlt_f64_rel(got, P1, P2, uv1, uv2, valid):
+    """The largest gap of `got` [B, N, 3] (numpy) from a float64 DLT over
+    the valid slots, as a share of each point's depth."""
+    from synth_distorted import dlt_float64
+
+    rel = []
+    for b in range(uv1.shape[0]):
+        Q1, Q2 = (P.reshape(-1, 3, 4)[b if P.dim() > 2 else 0].cpu().numpy() for P in (P1, P2))
+        x64 = dlt_float64(Q1, Q2, uv1[b].cpu().numpy()[valid[b]], uv2[b].cpu().numpy()[valid[b]])
+        rel.append(np.abs(got[b][valid[b]] - x64).max(1) / np.abs(x64[:, 2]))
+    return float(np.concatenate(rel).max())
+
+
+# A DLT record's operation count is that of one fixed method on this run's
+# systems, not the kernel's own: the cyclic one-sided Jacobi of the
+# kernel's first design (pairs (0,1) (0,2) (0,3) (1,2) (1,3) (2,3), the
+# same stop rule and cap) in float64 on the host.
+DLT_REFERENCE_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+
+
+def _dlt_reference_work(P1, P2, uv1, uv2):
+    """Sweeps and rotations [B * N] (int64) of the reference Jacobi on the
+    float64 systems of these inputs (as the kernel builds them)."""
+    a = _dlt_systems(*(x.detach().double().cpu() for x in (P1, P2, uv1, uv2))).numpy().copy()
+    m = a.shape[0]
+    abs_tol = 1e-30 * (a * a).sum((1, 2))
+    active = np.ones(m, bool)
+    sweeps, rotations = np.zeros(m, np.int64), np.zeros(m, np.int64)
+    for _ in range(16):
+        if not active.any():
+            break
+        sweeps += active
+        rotated = np.zeros(m, bool)
+        for p, q in DLT_REFERENCE_PAIRS:
+            ap, aq = a[:, :, p], a[:, :, q]
+            alpha, beta, gamma = (ap * ap).sum(1), (aq * aq).sum(1), (ap * aq).sum(1)
+            do = (active & (gamma * gamma > 1e-15 * 1e-15 * alpha * beta)
+                  & (np.abs(gamma) > abs_tol))
+            g = np.where(do, gamma, 1.0)
+            zeta = (beta - alpha) / (2.0 * g)
+            t = np.copysign(1.0, zeta) / (np.abs(zeta) + np.sqrt(1.0 + zeta * zeta))
+            c = np.where(do, 1.0 / np.sqrt(1.0 + t * t), 1.0)[:, None]
+            s = np.where(do, c[:, 0] * t, 0.0)[:, None]
+            a[:, :, p], a[:, :, q] = c * ap - s * aq, s * ap + c * aq
+            rotated |= do
+            rotations += do
+        active &= rotated
+    return sweeps, rotations
+
+
 def _dlt_record(name, path, P1, P2, uv1, uv2, valid, shape, plain_valid=None):
     """The kernel on [B, N, 2] correspondences (P [3, 4] or [B, 1, 3, 4])
     against its plain version and a float64 DLT, timed (device µs from a
     graph of 50 launches; the plain version and the library call per call
-    between events: they sync), with the bound from this run's Jacobi
-    sweeps and rotations; `valid` [B, N] marks the slots held against
+    between events: they sync), with the bound from the reference
+    Jacobi's sweeps and rotations on this run's systems
+    (`_dlt_reference_work`); `valid` [B, N] marks the slots held against
     float64, `plain_valid` (by default `valid`) those held against the
     plain version."""
     import torch
 
     from stereo_orb_slam_torch.ops.kernels import dlt
-    from synth_distorted import dlt_float64
 
     args = (P1, P2, uv1, uv2)
     got = dlt.triangulate_dlt(*args)
@@ -1062,12 +1116,7 @@ def _dlt_record(name, path, P1, P2, uv1, uv2, valid, shape, plain_valid=None):
     g, pl = got.cpu().numpy(), plain.cpu().numpy()
     plain_valid = valid if plain_valid is None else plain_valid
     plain_gap = float(np.abs(g - pl)[plain_valid].max())
-    rel = []
-    for b in range(B):
-        Q1, Q2 = (P.reshape(-1, 3, 4)[b if P.dim() > 2 else 0].cpu().numpy() for P in (P1, P2))
-        x64 = dlt_float64(Q1, Q2, uv1[b].cpu().numpy()[valid[b]], uv2[b].cpu().numpy()[valid[b]])
-        rel.append(np.abs(g[b][valid[b]] - x64).max(1) / np.abs(x64[:, 2]))
-    f64_rel = float(np.concatenate(rel).max())
+    f64_rel = _dlt_f64_rel(g, *args, valid)
     nonfinite = int((~np.isfinite(g)).any(-1).sum())
     ms = time_device(lambda: dlt.triangulate_dlt(*args))
     call_ms = time_call(lambda: dlt.triangulate_dlt(*args))
@@ -1075,13 +1124,22 @@ def _dlt_record(name, path, P1, P2, uv1, uv2, valid, shape, plain_valid=None):
     A = _dlt_systems(*args)
     library_ms = _events_ms(lambda: torch.linalg.svd(A))
     library_kernels, library_device_ms = _kernels_in(lambda: torch.linalg.svd(A))
-    # Operations of this run's data (float64 adds, multiplies, divisions and
-    # square roots, an FMA as two): 99 per point for the system, its norm,
-    # the column norms and the division, 162 per sweep (six pair tests: three
-    # 4-term dot products and the test) and 60 per rotation (the angle and
-    # two 4-row column updates of A and of V).
+    # Operations of the function on this run's data (float64 adds,
+    # multiplies, divisions and square roots, an FMA as two), whatever the
+    # design: 99 per point for the system, its norm, the column norms and
+    # the division, 162 per sweep (six pair tests: three 4-term dot products
+    # and the test) and 60 per rotation (the angle and two 4-row column
+    # updates of A and of V), with the sweeps and rotations of the
+    # reference Jacobi on these systems.
+    ref_sweeps, ref_rotations = _dlt_reference_work(*args)
+    ops = 99 * B * n + 162 * int(ref_sweeps.sum()) + 60 * int(ref_rotations.sum())
+    # The kernel's own sweeps per point, and per warp: a warp's 8 points
+    # sweep together, so its chain is its slowest point's sweeps.
     w = work.cpu().numpy().reshape(-1, 2).astype(np.int64)
-    ops = 99 * B * n + 162 * int(w[:, 0].sum()) + 60 * int(w[:, 1].sum())
+    sweeps = w[:, 0]
+    warp = np.pad(sweeps, (0, -len(sweeps) % 8)).reshape(-1, 8).max(1)
+    hist = np.bincount(sweeps, minlength=17).tolist()
+    warp_hist = np.bincount(warp, minlength=17).tolist()
     bytes_ = B * n * (2 * 8 + 12) + 2 * 48 * (B if P1.dim() > 2 else 1)
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F64_OPS_PER_S * 1e3
     rec = _record(
@@ -1094,13 +1152,18 @@ def _dlt_record(name, path, P1, P2, uv1, uv2, valid, shape, plain_valid=None):
                      "between events, it syncs)",
         library_device_ms=library_device_ms, library_kernels=library_kernels,
         sweeps_max=int(w[:, 0].max()), sweeps_mean=float(w[:, 0].mean()),
-        rotations_mean=float(w[:, 1].mean()), ops=ops, valid=int(valid.sum()),
+        rotations_mean=float(w[:, 1].mean()), reference_sweeps_mean=float(ref_sweeps.mean()),
+        reference_rotations_mean=float(ref_rotations.mean()), sweeps_histogram=hist,
+        warp_sweeps_histogram=warp_hist, ops=ops, valid=int(valid.sum()),
         against_plain=int(plain_valid.sum()), shape=shape,
         note=DLT_NOTE)
+    log(f"kernel {name}: points by Jacobi sweeps (0-16) {hist}, warps by their slowest "
+        f"point's sweeps {warp_hist}")
     log(f"kernel {name}: {shape}; against plain {plain_gap:.3g} m (bound {DLT_PLAIN_ATOL}), "
         f"against float64 {f64_rel:.3g} of the depth (bound {DLT_F64_RTOL}), {nonfinite} "
         f"non-finite; device {ms * 1e3:.2f} us (bound {rec['bound_ms'] * 1e3:.4f} us by "
-        f"{rec['bound_by']}, {ops} operations, sweeps mean {rec['sweeps_mean']:.2f} max "
+        f"{rec['bound_by']}, {ops} operations at the reference's {ref_sweeps.mean():.2f} "
+        f"sweeps a point; the kernel's sweeps mean {rec['sweeps_mean']:.2f} max "
         f"{rec['sweeps_max']}), per call {call_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us "
         f"per call, torch.linalg.svd {library_ms * 1e3:.2f} us per call "
         f"({library_device_ms * 1e3:.2f} us device in {library_kernels} kernels)")
@@ -1459,13 +1522,15 @@ def phase_general_multi_seq(g, steps=GENERAL_MULTI_STEPS, seed=7, device="cuda")
     return rec, (multi, imgs_l, imgs_r)
 
 
-def phase_general_slam(g, out_dir, device="cuda"):
+def phase_general_slam(g, out_dir, device="cuda", kernel_records=None):
     """The SLAM app on the general rig (`--dataset EuRoc`, K = 1, the
     shipped SlamConfig) over the out-and-back: every frame tracked, ATE
     after finish < GENERAL_SLAM_ATE_M, at least one loop edge measured
     (`measure_edges` on the general branch: the DLT of stored ideal
     observations), the exact launches of _slam_launches_expected (on the
-    card); loop events reported."""
+    card); loop events reported. With `kernel_records` (a list), appends
+    the DLT kernel's record at the run's loop-edge shape
+    (`_loop_edge_dlt_record`)."""
     from stereo_orb_slam_torch.apps import slam
 
     _reset_launches()
@@ -1514,7 +1579,36 @@ def phase_general_slam(g, out_dir, device="cuda"):
     if _is_cuda(device) and launches != rec["launches_expected"]:
         raise AssertionError(f"general SLAM: launches {launches}, expected "
                              f"{rec['launches_expected']}")
+    if kernel_records is not None:
+        kernel_records.append(_loop_edge_dlt_record(system, device))
     return rec
+
+
+def _loop_edge_dlt_record(system, device="cuda"):
+    """triangulate_dlt at the loop-edge batch's shape of a general SLAM
+    run: its largest closure's edges padded to their bucket as EdgeProgram
+    pads them (the last edge repeated), the dst frames' stored ideal
+    observations as the [E_pad, N, 4] banks' column slices that
+    measure_edges triangulates in place, held against the plain version
+    and a float64 DLT on the valid slots (`_dlt_record`, path
+    "slam_general")."""
+    import torch
+
+    from stereo_orb_slam_torch.apps import slam
+
+    system.sync_feature_banks()   # the host mirrors, current
+    world, rig = system.world, system.rig
+    edges = max((h["loop_edges"] for h in system.pgo.history if h["loop_edges"]), key=len)
+    E, E_pad = len(edges), slam.edge_bucket(len(edges))
+    dst = [d for _, d in edges] + [edges[-1][1]] * (E_pad - E)
+    uv = torch.from_numpy(np.ascontiguousarray(world.frame_feat_uv[dst])).to(device)
+    valid = np.asarray(world.frame_feat_valid[dst], bool)
+    n = uv.shape[1]
+    return _dlt_record(
+        "triangulate_dlt (slam_general loop edges)", "slam_general", rig.left.projection,
+        rig.right.projection, uv[..., :2], uv[..., 2:], valid,
+        f"B={E_pad} ({E} edges) x N={n} ({int(valid.sum())} valid), the general SLAM "
+        f"run's largest loop-edge batch, dst frames' [E_pad, N, 4] banks read in place")
 
 
 # ------------------------------------------------------------------ canyon
@@ -4999,17 +5093,20 @@ def main(argv=None):
                                   os.path.join(tmp, "vo_out"))
         oriented = timed("oriented", phase_oriented, seq, gt)
         general_data = timed("render_general", _render_general, tmp)
+        general_slam_kernels = []
         general = {"vo": timed("general", phase_general_vo, general_data,
                                os.path.join(tmp, "general_out"), summary["median_ms"]),
                    "cuda_vs_cpu": timed("general_devices", phase_general_devices, general_data,
                                         seq),
                    "slam": timed("general_slam", phase_general_slam, general_data,
-                                 os.path.join(tmp, "general_slam_out")),
+                                 os.path.join(tmp, "general_slam_out"),
+                                 kernel_records=general_slam_kernels),
                    "multi_seq": None}
         general["multi_seq"], general_multi_state = timed(
             "general_multi_seq", phase_general_multi_seq, general_data)
         records += timed("general_kernels", phase_path_kernels, "general", "EuRoc",
                          general_data["vo"], general_data["camera"], False, GENERAL_DESC_FLIPS)
+        records += general_slam_kernels
         multi_seq, multi_state = timed("multi_seq", phase_multi_seq, seq)
         ba_world, tracking, window = timed("ba_tracking", phase_ba_tracking, seq, gt)
         dist_world = copy.deepcopy(ba_world)

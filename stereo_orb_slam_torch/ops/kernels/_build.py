@@ -40,30 +40,37 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+def _source(name: str, source=None) -> Path:
+    return Path(source) if source is not None else CSRC_DIR / f"{name}.cu"
+
+
+def library_path(name: str, source=None) -> Path:
+    """The library of `csrc/<name>.cu`, or of `source`, another file with
+    the same C interface (an earlier design of the kernel, say)."""
+    src = _source(name, source).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(names=KERNEL_SOURCES) -> float:
-    """Compile the libraries of `names` that are not built yet, in parallel.
+def build(names=KERNEL_SOURCES, source=None) -> float:
+    """Compile the libraries of `names` that are not built yet, in parallel
+    (with `source`, one name, built from that file).
 
     Returns the wall seconds spent; raises with nvcc's output on failure.
     The compiler's register and spill report goes to `<library>.log`.
     """
     t0 = time.perf_counter()
     with _lock:
-        todo = [n for n in names if not library_path(n).exists()]
+        todo = [n for n in names if not library_path(n, source).exists()]
         if not todo:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = []
         for name in todo:
-            out = library_path(name)
+            out = library_path(name, source)
             tmp = out.with_suffix(".tmp.so")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_source(name, source))]
             procs.append((name, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         errors = []
@@ -79,26 +86,29 @@ def build(names=KERNEL_SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, source=None) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` (or of `source`), built first
+    if needed."""
+    key = (name, source)
+    lib = _libs.get(key)
     if lib is None:
-        build((name,))
+        build((name,), source)
         with _lock:
-            lib = _libs.get(name)
+            lib = _libs.get(key)
             if lib is None:
-                lib = ctypes.CDLL(str(library_path(name)))
-                _libs[name] = lib
+                lib = ctypes.CDLL(str(library_path(name, source)))
+                _libs[key] = lib
     return lib
 
 
-def function(name: str, symbol: str, argtypes):
-    """`symbol` of the library of `csrc/<name>.cu`, returning a C int, with
-    its `argtypes` and `restype` set once, at first use, and not per call."""
-    fn = _functions.get((name, symbol))
+def function(name: str, symbol: str, argtypes, source=None):
+    """`symbol` of the library of `csrc/<name>.cu` (or of `source`),
+    returning a C int, with its `argtypes` and `restype` set once, at first
+    use, and not per call."""
+    fn = _functions.get((name, symbol, source))
     if fn is None:
-        fn = getattr(load(name), symbol)
+        fn = getattr(load(name, source), symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _functions[(name, symbol)] = fn
+        _functions[(name, symbol, source)] = fn
     return fn

@@ -6,8 +6,9 @@ its jitted program. The plain version here is that body with
 `torch.linalg.svd`, which on the card is cuSOLVER's batched SVD: it syncs
 the host twice a call, and a sync is illegal in a captured CUDA graph. The
 kernel, `stereo_orb_slam_torch/csrc/triangulate_dlt.cu`, takes the null
-vector of each 4x4 system by a one-sided Jacobi SVD in float64, one thread
-per correspondence, and rounds the point once to float32.
+vector of each 4x4 system by a one-sided Jacobi SVD in float64, four lanes
+per correspondence (one column each, the pairs of a round rotated at
+once), and rounds the point once to float32.
 
 `triangulate_dlt` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; it raises for anything
@@ -76,7 +77,7 @@ def _per_batch(P, lead, n):
                      f"against points {lead + (n,)}")
 
 
-def _launch(P1, P2, uv1, uv2, work=False):
+def _launch(P1, P2, uv1, uv2, work=False, source=None):
     global LAUNCHES
     lead, n = tuple(uv1.shape[:-2]), uv1.shape[-2]
     batch = math.prod(lead)
@@ -92,7 +93,7 @@ def _launch(P1, P2, uv1, uv2, work=False):
     out = torch.empty(lead + (n, 3), dtype=torch.float32, device=dev)
     counts = torch.zeros(lead + (n, 2), dtype=torch.int32, device=dev) if work else None
     if batch > 0 and n > 0:
-        fn = _build.function(_NAME, "triangulate_dlt_launch", _ARGTYPES)
+        fn = _build.function(_NAME, "triangulate_dlt_launch", _ARGTYPES, source)
         err = fn(p1.data_ptr(), p2.data_ptr(), int(per_batch), a.data_ptr(), s1b, s1n,
                  b.data_ptr(), s2b, s2n, batch, n, out.data_ptr(),
                  None if counts is None else counts.data_ptr(),
@@ -134,10 +135,12 @@ def triangulate_dlt(P1, P2, uv1, uv2):
     return _launch(P1, P2, uv1, uv2)
 
 
-def triangulate_dlt_work(P1, P2, uv1, uv2):
+def triangulate_dlt_work(P1, P2, uv1, uv2, work=True, source=None):
     """The kernel's launch of `triangulate_dlt` (CUDA tensors only), also
-    returning each point's Jacobi sweeps and rotations, int32 [..., N, 2]:
-    what a run's operation count needs."""
+    returning each point's Jacobi sweeps and rotations, int32 [..., N, 2],
+    unless `work` is false. `source` builds and launches another file with
+    the kernel's C interface in place of csrc/triangulate_dlt.cu (an
+    earlier design, to compare the two)."""
     if _check(P1, P2, uv1, uv2):
         raise ValueError("the sweep counts come from the kernel: CUDA tensors only")
-    return _launch(P1, P2, uv1, uv2, work=True)
+    return _launch(P1, P2, uv1, uv2, work=work, source=source)

@@ -1,7 +1,7 @@
 """The batched DLT kernel's method, and its wrapper on the CPU.
 
 `csrc/triangulate_dlt.cu` cannot run here, so its arithmetic is held
-through a NumPy float64 mirror of it: the same system, the same cyclic
+through a NumPy float64 mirror of it: the same system, the same round-robin
 pair order, rotation formula, stopping rules (relative 1e-15, absolute
 1e-30 |A|_F^2, 16 sweeps) and column choice. Against `numpy.linalg.svd`
 (LAPACK, another algorithm) the mirror's null vector agrees within 1e-12
@@ -35,8 +35,11 @@ from stereo_orb_slam_torch.geometry import camera as pcam  # noqa: E402
 from stereo_orb_slam_torch.ops.kernels import dlt  # noqa: E402
 
 torch.set_num_threads(1)
-PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+# Round m of a sweep pairs lane (column) g with g ^ m; the lower plays P.
+ROUNDS = {m: tuple((g, g ^ m) for g in range(4) if g < g ^ m) for m in (1, 2, 3)}
 REL_TOL, ABS_TOL, MAX_SWEEPS = 1e-15, 1e-30, 16
+# The relative error of the kernel's rsqrt seed, as its note documents it.
+SEED_ERR = 2.0 ** -22
 VEC_ATOL = 1e-12
 JAX_F32_ATOL = 3e-4
 
@@ -49,13 +52,75 @@ def build_systems(P1, P2, uv1, uv2):
                      uv2[:, :1] * P2[2] - P2[0], uv2[:, 1:] * P2[2] - P2[1]], axis=1)
 
 
-def jacobi_null_vectors(A):
-    """The kernel's one-sided Jacobi on each A's columns, vectorised over
-    the batch: returns (null vectors [N, 4], sweeps [N], rotations [N])."""
+def dot4(x, y):
+    """x . y over [N, 4] columns, as the kernel sums: two products pairwise."""
+    return (x[:, 0] * y[:, 0] + x[:, 1] * y[:, 1]) + (x[:, 2] * y[:, 2] + x[:, 3] * y[:, 3])
+
+
+def scaled_systems(A):
+    """A scaled by the kernel's power of two, 2^-floor(e / 2) with e the
+    frexp exponent of |A|_F^2 (summed as the lanes sum it), and the scaled
+    |A|_F^2, in [0.5, 4) (0 for A = 0)."""
     a = np.array(A, np.float64)
+    n = [dot4(a[:, :, c], a[:, :, c]) for c in range(4)]
+    frob = (n[0] + n[1]) + (n[2] + n[3])
+    scale = np.ldexp(1.0, -(np.frexp(frob)[1] >> 1))
+    return a * scale[:, None, None], frob * scale * scale
+
+
+def rsqrt_seed(x):
+    """The kernel's seed of 1/sqrt(x) (MUFU.RSQ64H), modelled at its worst
+    documented error, SEED_ERR low on every call."""
+    with np.errstate(divide="ignore"):
+        return (1.0 / np.sqrt(x)) * (1.0 - SEED_ERR)
+
+
+def refine(x, e, add):
+    """The kernel's `refine`: x (1 + e / 2 + 3 e^2 / 8) + add, x (a multiple
+    of a seeded root) corrected to second order in the seed's error (e = 1
+    - (1 + delta)^2), left 2.5 delta^3 off (3e-20 at SEED_ERR); one Newton
+    step would leave it 1.5 delta^2 low (8.5e-14)."""
+    return x * e * (0.375 * e + 0.5) + add
+
+
+def rotate(a, v, p, q, active, abs_tol):
+    """The kernel's rotation of columns p < q of a and v where the pair
+    passes the test (and the point is active); returns where it did. With
+    d = beta - alpha and num = sign(d) 2 gamma: den = |d| + sqrt(d^2 +
+    num^2) and c, s = (den, num) / sqrt(den^2 + num^2): den's root from the
+    seed and one Newton step, the common factor's from the seed corrected
+    to second order in c and s; no division."""
+    ap, aq = a[:, :, p], a[:, :, q]
+    alpha, beta, gamma = dot4(ap, ap), dot4(aq, aq), dot4(ap, aq)
+    g2 = gamma * gamma
+    do = active & (g2 > REL_TOL * REL_TOL * alpha * beta) & (np.abs(gamma) > abs_tol)
+    d = beta - alpha
+    with np.errstate(invalid="ignore", over="ignore"):
+        root2 = 4.0 * g2 + d * d
+        y = rsqrt_seed(root2)
+        h = root2 * y
+        den = 0.5 * h * (1.0 - h * y) + (h + np.abs(d))
+        z = den * den + 4.0 * g2
+        r = rsqrt_seed(z)
+        e = 1.0 - z * r * r
+        num = gamma * np.where(d < 0.0, -2.0, 2.0)
+        c, s = (np.where(do, refine(x, e, x), 0.0)[:, None] for x in (den * r, num * r))
+    for m in (a, v):
+        mp, mq = m[:, :, p].copy(), m[:, :, q].copy()
+        m[:, :, p] = np.where(do[:, None], c * mp - s * mq, mp)
+        m[:, :, q] = np.where(do[:, None], s * mp + c * mq, mq)
+    return do
+
+
+def jacobi(A, swap=False):
+    """The kernel's one-sided Jacobi on each A's columns, vectorised over
+    the batch, round by round (the two rotations of a round in the order
+    of ROUNDS, or the other with `swap`): returns (the scaled A's rotated
+    columns [N, 4, 4], V [N, 4, 4], sweeps [N], rotations [N])."""
+    a, frob = scaled_systems(A)
     n = a.shape[0]
     v = np.tile(np.eye(4), (n, 1, 1))
-    abs_tol = ABS_TOL * (a * a).sum((1, 2))
+    abs_tol = ABS_TOL * frob
     active = np.ones(n, bool)
     sweeps, rotations = np.zeros(n, np.int64), np.zeros(n, np.int64)
     for _ in range(MAX_SWEEPS):
@@ -63,24 +128,23 @@ def jacobi_null_vectors(A):
             break
         sweeps += active
         rotated = np.zeros(n, bool)
-        for p, q in PAIRS:
-            ap, aq = a[:, :, p], a[:, :, q]
-            alpha, beta, gamma = (ap * ap).sum(1), (aq * aq).sum(1), (ap * aq).sum(1)
-            do = (active & (gamma * gamma > REL_TOL * REL_TOL * alpha * beta)
-                  & (np.abs(gamma) > abs_tol))
-            g = np.where(do, gamma, 1.0)
-            zeta = (beta - alpha) / (2.0 * g)
-            t = np.copysign(1.0, zeta) / (np.abs(zeta) + np.sqrt(1.0 + zeta * zeta))
-            c = np.where(do, 1.0 / np.sqrt(1.0 + t * t), 1.0)[:, None]
-            s = np.where(do, c[:, 0] * t, 0.0)[:, None]
-            for m in (a, v):
-                mp, mq = m[:, :, p].copy(), m[:, :, q].copy()
-                m[:, :, p], m[:, :, q] = c * mp - s * mq, s * mp + c * mq
-            rotated |= do
-            rotations += do
+        for pairs in ROUNDS.values():
+            for p, q in (pairs[::-1] if swap else pairs):
+                do = rotate(a, v, p, q, active, abs_tol)
+                rotated |= do
+                rotations += do
         active &= rotated
-    col = np.argmin((a * a).sum(1), axis=1)   # the first on a tie, as the kernel
-    return v[np.arange(n), :, col], sweeps, rotations
+    return a, v, sweeps, rotations
+
+
+def jacobi_null_vectors(A, swap=False):
+    """`jacobi`'s null vectors [N, 4] (V's column of the smallest column
+    norm of the rotated A, the first on a tie, as the kernel), sweeps [N]
+    and rotations [N]."""
+    a, v, sweeps, rotations = jacobi(A, swap)
+    norms = np.stack([dot4(a[:, :, c], a[:, :, c]) for c in range(4)], axis=1)
+    col = np.argmin(norms, axis=1)
+    return v[np.arange(len(a)), :, col], sweeps, rotations
 
 
 def dehomogenise(X):
@@ -179,6 +243,85 @@ def test_mirror_on_degenerate_systems_is_finite():
         assert torch.isfinite(out).all()
 
 
+def _systems(name, seed):
+    """A [N, 4, 4] of a well-posed case (`_case`), of degenerate systems
+    (all-zero rows through zero projections, duplicated rows from one view
+    twice, half zero), or of the smoke's kind of frame: invalid slots' zero
+    pixels among points 1.5-5 m and 45-100 m deep."""
+    rng = np.random.default_rng(seed)
+    if name in ("random_rigs", "euroc_far", "near_parallel"):
+        return build_systems(*_case(name, rng))
+    P1, P2 = _euroc()
+    if name == "invalid_slots":
+        X = np.concatenate([_points(rng, 256, 1.5, 5.0), _points(rng, 256, 45.0, 100.0)])
+        uv1 = _pixels(P1, X) + rng.normal(0, 0.3, (512, 2)).astype(np.float32)
+        uv2 = _pixels(P2, X)
+        invalid = rng.random(512) < 0.25
+        uv1[invalid] = uv2[invalid] = 0.0
+        return build_systems(P1, P2, uv1, uv2)
+    uv = _pixels(P1, _points(rng, 64, 1.0, 10.0))
+    zeros = np.zeros((3, 4))
+    Pa, Pb = {"zero": (zeros, zeros), "duplicated": (P1, P1), "half": (P1, zeros)}[name]
+    return build_systems(Pa, Pb, uv, uv)
+
+
+SYSTEMS = ["random_rigs", "euroc_far", "near_parallel", "invalid_slots", "zero",
+           "duplicated", "half"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("name", SYSTEMS)
+def test_mirror_converges_within_the_cap(name, seed):
+    """Every point of every seeded case stops on a sweep with no rotation
+    before the 16-sweep cap, so the cap never decides a result; a warp's
+    points sweep together, so its time is its slowest point's sweeps."""
+    _, sweeps, rotations = jacobi_null_vectors(_systems(name, seed))
+    assert sweeps.min() >= 1 and sweeps.max() < MAX_SWEEPS
+    assert (rotations <= 6 * (sweeps - 1)).all()
+
+
+@pytest.mark.parametrize("name", SYSTEMS)
+def test_rotations_of_a_round_commute(name):
+    """The two rotations of a round act on disjoint columns: the mirror's
+    vectors and counts are the same bit for bit whichever runs first, so
+    the kernel may run them at once on four lanes."""
+    A = _systems(name, 3)
+    for got, want in zip(jacobi_null_vectors(A, swap=True), jacobi_null_vectors(A)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", SYSTEMS)
+def test_rotations_keep_v_orthonormal(name):
+    """The seed of 1 / sqrt(den^2 + num^2) (modelled at its worst,
+    SEED_ERR), a common factor of c and s, is corrected to second order,
+    which keeps every rotation orthogonal to float64 rounding,
+    so V stays orthonormal over its 20-odd rotations (V^T V within 1e-13
+    of I). One Newton step would leave each rotation's c^2 + s^2 short of 1
+    by 3 SEED_ERR^2 (1.7e-13), and a seed left unrefined would drift by
+    about 1e-6 a rotation. A V is the rotated A."""
+    A = _systems(name, 5)
+    a, v, _, _ = jacobi(A)
+    gram = np.einsum("nri,nrj->nij", v, v)
+    np.testing.assert_allclose(gram, np.broadcast_to(np.eye(4), gram.shape), rtol=0,
+                               atol=1e-13)
+    scaled, _ = scaled_systems(A)
+    scale = np.sqrt((scaled * scaled).sum((1, 2)))[:, None, None]
+    assert (np.abs(np.einsum("nrc,nck->nrk", scaled, v) - a) <= 1e-14 * scale).all()
+
+
+def test_scaling_leaves_the_result_as_it_is():
+    """The kernel scales A by a power of two before the sweeps: the mirror
+    on 2^k A gives the same vectors and counts bit for bit, for k = -40 and
+    40, and keeps |A|_F^2 in [0.5, 4)."""
+    A = _systems("random_rigs", 4)
+    want = jacobi_null_vectors(A)
+    for k in (-40, 40):
+        for got, ref in zip(jacobi_null_vectors(np.ldexp(A, k)), want):
+            np.testing.assert_array_equal(got, ref)
+    _, frob = scaled_systems(np.concatenate([A, np.ldexp(A, -300), np.ldexp(A, 300)]))
+    assert ((frob >= 0.5) & (frob < 4.0)).all()
+
+
 def test_sign_of_the_null_vector_cancels():
     """LAPACK's vectors and the mirror's differ in sign on some points; the
     points agree there, and -v dehomogenises to exactly v's point."""
@@ -218,12 +361,12 @@ def _bank(rng, shape, P1, P2):
     return (_pixels(P1, X).reshape(shape + (2,)), _pixels(P2, X).reshape(shape + (2,)))
 
 
-@pytest.mark.parametrize("layout", ["shared", "stacked", "edges"])
+@pytest.mark.parametrize("layout", ["shared", "stacked", "edges", "edges_64"])
 def test_cpu_wrapper_is_the_plain_version(layout):
     """camera.triangulate_dlt on CPU tensors is the plain version bit for
     bit, for a shared rig ([N, 2]), a stacked rig (P [S, 1, 3, 4] with [S,
     N, 2], as triangulate_ideal passes it) and the loop edges' column
-    slices of [E, N, 4] banks."""
+    slices of [E, N, 4] banks (E = 3, and E_pad = 64 of 1024 slots)."""
     rng = np.random.default_rng(5)
     P1, P2 = _euroc()
     if layout == "shared":
@@ -235,7 +378,8 @@ def test_cpu_wrapper_is_the_plain_version(layout):
         p1 = torch.from_numpy(np.stack([P1, Q1]))[:, None]
         p2 = torch.from_numpy(np.stack([P2, Q2]))[:, None]
     else:
-        uv = torch.from_numpy(np.concatenate(_bank(rng, (3, 300), P1, P2), axis=-1))
+        shape = (3, 300) if layout == "edges" else (64, 1024)
+        uv = torch.from_numpy(np.concatenate(_bank(rng, shape, P1, P2), axis=-1))
         uv1, uv2 = uv[..., :2], uv[..., 2:]
         p1, p2 = torch.from_numpy(P1), torch.from_numpy(P2)
     got = pcam.triangulate_dlt(p1, p2, uv1, uv2)
@@ -258,6 +402,9 @@ def test_kernel_layout_of_the_inputs():
     flat, sb, sn = dlt._problems(bank[..., 2:], (3,), 7)
     assert (tuple(flat.shape), sb, sn) == ((3, 7, 2), 28, 4)
     assert flat.data_ptr() == bank[..., 2:].data_ptr()
+    bank = torch.zeros(64, 1024, 4)
+    flat, sb, sn = dlt._problems(bank[..., :2], (64,), 1024)
+    assert (tuple(flat.shape), sb, sn) == ((64, 1024, 2), 4096, 4)
     flat, sb, sn = dlt._problems(torch.zeros(7, 2), (), 7)
     assert (tuple(flat.shape), sb, sn) == ((1, 7, 2), 14, 2)
     flat, sb, sn = dlt._problems(torch.zeros(2, 3, 7, 2), (2, 3), 7)

@@ -291,17 +291,17 @@ def _dlt_problem(rng, P1, P2, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["shared", "stacked", "edges"])
+@pytest.mark.parametrize("layout", ["shared", "stacked", "edges", "edges_64"])
 def test_dlt_kernel_matches_plain_and_float64(rng, cuda, layout):
     """S = 1 ([1, N, 2] with one rig, as the front end's step passes it),
     S = 2 with a stacked rig of two baselines (P [2, 1, 3, 4]) and E = 5
-    loop edges' column slices of [E, N, 4] banks, at N = 1024: one launch
-    each."""
+    and E_pad = 64 loop edges' column slices of [E, N, 4] banks, at N =
+    1024: one launch each."""
     n = 1024
     rigs = [_euroc_projections(EUROC["baseline"])]
     if layout == "stacked":
         rigs.append(_euroc_projections(0.2))
-    B = {"shared": 1, "stacked": 2, "edges": 5}[layout]
+    B = {"shared": 1, "stacked": 2, "edges": 5, "edges_64": 64}[layout]
     cases = [_dlt_problem(rng, *rigs[b % len(rigs)], n) for b in range(B)]
     uv1, uv2 = (torch.from_numpy(np.stack([c[i] for c in cases])).to(cuda) for i in (0, 1))
     if layout == "stacked":
@@ -309,7 +309,7 @@ def test_dlt_kernel_matches_plain_and_float64(rng, cuda, layout):
                   for i in (0, 1))
     else:
         P1, P2 = (torch.from_numpy(rigs[0][i]).to(cuda) for i in (0, 1))
-    if layout == "edges":
+    if layout.startswith("edges"):
         bank = torch.cat([uv1, uv2], dim=-1)
         uv1, uv2 = bank[..., :2], bank[..., 2:]
         assert not uv1.is_contiguous()
@@ -332,6 +332,36 @@ def test_dlt_kernel_matches_plain_and_float64(rng, cuda, layout):
             tk.triangulate_dlt(P1.reshape(-1, 3, 4)[:1].expand(B, 3, 4).contiguous(),
                                P2.reshape(-1, 3, 4)[:1].expand(B, 3, 4).contiguous(), uv1,
                                uv2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["zero", "duplicated", "half"])
+def test_dlt_kernel_on_degenerate_rows(rng, cuda, rows):
+    """Systems with no unique null vector at N = 1024: all-zero rows (zero
+    projections), duplicated rows (one view twice) and a zero second view,
+    beside points 45-100 m deep: every output finite, every point stopped
+    before the 16-sweep cap, one launch; the well-posed far points of the
+    same launch (a stacked pair) within DLT_F64_RTOL of a float64 DLT."""
+    n = 1024
+    P1, P2 = _euroc_projections(EUROC["baseline"])
+    uv1, uv2, _, valid = _dlt_problem(rng, P1, P2, n)
+    zeros = np.zeros((3, 4), np.float32)
+    Pa, Pb = {"zero": (zeros, zeros), "duplicated": (P1, P1), "half": (P1, zeros)}[rows]
+    p1 = torch.from_numpy(np.stack([Pa, P1]))[:, None].to(cuda)
+    p2 = torch.from_numpy(np.stack([Pb, P2]))[:, None].to(cuda)
+    u1 = torch.from_numpy(np.stack([uv1, uv1])).to(cuda)
+    u2 = torch.from_numpy(np.stack([uv1, uv2])).to(cuda)
+    before = tk.LAUNCHES
+    got, work = tk.triangulate_dlt_work(p1, p2, u1, u2)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 1
+    got, work = got.cpu().numpy(), work.cpu().numpy()
+    assert np.isfinite(got).all()
+    assert work[..., 0].min() >= 1 and work[..., 0].max() < 16
+    if rows == "zero":
+        assert (work[0] == [1, 0]).all()
+    x64 = dlt_float64(P1, P2, uv1[valid], uv2[valid])
+    assert (np.abs(got[1][valid] - x64).max(1) / np.abs(x64[:, 2])).max() <= DLT_F64_RTOL
 
 
 def test_batched_wrappers_check_their_batch():
