@@ -59,6 +59,7 @@ from stereo_orb_slam_torch.geometry import camera as cam_mod
 from stereo_orb_slam_torch.loop.vocab import batch_score_update
 from stereo_orb_slam_torch.ops import detect, match, orb
 from stereo_orb_slam_torch.utils import programs
+from stereo_orb_slam_torch.utils.profiling import TRACER
 from stereo_orb_slam_torch.worldmap import WorldMap
 
 
@@ -638,22 +639,33 @@ class VisualOdometer:
 
     def track(self, img_l, img_r) -> np.ndarray:
         """Process one stereo pair (uint8 or float32 arrays or tensors);
-        returns the 4x4 relative transform."""
-        sampler = self.sampler_for_frame(self._frame_counter)
-        self._frame_counter += 1
-        if keyed([sampler]):
-            res = frontend_step_program(
-                self._upload(img_l), self._upload(img_r), self.prev, self.initialized,
-                sampler, self.rig, self.max_distance, self.fe, self.rc, self.steer)
-        else:
-            res = frontend_step(
-                self._upload(img_l), self._upload(img_r), self.prev,
-                torch.tensor(self.initialized, device=self.device), sampler,
-                self.rig, self.max_distance, self.fe, self.rc, self.rectified,
-                self.steer,
-            )
-        self._carry_dev = None  # the host mirrors are now ahead of the device
-        return self._ingest(res)
+        returns the 4x4 relative transform. The frame is a `vo.track` span
+        whose children cover it: `vo.upload` (both images), `vo.launch`
+        (the key draw through the step's outputs), `vo.readback`
+        (`_to_host`, which waits for the frame's device work) and `vo.map`
+        (`_ingest`'s host map)."""
+        with TRACER.span("vo.track", frame=self._frame_counter):
+            with TRACER.span("vo.upload"):
+                img_l, img_r = self._upload(img_l), self._upload(img_r)
+            with TRACER.span("vo.launch"):
+                sampler = self.sampler_for_frame(self._frame_counter)
+                self._frame_counter += 1
+                if keyed([sampler]):
+                    res = frontend_step_program(
+                        img_l, img_r, self.prev, self.initialized, sampler, self.rig,
+                        self.max_distance, self.fe, self.rc, self.steer)
+                else:
+                    res = frontend_step(
+                        img_l, img_r, self.prev,
+                        torch.tensor(self.initialized, device=self.device), sampler,
+                        self.rig, self.max_distance, self.fe, self.rc, self.rectified,
+                        self.steer,
+                    )
+            self._carry_dev = None  # the host mirrors are now ahead of the device
+            with TRACER.span("vo.readback"):
+                host = _to_host(res)
+            with TRACER.span("vo.map"):
+                return self._ingest(res, host)
 
     def track_batch(self, imgs_l, imgs_r, bow=None) -> list:
         """Process K stereo pairs: the K frame steps run back to back on the

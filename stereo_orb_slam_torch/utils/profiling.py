@@ -1,37 +1,207 @@
-"""Per-stage wall-clock timers and optional profiler regions.
+"""Spans on the host clock, and the per-stage timers built on them.
 
 The PyTorch counterpart of the JAX package's `utils/profiling.py`. The
 reference's only instrumentation is a per-frame elapsed-ms print (ref
-src/slam.cpp:136-138); here every pipeline stage accumulates into a
-registry that the apps print at exit, and `trace()` names a region in a
-torch.profiler trace (`torch.profiler.record_function`).
+src/slam.cpp:136-138); here the program opens a span at each layer
+boundary of its hot path (`VisualOdometer.track`'s upload, launch,
+readback and host map, a program's capture and replay) and at each
+pipeline stage (`StageTimers`). The batch path (`dispatch_batch`,
+`collect_batch`) is timed by `SlamSystem`'s stages alone.
 
-The timers read the host clock and add no device sync: device work is
-asynchronous, so a stage that ends in a readback (`vo.collect`,
-`ba.finish`, a loop closure) includes the device time it waited for, as
-the JAX package's stages that block do, and a stage that only launches
-work (`vo.dispatch`, `ba.window`) does not.
+`TRACER` is the process's tracer, off by default. Off, `span()` is one
+flag check that returns a shared no-op context: it reads no clock, opens
+no profiler region and touches no device. On, a span records its name, its
+start and end on the host clock (`time.perf_counter_ns`), the span it was
+opened in, and the frame id of the root span that carries one (`vo.track`
+carries the odometer's frame counter; its children inherit it). The
+records go into one flat buffer that grows by doubling and are read out
+with `spans()` when the run ends.
+
+While tracing is on and a torch.profiler records, each span also opens
+`torch.profiler.record_function(name)`, so the program's spans sit on the
+profiler's timeline beside the device's kernels. A span read under the
+profiler is slower on the host than one read without it: the profiler
+records every operation, so per-layer host times come from frames traced
+with the profiler off.
+
+A timed span (`timed()`) reads the clock whether tracing is on or not,
+and records only when it is on: `StageTimers` and a program's capture
+time (`programs.Program._capture`) read their durations from one.
+
+Spans are opened and closed by one thread, the one that runs the
+program; the host clock adds no device sync, so a span that ends in a
+readback (`vo.readback`, `vo.collect`, `ba.finish`) includes the device
+time it waited for, and one that only launches work (`vo.launch`,
+`vo.dispatch`) does not.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
+from array import array
 from collections import defaultdict
+from time import perf_counter_ns as _clock
+from typing import Dict, Iterable, List, NamedTuple, Optional
+
+import torch
+
+# The fields of a recorded span in the buffer.
+_NAME, _START, _END, _PARENT, _FRAME = range(5)
+_FIELDS = 5
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int      # -1 while the span is open
+    parent: int      # index of the span it was opened in, -1 for a root
+    frame: int       # frame id of its root span, -1 for none
+
+
+class _Span:
+    """One span: recorded while its tracer is on, timed when asked."""
+
+    __slots__ = ("tracer", "name", "frame", "row", "start_ns", "end_ns", "region")
+
+    def __init__(self, tracer: "Tracer", name: str, frame: Optional[int]):
+        self.tracer, self.name, self.frame = tracer, name, frame
+        self.row, self.region = -1, None
+
+    def __enter__(self):
+        t = self.tracer
+        if t.enabled:
+            self.row = t._open_row(self.name, self.frame)
+            if torch.autograd._profiler_enabled():
+                self.region = torch.profiler.record_function(self.name)
+                self.region.__enter__()
+        self.start_ns = _clock()
+        if self.row >= 0:
+            t._buf[self.row * _FIELDS + _START] = self.start_ns
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = _clock()
+        if self.row >= 0:
+            t = self.tracer
+            t._buf[self.row * _FIELDS + _END] = self.end_ns
+            t._open.pop()
+            if self.region is not None:
+                self.region.__exit__(*exc)
+        return False
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+
+_OFF = contextlib.nullcontext()
+
+
+class Tracer:
+    """The spans of one process (see the module's docstring)."""
+
+    def __init__(self, capacity: int = 4096):
+        self.enabled = False
+        self._buf = array("q", bytes(8 * _FIELDS * max(capacity, 1)))
+        self._n = 0
+        self._names: List[str] = []
+        self._ids: Dict[str, int] = {}
+        self._open: List[int] = []     # rows of the open recorded spans, innermost last
+
+    def enable(self, on: bool = True):
+        self.enabled = bool(on)
+
+    def span(self, name: str, frame: Optional[int] = None):
+        """A context that records the span `name` while tracing is on;
+        `frame` marks a root span of that frame id."""
+        if not self.enabled:
+            return _OFF
+        return _Span(self, name, frame)
+
+    def timed(self, name: str) -> _Span:
+        """A span that reads the clock whether tracing is on or not: its
+        `seconds` after it closes."""
+        return _Span(self, name, None)
+
+    def _open_row(self, name: str, frame: Optional[int]) -> int:
+        row = self._n
+        if (row + 1) * _FIELDS > len(self._buf):
+            self._buf.extend(array("q", bytes(8 * len(self._buf))))
+        self._n = row + 1
+        name_id = self._ids.get(name)
+        if name_id is None:
+            name_id = self._ids[name] = len(self._names)
+            self._names.append(name)
+        parent = self._open[-1] if self._open else -1
+        if frame is None:
+            frame = self._buf[parent * _FIELDS + _FRAME] if parent >= 0 else -1
+        base = row * _FIELDS
+        self._buf[base + _NAME] = name_id
+        self._buf[base + _END] = -1
+        self._buf[base + _PARENT] = parent
+        self._buf[base + _FRAME] = frame
+        self._open.append(row)
+        return row
+
+    def spans(self) -> List[SpanRecord]:
+        """The recorded spans in the order they were opened."""
+        b, names = self._buf, self._names
+        return [SpanRecord(names[b[i]], b[i + 1], b[i + 2], b[i + 3], b[i + 4])
+                for i in range(0, self._n * _FIELDS, _FIELDS)]
+
+    def reset(self):
+        """Drop the recorded spans (with no span open)."""
+        if self._open:
+            raise RuntimeError("a tracer is reset only with no span open")
+        self._n = 0
+
+
+def self_ns(spans: List[SpanRecord]) -> List[int]:
+    """Each span's duration less the time its children cover (a thread's
+    children follow one another, so they never overlap)."""
+    covered = [0] * len(spans)
+    for s in spans:
+        if s.parent >= 0:
+            covered[s.parent] += s.end_ns - s.start_ns
+    return [s.end_ns - s.start_ns - c for s, c in zip(spans, covered)]
+
+
+def frame_totals(spans: List[SpanRecord], frames: Iterable[int],
+                 durations: Optional[List[int]] = None) -> Dict[str, int]:
+    """{name: nanoseconds} summed over the spans of the given frame ids,
+    the frames' root spans included: their durations, or the given ones
+    (`self_ns(spans)` for self times)."""
+    keep = set(frames)
+    if durations is None:
+        durations = [s.end_ns - s.start_ns for s in spans]
+    out: Dict[str, int] = defaultdict(int)
+    for s, d in zip(spans, durations):
+        if s.frame in keep:
+            out[s.name] += d
+    return dict(out)
+
+
+# The process's tracer, the one the program's spans use.
+TRACER = Tracer()
 
 
 class StageTimers:
-    def __init__(self):
+    """Wall time and calls by pipeline stage; each stage is a span of its
+    name on `tracer`, timed whether tracing is on or not."""
+
+    def __init__(self, tracer: Tracer = TRACER):
+        self.tracer = tracer
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
 
     @contextlib.contextmanager
     def time(self, name: str):
-        t0 = time.perf_counter()
+        span = self.tracer.timed(name)
         try:
-            yield
+            with span:
+                yield
         finally:
-            self.totals[name] += time.perf_counter() - t0
+            self.totals[name] += span.seconds
             self.counts[name] += 1
 
     def reset(self):
@@ -58,16 +228,3 @@ class StageTimers:
                 f"{s['mean_ms']:>9.2f} ms/call  {s['total_s']:>8.2f} s total"
             )
         return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def trace(name: str, enabled: bool = False):
-    """A named torch.profiler region (`record_function`); no-op unless
-    enabled."""
-    if not enabled:
-        yield
-        return
-    import torch
-
-    with torch.profiler.record_function(name):
-        yield

@@ -22,7 +22,9 @@ dtypes and devices of its tensors and its static configuration
 (`jax.jit`'s static arguments). The cache is bounded; an evicted
 program's graphs are reset, which frees their memory pool. It counts
 captures, replays and capture milliseconds per body, and the programs
-built again for a key that it had evicted (`rebuilds`).
+built again for a key that it had evicted (`rebuilds`). A capture is a
+`program.capture` span of `utils/profiling.TRACER`, whose clock gives its
+milliseconds; a replay is a `program.replay` span.
 
 The hand kernels count their launches in Python (`LAUNCHES` of
 ops/kernels), and so does `parallel.mesh` its all_reduces and their
@@ -46,7 +48,6 @@ A failed capture or replay raises; nothing falls back to the eager body.
 from __future__ import annotations
 
 import importlib
-import time
 import weakref
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, Optional
@@ -54,6 +55,7 @@ from typing import Callable, Dict, Hashable, Optional
 import torch
 
 from stereo_orb_slam_torch.parallel import mesh as mesh_mod
+from stereo_orb_slam_torch.utils.profiling import TRACER
 
 # (module, attribute) of every kernel launch and collective counter a body
 # can advance.
@@ -155,9 +157,10 @@ class Program:
         if graph is None:
             self._capture(name, body)
             return
-        graph.replay()
-        _add_counters(self._deltas[name])
-        mesh_mod.replayed(self._shapes[name])
+        with TRACER.span("program.replay"):
+            graph.replay()
+            _add_counters(self._deltas[name])
+            mesh_mod.replayed(self._shapes[name])
         self._stat(name)["replays"] += 1
 
     def _stat(self, name: str) -> dict:
@@ -167,21 +170,21 @@ class Program:
         return self.stats.setdefault(key, {"captures": 0, "replays": 0, "capture_ms": 0.0})
 
     def _capture(self, name: str, body: Callable[[], None]):
-        t0 = time.perf_counter()
-        self._warm_up(body)
-        before = read_counters()
-        try:
-            with mesh_mod.captured() as shapes:
-                graph = self._record(body)
-            after = read_counters()
-        finally:
-            _set_counters(before)   # the capture launched nothing
-        self._deltas[name] = tuple(a - b for a, b in zip(after, before))
-        self._shapes[name] = list(shapes)
-        self._graphs[name] = graph
+        with TRACER.timed("program.capture") as span:
+            self._warm_up(body)
+            before = read_counters()
+            try:
+                with mesh_mod.captured() as shapes:
+                    graph = self._record(body)
+                after = read_counters()
+            finally:
+                _set_counters(before)   # the capture launched nothing
+            self._deltas[name] = tuple(a - b for a, b in zip(after, before))
+            self._shapes[name] = list(shapes)
+            self._graphs[name] = graph
         stat = self._stat(name)
         stat["captures"] += 1
-        stat["capture_ms"] += (time.perf_counter() - t0) * 1e3
+        stat["capture_ms"] += span.seconds * 1e3
 
     def _warm_up(self, body):
         """The body's first run, eager, on the stream the capture uses."""

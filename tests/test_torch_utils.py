@@ -2,8 +2,8 @@
 `--debug_viz`, against the JAX package where it has the same function.
 
 - `StageTimers`: the same summary as the JAX package's for the same stage
-  calls, and `reset` zeroes it; `trace` names a torch.profiler region only
-  when enabled.
+  calls, and `reset` zeroes it; a span of the port's tracer names a
+  torch.profiler region only while tracing is on.
 - `save_frame_debug` (tests/test_viz.py:13 in the port): both packages'
   step results for the same two PlaneScene frames, with the port's RANSAC
   sets injected from the JAX key, write the same file set (`stereo_`,
@@ -70,8 +70,10 @@ def test_stage_timers_reset_and_summary_match_reference():
 def test_trace_names_a_profiler_region_only_when_enabled(enabled):
     from torch.profiler import ProfilerActivity, profile
 
+    tracer = profiling.Tracer()
+    tracer.enable(enabled)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with profiling.trace("vo.frame", enabled=enabled):
+        with tracer.span("vo.frame"):
             torch.ones(8).add_(1.0)
     names = {e.key for e in prof.key_averages()}
     assert ("vo.frame" in names) == enabled
