@@ -903,34 +903,36 @@ class VisualOdometer:
         fid = world.add_frame(trans)
         G = world.pose_global[fid]
 
-        tracked = res.tracked & valid if not first else np.zeros_like(valid)
-        if not first and not self.success:
-            tracked[:] = False  # failed RANSAC: everything becomes new
         gids = np.full(len(valid), -1, np.int64)
-        # Tracked slots inherit the matched prev slot's landmark id.
-        if tracked.any():
-            inherited = self.prev_global_idx[res.prev_idx[tracked]]
-            ok = inherited >= 0
-            t_idx = np.where(tracked)[0]
-            gids[t_idx[ok]] = inherited[ok]
-            tracked = np.zeros_like(tracked)
-            tracked[t_idx[ok]] = True
+        # New landmarks: valid slots not tracked (every slot on the first
+        # frame or after a failed RANSAC).
+        new_mask = valid.copy()
+        if not first and self.success:
+            # Tracked slots inherit the matched prev slot's landmark id.
+            t_idx = np.flatnonzero(res.tracked & valid)
+            if len(t_idx):
+                inherited = self.prev_global_idx[res.prev_idx[t_idx]]
+                ok = inherited >= 0
+                t_idx = t_idx[ok]
+                gids[t_idx] = inherited[ok]
+                new_mask[t_idx] = False
 
-        # New landmarks: valid slots not tracked, moved to the world frame by
-        # the new frame's global pose (ref :386-388).
-        new_mask = valid & ~tracked
+        # New landmarks move to the world frame by the new frame's global
+        # pose (ref :386-388).
+        n0 = world.num_points
         if new_mask.any():
             pl = pts_local[new_mask]
             ph = np.concatenate([pl, np.ones((len(pl), 1), np.float32)], 1)
             pw = (G @ ph.T).T[:, :3]
             gids[new_mask] = world.add_points(pw, fid)
 
-        uv4 = np.concatenate([slots.kp_l, slots.kp_r], axis=1).astype(np.float32)
+        uv4 = np.concatenate([slots.kp_l, slots.kp_r], axis=1, dtype=np.float32)
+        gids32 = gids.astype(np.int32)
         obs_mask = valid & (gids >= 0)
-        world.add_observations(fid, gids[obs_mask].astype(np.int32), uv4[obs_mask])
+        world.add_observations(fid, gids32[obs_mask], uv4[obs_mask])
         # New points start at 1 in add_points and add_observations counts
-        # them again: take the double count back.
-        world.point_obs_count[gids[new_mask].astype(np.int64)] -= 1
-        world.set_frame_features(fid, slots.desc, uv4, gids.astype(np.int32), obs_mask)
-        self._current_features = (slots.desc, uv4, gids.astype(np.int32), obs_mask)
+        # them again: take the double count back (ids n0 onwards).
+        world.point_obs_count[n0 : world.num_points] -= 1
+        world.set_frame_features(fid, slots.desc, uv4, gids32, obs_mask)
+        self._current_features = (slots.desc, uv4, gids32, obs_mask)
         self._curr_global_idx = gids

@@ -82,10 +82,64 @@ def _np_normalize_rot_batch(T: np.ndarray) -> np.ndarray:
     return out.reshape(T.shape)
 
 
+_F0, _F1, _F2, _F4, _HALF = (np.float32(v) for v in (0.0, 1.0, 2.0, 4.0, 0.5))
+_EPS = np.float32(1e-12)
+
+
 def _np_normalize_rot(T: np.ndarray) -> np.ndarray:
-    """Single-matrix renormalization (delegates to the batch kernel so the
-    two paths are identical by construction)."""
-    return _np_normalize_rot_batch(np.asarray(T, np.float32)[None])[0]
+    """Single-matrix renormalization: `_np_normalize_rot_batch` for one
+    4x4, as straight-line float32 scalar code (the batch kernel spends its
+    time stacking and gathering 16 numbers). The same operations in the
+    same order, the first largest candidate as `np.argmax` picks it, and
+    the norm through the batch's own reduction, so the result is bit for
+    bit `_np_normalize_rot_batch(T[None])[0]` (tests/test_torch_normalize_rot.py)."""
+    T = np.asarray(T, np.float32)
+    m00, m01, m02, t0, m10, m11, m12, t1, m20, m21, m22, t2 = T[:3].ravel()
+    cand = (_F1 + m00 + m11 + m22, _F1 + m00 - m11 - m22,
+            _F1 - m00 + m11 - m22, _F1 - m00 - m11 + m22)
+    # np.argmax: the first maximum, or the first NaN.
+    best, c = 0, cand[0]
+    if c == c:
+        for k in (1, 2, 3):
+            ck = cand[k]
+            if ck != ck:
+                best, c = k, ck
+                break
+            if ck > c:
+                best, c = k, ck
+    s = _HALF * np.sqrt(c if not c < _EPS else _EPS)  # np.maximum(c, eps)
+    r = _F1 / (_F4 * s)
+    if best == 0:
+        q = (s, (m21 - m12) * r, (m02 - m20) * r, (m10 - m01) * r)
+    elif best == 1:
+        q = ((m21 - m12) * r, s, (m01 + m10) * r, (m02 + m20) * r)
+    elif best == 2:
+        q = ((m02 - m20) * r, (m01 + m10) * r, s, (m12 + m21) * r)
+    else:
+        q = ((m10 - m01) * r, (m02 + m20) * r, (m12 + m21) * r, s)
+    q = np.array(q, np.float32)
+    if q[0] < 0:
+        q = -q
+    q = q / np.sqrt(np.add.reduce(q * q))  # np.linalg.norm's reduction
+    w, x, y, z = q
+    return np.array((
+        (_F1 - _F2 * (y * y + z * z), _F2 * (x * y - w * z), _F2 * (x * z + w * y), t0),
+        (_F2 * (x * y + w * z), _F1 - _F2 * (x * x + z * z), _F2 * (y * z - w * x), t1),
+        (_F2 * (x * z - w * y), _F2 * (y * z + w * x), _F1 - _F2 * (x * x + y * y), t2),
+        (_F0, _F0, _F0, _F1),
+    ), np.float32)
+
+
+def _bump_counts(counts: np.ndarray, ids: np.ndarray):
+    """`np.add.at(counts, ids, 1)` in O(n log n) of the frame's ids, not of
+    the map (a bincount over the map was real milliseconds per frame on a
+    long drive). A fancy-index add counts each distinct id once, so each
+    pass adds one and keeps the repeats for the next: ids repeat where two
+    slots inherit one landmark. Sorts `ids` in place."""
+    ids.sort()
+    while len(ids):
+        counts[ids] += 1
+        ids = ids[1:][ids[1:] == ids[:-1]]
 
 
 class WorldMap:
@@ -163,7 +217,7 @@ class WorldMap:
         """
         fid = self.num_frames
         self._ensure_frames(fid + 1)
-        rel = _np_normalize_rot(rel_pose.astype(np.float32))
+        rel = _np_normalize_rot(rel_pose)
         self.pose_rel[fid] = rel
         if fid == 0:
             self.pose_global[fid] = rel
@@ -234,13 +288,13 @@ class WorldMap:
     def add_points(self, xyz_world: np.ndarray, first_frame: int) -> np.ndarray:
         """Append new landmarks; returns their global ids."""
         n = len(xyz_world)
-        ids = np.arange(self.num_points, self.num_points + n, dtype=np.int32)
-        self._ensure_points(self.num_points + n)
-        self.points[ids] = xyz_world
-        self.point_first_frame[ids] = first_frame
-        self.point_obs_count[ids] = 1
+        n0 = self.num_points
+        self._ensure_points(n0 + n)
+        self.points[n0 : n0 + n] = xyz_world
+        self.point_first_frame[n0 : n0 + n] = first_frame
+        self.point_obs_count[n0 : n0 + n] = 1
         self.num_points += n
-        return ids
+        return np.arange(n0, n0 + n, dtype=np.int32)
 
     def add_points_multi(self, xyz_world: np.ndarray,
                          first_frames: np.ndarray) -> np.ndarray:
@@ -312,15 +366,11 @@ class WorldMap:
         if sigma is not None:
             self.obs_sigma[sl] = sigma
         self.num_obs += n
-        # O(n) duplicate-safe bump (a bincount over num_points was O(map
-        # size) PER FRAME — real milliseconds once the map holds 50k+
-        # landmarks on a long drive).
-        ids = np.asarray(point_ids, np.int64)
+        ids = np.asarray(point_ids)
         # Guard both ends: a negative id would wrap and bump a count from
         # the array's end (the pre-r4 bincount raised there; keep that
         # failure containment).
-        np.add.at(self.point_obs_count,
-                  ids[(ids >= 0) & (ids < self.num_points)], 1)
+        _bump_counts(self.point_obs_count, ids[(ids >= 0) & (ids < self.num_points)])
 
     # ------------------------------------------------------------- pose edits
     def set_global_poses(self, frame_ids: np.ndarray, new_poses: np.ndarray):

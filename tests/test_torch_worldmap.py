@@ -195,3 +195,24 @@ def test_frame_feature_banks(with_desc):
     wm, _ = _both(drive, feat_slots=n)
     assert wm.frame_desc_stale is not with_desc
     np.testing.assert_array_equal(wm.frame_feat_uv[1:4], uv4)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["add_frame", "add_frames"])
+def test_random_pose_chain_500(batched):
+    """500 random relative poses (any rotation, noise off orthogonality,
+    translations to 5 m) chained into the global poses: the port's
+    single-matrix renormalisation, twice a frame, keeps the map bit for bit
+    the JAX package's."""
+    rng = np.random.default_rng(500)
+    rels = np.stack([rt(rng.normal(size=3), rng.normal(scale=5.0, size=3)) for _ in range(500)])
+    rels[:, :3, :3] += rng.normal(scale=1e-3, size=(500, 3, 3)).astype(np.float32)
+
+    def drive(wm):
+        if batched:
+            return wm.add_frames(rels)
+        return np.asarray([wm.add_frame(T) for T in rels], np.int32)
+
+    wm, ids = _both(drive)
+    np.testing.assert_array_equal(ids, np.arange(500))
+    R = wm.pose_global[499][:3, :3]
+    np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-5)
