@@ -36,6 +36,7 @@ import dataclasses
 import functools
 import os
 import time
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -47,14 +48,14 @@ from stereo_orb_slam_torch.backend.pose_graph import (
 )
 from stereo_orb_slam_torch.config import SlamConfig
 from stereo_orb_slam_torch.frontend import ransac as ransac_mod
-from stereo_orb_slam_torch.frontend.odometer import VisualOdometer, empty_banks
+from stereo_orb_slam_torch.frontend.odometer import VisualOdometer, empty_banks, take_rings
 from stereo_orb_slam_torch.geometry import camera as cam_mod
 from stereo_orb_slam_torch.io import calib, datasets, export
 from stereo_orb_slam_torch.loop import LoopDetector, OrbVocabulary
 from stereo_orb_slam_torch.loop.vocab import desc_tensor
 from stereo_orb_slam_torch.ops import match as match_mod
 from stereo_orb_slam_torch.utils import evaluate, logging as slog, programs
-from stereo_orb_slam_torch.utils.profiling import StageTimers
+from stereo_orb_slam_torch.utils.profiling import TRACER, StageTimers
 from stereo_orb_slam_torch.worldmap import WorldMap
 
 
@@ -315,7 +316,11 @@ class SlamSystem:
 
     `sampler_for_frame` (frame RANSAC) and `sampler_for_edge` (loop-edge
     RANSAC) default to the odometer's and the loop matcher's seeded Gumbel
-    samplers; tests inject the JAX package's sets through them."""
+    samplers; tests inject the JAX package's sets through them.
+
+    The fused live loop writes feature-bank rings that the program cache
+    owns (odometer.take_rings), so a new system replays the front end that
+    an earlier, dropped one captured."""
 
     def __init__(self, rig: cam_mod.StereoRig, cfg: Optional[SlamConfig] = None,
                  vocab: Optional[OrbVocabulary] = None, seed: int = 0,
@@ -328,13 +333,14 @@ class SlamSystem:
         self.vo = VisualOdometer(self.world, rig, self.cfg.frontend, self.cfg.ransac,
                                  seed=seed, sampler_for_frame=sampler_for_frame)
         self.ba = BundleAdjuster(self.world, rig, self.cfg.ba)
+        vo = self.vo
         self.pgo = PoseGraphOptimizer(
             self.world, self.cfg.pose_graph, bundle_adjuster=self.ba,
             loop_matcher=make_loop_matcher(
                 self.world, rig, self.cfg,
                 # The rings as of the last COLLECTED batch: the matcher
                 # gathers frame banks on the device.
-                bank_getter=lambda: self.vo.last_banks,
+                bank_getter=lambda: vo.last_banks,
                 sampler_for_edge=sampler_for_edge),
             device=self.device,
         )
@@ -359,7 +365,10 @@ class SlamSystem:
         self._bow_dev = None
         # Device feature-bank rings threaded alongside; rows = frame ids.
         self._bank_dev = None
-        self.pgo.pre_optimize_hook = self._finish_pending_ba
+        # Neither hook holds the system, so a dropped system is freed at
+        # once and its rings are free for the next (odometer.take_rings).
+        this = weakref.ref(self)
+        self.pgo.pre_optimize_hook = lambda: this()._finish_pending_ba()
 
     def _finish_pending_ba(self):
         """Apply the previous batch's in-flight BA solve (readback +
@@ -522,7 +531,15 @@ class SlamSystem:
         slam.cpp:123) and its every-10-frames window BA (ref
         slam.cpp:126-129) become one solve per batch over a window covering
         both (at K = 1, one solve per refine interval).
+
+        The call is a `slam.batch` span whose frame id is the batch's first
+        frame; the stages' spans (`vo.dispatch`, `vo.collect`, `ba.window`,
+        `ba.finish`, `loop.query`) and a closure's (`pg.*`) nest under it.
         """
+        with TRACER.span("slam.batch", frame=self.vo._frame_counter):
+            return self._process_batch(imgs_l, imgs_r)
+
+    def _process_batch(self, imgs_l, imgs_r) -> list:
         cfg = self.cfg
         k = len(imgs_l)
         if k > 1:
@@ -559,8 +576,8 @@ class SlamSystem:
                         "frame_desc stale while rebuilding the device banks: "
                         "sync_feature_banks() must run before the rings are retired")
                 nf = self.world.num_frames
-                banks = empty_banks(self.loop.database.shape[0],
-                                    self.cfg.frontend.num_features, self.device)
+                banks = take_rings(self.loop.database.shape[0],
+                                   self.cfg.frontend.num_features, self.device, self)
                 if nf > 0:
                     banks[0][:nf] = desc_tensor(
                         self.world.frame_desc[:nf].reshape(-1, 8), self.device

@@ -743,8 +743,12 @@ class LMProgram(programs.Program):
     def __init__(self, prob: BAProblem, cfg: BAConfig, dense_K, cam_K, band, chunked: bool,
                  group=None, point_sharded: bool = False):
         super().__init__(prob.pose6.device, group)
-        self.cfg, self.dense_K, self.cam_K, self.band, self.chunked = (
-            cfg, dense_K, cam_K, band, chunked)
+        self.cfg, self.dense_K, self.cam_K, self.chunked = cfg, dense_K, cam_K, chunked
+        # The banded path's chunk bases are data, in a static tensor that
+        # `set_band` fills for each solve; its chunk count, B and Pc are shape.
+        self.band = None if band is None else (
+            torch.empty(len(band[0]), dtype=torch.int64, device=prob.pose6.device),
+            band[1], band[2])
         self.point_sharded = point_sharded
         self.distributed = group is not None or point_sharded
         dev = prob.pose6.device
@@ -766,12 +770,17 @@ class LMProgram(programs.Program):
     @staticmethod
     def key(prob: BAProblem, cfg: BAConfig, dense_K, cam_K, band, chunked: bool, group=None,
             point_sharded: bool = False):
-        band_key = None if band is None else (tuple(int(b) for b in band[0]), band[1], band[2])
+        band_key = None if band is None else (len(band[0]), band[1], band[2])
         return (LMProgram, programs.tensor_key(*prob), cfg, dense_K, cam_K, band_key, chunked,
                 group, point_sharded)
 
     def load(self, prob: BAProblem):
         programs.copy_into(self.prob, prob)
+
+    def set_band(self, band):
+        """The banded path's chunk bases of the next solve (band_plan's)."""
+        if band is not None:
+            self.band[0].copy_(torch.as_tensor(np.asarray(band[0], np.int64)))
 
     def start(self):
         programs.copy_into(self.plans, _solve_plans(self.prob, self.dense_K, self.cam_K,
@@ -810,12 +819,15 @@ def lm_program(prob: BAProblem, cfg: BAConfig, dense_K=None, cam_K=None, band=No
                chunked: bool = False,
                cache: Optional[programs.ProgramCache] = None, group=None,
                point_sharded: bool = False) -> LMProgram:
-    """The cache's LMProgram for this problem's shapes, path and group."""
+    """The cache's LMProgram for this problem's shapes, path and group, its
+    band's bases set to `band`'s."""
     cache = programs.PROGRAMS if cache is None else cache
-    return cache.get(LMProgram.key(prob, cfg, dense_K, cam_K, band, chunked, group,
+    prog = cache.get(LMProgram.key(prob, cfg, dense_K, cam_K, band, chunked, group,
                                    point_sharded),
                      lambda: LMProgram(prob, cfg, dense_K, cam_K, band, chunked, group,
                                        point_sharded))
+    prog.set_band(band)
+    return prog
 
 
 @full_f32

@@ -52,6 +52,7 @@ float64 solve).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple, Optional
 
@@ -68,6 +69,7 @@ from stereo_orb_slam_torch.config import PoseGraphConfig
 from stereo_orb_slam_torch.geometry import se3
 from stereo_orb_slam_torch.parallel.mesh import all_reduce, all_reduce_many
 from stereo_orb_slam_torch.utils import programs
+from stereo_orb_slam_torch.utils.profiling import TRACER
 
 
 class PoseGraphProblem(NamedTuple):
@@ -490,145 +492,158 @@ class PoseGraphOptimizer:
         live_stall_log. `ba_max_seconds` caps the non-live global BA instead;
         None = BAConfig default.
 
+        A live solve is a `pg.optimize` span, with children `pg.edges` (the
+        loop-edge batch: load, replay, readback) and `pg.solve` (the GN
+        program's replays and the readback); its deferred polish is a
+        `pg.polish` span wherever it is applied.
+
         A live closure's polish that was not collected yet (two closures in
         one batch replay) is applied before this solve, as the pending
         window BA is by `pre_optimize_hook`: the JAX package overwrites it
         there, so the first polish never runs."""
-        t_start = time.perf_counter()
-        if self.pre_optimize_hook is not None:
-            self.pre_optimize_hook()
-        if self.deferred_ba_finish is not None:
-            fin, self.deferred_ba_finish = self.deferred_ba_finish, None
-            fin()
-        world = self.world
-        n = world.num_frames
-        if n < 2:
-            return {}
+        span = TRACER.span if live else contextlib.nullcontext
+        with span("pg.optimize"):
+            t_start = time.perf_counter()
+            if self.pre_optimize_hook is not None:
+                self.pre_optimize_hook()
+            if self.deferred_ba_finish is not None:
+                fin, self.deferred_ba_finish = self.deferred_ba_finish, None
+                fin()
+            world = self.world
+            n = world.num_frames
+            if n < 2:
+                return {}
 
-        end_id = n - 1
-        # Odometry measurements for frames [1, end_id] from the stored
-        # relative poses (ref :126-172).
-        edge_a = list(range(0, end_id))
-        edge_b = list(range(1, end_id + 1))
-        meas = [world.pose_rel[i] for i in range(1, end_id + 1)]
+            end_id = n - 1
+            # Odometry measurements for frames [1, end_id] from the stored
+            # relative poses (ref :126-172).
+            edge_a = list(range(0, end_id))
+            edge_b = list(range(1, end_id + 1))
+            meas = [world.pose_rel[i] for i in range(1, end_id + 1)]
 
-        # Loop-closure edges: re-match features, RANSAC a relative transform
-        # (ref :175-217). Z satisfies T_dst^-1 T_src = Z for the edge
-        # (a=dst, b=src). All pending edges are measured in one batch when
-        # the matcher has `.batch` (apps/slam.make_loop_matcher).
-        n_loop = 0
-        n_measured = 0
-        measured_edges = []
-        t_batch = 0.0
-        edges_padded = 0
-        t_match = time.perf_counter()
-        if (live and self.cfg.live_max_edges > 0
-                and len(self.loop_edges) > self.cfg.live_max_edges):
-            # Bound the per-closure measurement cost: keep the most recent
-            # candidates (a sustained revisit queues one near-duplicate per
-            # frame); the older ones are discarded, not deferred.
-            self.loop_edges = self.loop_edges[-self.cfg.live_max_edges:]
-        if self.loop_matcher is not None and self.loop_edges:
-            n_measured = edges_padded = len(self.loop_edges)
-            measured_edges = list(self.loop_edges)
-            t_batch = time.perf_counter()
-            if hasattr(self.loop_matcher, "batch"):
-                measured = self.loop_matcher.batch(self.loop_edges)
-                edges_padded = self.loop_matcher.last["edges_padded"]
-            else:
-                measured = [self.loop_matcher(s, d) for (s, d) in self.loop_edges]
-            t_batch = time.perf_counter() - t_batch
-            for (src, dst), (Z, ok) in zip(self.loop_edges, measured):
-                if not ok:
-                    continue
-                edge_a.append(dst)
-                edge_b.append(src)
-                meas.append(np.asarray(Z, np.float32))
-                self.committed_edges.append((src, dst))
-                n_loop += 1
-        self.loop_edges.clear()  # consumed (ref :216)
+            # Loop-closure edges: re-match features, RANSAC a relative transform
+            # (ref :175-217). Z satisfies T_dst^-1 T_src = Z for the edge
+            # (a=dst, b=src). All pending edges are measured in one batch when
+            # the matcher has `.batch` (apps/slam.make_loop_matcher).
+            n_loop = 0
+            n_measured = 0
+            measured_edges = []
+            t_batch = 0.0
+            edges_padded = 0
+            t_match = time.perf_counter()
+            if (live and self.cfg.live_max_edges > 0
+                    and len(self.loop_edges) > self.cfg.live_max_edges):
+                # Bound the per-closure measurement cost: keep the most recent
+                # candidates (a sustained revisit queues one near-duplicate per
+                # frame); the older ones are discarded, not deferred.
+                self.loop_edges = self.loop_edges[-self.cfg.live_max_edges:]
+            if self.loop_matcher is not None and self.loop_edges:
+                n_measured = edges_padded = len(self.loop_edges)
+                measured_edges = list(self.loop_edges)
+                t_batch = time.perf_counter()
+                with span("pg.edges"):
+                    if hasattr(self.loop_matcher, "batch"):
+                        measured = self.loop_matcher.batch(self.loop_edges)
+                        edges_padded = self.loop_matcher.last["edges_padded"]
+                    else:
+                        measured = [self.loop_matcher(s, d) for (s, d) in self.loop_edges]
+                t_batch = time.perf_counter() - t_batch
+                for (src, dst), (Z, ok) in zip(self.loop_edges, measured):
+                    if not ok:
+                        continue
+                    edge_a.append(dst)
+                    edge_b.append(src)
+                    meas.append(np.asarray(Z, np.float32))
+                    self.committed_edges.append((src, dst))
+                    n_loop += 1
+            self.loop_edges.clear()  # consumed (ref :216)
 
-        E = len(edge_a)
-        # Padded to the graph's bucket (the JAX optimizer's N_pad, E_pad), so
-        # that a closure reuses its bucket's program.
-        prob = bucketed_problem(world.pose_global[:n], edge_a, edge_b, np.stack(meas),
-                                self.device)
-        t_match = time.perf_counter() - t_match
+            E = len(edge_a)
+            # Padded to the graph's bucket (the JAX optimizer's N_pad, E_pad), so
+            # that a closure reuses its bucket's program.
+            prob = bucketed_problem(world.pose_global[:n], edge_a, edge_b, np.stack(meas),
+                                    self.device)
+            t_match = time.perf_counter() - t_match
 
-        # All GN iterations launched at once (the captured program on the
-        # card); one readback.
-        t_solve = time.perf_counter()
-        self.last_problem = prob
-        cache = programs.PROGRAMS
-        builds, capture_ms = cache.builds, cache.capture_ms
-        prob, c0, c_last = pg_solve_program(prob, self.cfg)
-        costs = torch.stack([c0, c_last]).cpu().numpy()
-        cost0, cost = float(costs[0]), float(costs[1])
-        new_poses = prob.poses[:n].cpu().numpy()
-        t_solve = time.perf_counter() - t_solve
-        world.set_global_poses(np.arange(n, dtype=np.int32), new_poses)
-        # Tail propagation is a no-op here (all frames optimized), kept for
-        # parity with ref :89-92 when optimizing a prefix.
-        world.propagate_tail(n)
+            # All GN iterations launched at once (the captured program on the
+            # card); one readback.
+            t_solve = time.perf_counter()
+            self.last_problem = prob
+            cache = programs.PROGRAMS
+            builds, capture_ms = cache.builds, cache.capture_ms
+            with span("pg.solve"):
+                prob, c0, c_last = pg_solve_program(prob, self.cfg)
+                costs = torch.stack([c0, c_last]).cpu().numpy()
+                new_poses = prob.poses[:n].cpu().numpy()
+            cost0, cost = float(costs[0]), float(costs[1])
+            t_solve = time.perf_counter() - t_solve
+            world.set_global_poses(np.arange(n, dtype=np.int32), new_poses)
+            # Tail propagation is a no-op here (all frames optimized), kept for
+            # parity with ref :89-92 when optimizing a prefix.
+            world.propagate_tail(n)
 
-        stats = {
-            "live": live,
-            "num_vertices": n,
-            "num_edges": E,
-            "vertices_padded": int(prob.poses.shape[0]),
-            "edges_padded": int(prob.edge_a.shape[0]),
-            # The solve's GNProgram: built for a bucket met for the first
-            # time (so captured on the card), and the capture's ms.
-            "program_built": cache.builds > builds,
-            "pg_capture_ms": cache.capture_ms - capture_ms,
-            "loop_edges_measured": n_measured,
-            "loop_edges_padded": edges_padded,
-            "num_loop_edges": n_loop,
-            "loop_edges": measured_edges,   # (src, dst), measured in this order
-            "cost_initial": cost0,
-            "cost_final": cost,
-        }
+            stats = {
+                "live": live,
+                "num_vertices": n,
+                "num_edges": E,
+                "vertices_padded": int(prob.poses.shape[0]),
+                "edges_padded": int(prob.edge_a.shape[0]),
+                # The solve's GNProgram: built for a bucket met for the first
+                # time (so captured on the card), and the capture's ms.
+                "program_built": cache.builds > builds,
+                "pg_capture_ms": cache.capture_ms - capture_ms,
+                "loop_edges_measured": n_measured,
+                "loop_edges_padded": edges_padded,
+                "num_loop_edges": n_loop,
+                "loop_edges": measured_edges,   # (src, dst), measured in this order
+                "cost_initial": cost0,
+                "cost_final": cost,
+            }
 
-        # Global BA after the pose-graph solve (ref :95). Live solves are
-        # capped and window-bounded (cfg.live_ba_window_frames): the pose
-        # graph has already applied the closure correction, the BA here is
-        # polish.
-        t_ba = time.perf_counter()
-        if run_global_ba and self.ba is not None and n >= 2:
-            lo = 0
-            if live and self.cfg.live_ba_window_frames > 0:
-                lo = max(0, n - 1 - self.cfg.live_ba_window_frames)
-            if live:
-                # DEFER the polish entirely: a thunk runs at the next batch
-                # boundary (SlamSystem adopts it); nothing touches the world
-                # in between, so it sees the same state.
-                spacing = self.cfg.live_polish_min_spacing_frames
-                if (spacing > 0 and self._last_polish_frame is not None
-                        and n - self._last_polish_frame < spacing):
-                    # Back-to-back polishes over the same window are
-                    # redundant (finish() runs the full-depth solve).
-                    stats["global_ba"] = {"skipped_redundant": True}
+            # Global BA after the pose-graph solve (ref :95). Live solves are
+            # capped and window-bounded (cfg.live_ba_window_frames): the pose
+            # graph has already applied the closure correction, the BA here is
+            # polish.
+            t_ba = time.perf_counter()
+            if run_global_ba and self.ba is not None and n >= 2:
+                lo = 0
+                if live and self.cfg.live_ba_window_frames > 0:
+                    lo = max(0, n - 1 - self.cfg.live_ba_window_frames)
+                if live:
+                    # DEFER the polish entirely: a thunk runs at the next batch
+                    # boundary (SlamSystem adopts it); nothing touches the world
+                    # in between, so it sees the same state.
+                    spacing = self.cfg.live_polish_min_spacing_frames
+                    if (spacing > 0 and self._last_polish_frame is not None
+                            and n - self._last_polish_frame < spacing):
+                        # Back-to-back polishes over the same window are
+                        # redundant (finish() runs the full-depth solve).
+                        stats["global_ba"] = {"skipped_redundant": True}
+                    else:
+                        self._last_polish_frame = n
+                        cap = self.cfg.live_ba_max_seconds
+                        ba, lo_, hi_ = self.ba, lo, n - 1
+
+                        def polish():
+                            with TRACER.span("pg.polish"):
+                                return ba.optimize(lo_, hi_, max_seconds=cap)
+
+                        self.deferred_ba_finish = polish
+                        stats["global_ba"] = {"deferred": True}
                 else:
-                    self._last_polish_frame = n
-                    cap = self.cfg.live_ba_max_seconds
-                    ba, lo_, hi_ = self.ba, lo, n - 1
-                    self.deferred_ba_finish = (
-                        lambda: ba.optimize(lo_, hi_, max_seconds=cap))
-                    stats["global_ba"] = {"deferred": True}
-            else:
-                stats["global_ba"] = self.ba.optimize(lo, n - 1, max_seconds=ba_max_seconds)
-        # Phase split of the stall: edge measurement (of which the loop-edge
-        # batch) / GN solve + writeback / global BA.
-        stats["wall_split_seconds"] = {
-            "edge_measure": round(t_match, 4),
-            "loop_edge_batch": round(t_batch, 4),
-            "pg_solve_writeback": round(t_solve, 4),
-            "global_ba": round(time.perf_counter() - t_ba, 4),
-        }
-        stats["wall_seconds"] = round(time.perf_counter() - t_start, 4)
-        if live:
-            self.live_stall_log.append(stats["wall_seconds"])
-            self.live_stall_splits.append(stats["wall_split_seconds"])
-        self.last_stats = stats
-        self.history.append(stats)
-        return stats
+                    stats["global_ba"] = self.ba.optimize(lo, n - 1, max_seconds=ba_max_seconds)
+            # Phase split of the stall: edge measurement (of which the loop-edge
+            # batch) / GN solve + writeback / global BA.
+            stats["wall_split_seconds"] = {
+                "edge_measure": round(t_match, 4),
+                "loop_edge_batch": round(t_batch, 4),
+                "pg_solve_writeback": round(t_solve, 4),
+                "global_ba": round(time.perf_counter() - t_ba, 4),
+            }
+            stats["wall_seconds"] = round(time.perf_counter() - t_start, 4)
+            if live:
+                self.live_stall_log.append(stats["wall_seconds"])
+                self.live_stall_splits.append(stats["wall_split_seconds"])
+            self.last_stats = stats
+            self.history.append(stats)
+            return stats

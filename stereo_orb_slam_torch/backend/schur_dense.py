@@ -34,6 +34,8 @@ over `group` sums them before the camera blocks are added.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -229,6 +231,18 @@ def band_plan(obs_point, obs_cam, n_points_pad: int, n_obs: int, C: int,
     return best
 
 
+@functools.lru_cache(maxsize=None)
+def _band_index(C: int, B: int, device) -> torch.Tensor:
+    """The flat indices into a [6, C, 6, C] tensor of a [6, B, 6, B] band
+    at base 0; the band at base b is at these + b (6C + 1). Made once per
+    shape (in a program's eager run, before its capture), so a captured
+    assembly computes only the shift."""
+    a = torch.arange(6, device=device)
+    col = torch.arange(B, device=device)
+    return (((a[:, None, None, None] * C + col[:, None, None]) * 6 + a[:, None]) * C
+            + col).reshape(-1)
+
+
 def assemble_schur_banded(H_cc_safe, Hpp_inv, slot_cam, slot_mask, cam_mask,
                           Wg, bases, B: int, Pc: int):
     """Banded variant of assemble_schur: per point chunk, the one-hot
@@ -239,22 +253,35 @@ def assemble_schur_banded(H_cc_safe, Hpp_inv, slot_cam, slot_mask, cam_mask,
     its chunk's band); padding slots have Wg == 0 so their out-of-band
     local index contributes nothing either way.
 
-    `bases` are host integers (band_plan's, already clamped to C - B), so
-    each band is a plain slice: no device read and no clamping here.
+    `bases` (band_plan's, already clamped to C - B, so no clamping here)
+    are host integers, and each band is a plain slice; or a [G] integer
+    tensor on the device, as a captured program holds them (LMProgram: one
+    program serves every plan of its G, B and Pc). Then each band is added
+    by one `index_add_` into S's flat view, at its entries' linear indices
+    (`_band_index`'s, shifted by base * (6C + 1)). No index repeats within
+    a chunk, so the sums are those of the slices.
     """
     C = H_cc_safe.shape[0]
     P, K = slot_cam.shape
-    bases = np.asarray(bases)
+    dev = H_cc_safe.device
     G = (P + Pc - 1) // Pc
     if G != len(bases):
         raise ValueError(f"band plan has {len(bases)} chunks, the problem {G}")
     Wg = Wg.reshape(P, K, 6, 3)
     Wg, slot_cam, Hpp_inv = _pad_points(Wg, slot_cam, Hpp_inv, Pc)
-    S_sub = torch.zeros((6, C, 6, C), dtype=torch.float32, device=H_cc_safe.device)
-    for g, base in enumerate(bases.tolist()):
-        lo, hi = g * Pc, (g + 1) * Pc
-        band = _chunk_product(slot_cam[lo:hi] - base, Wg[lo:hi], Hpp_inv[lo:hi], B)
-        S_sub[:, base:base + B, :, base:base + B] += band
+    S_sub = torch.zeros((6, C, 6, C), dtype=torch.float32, device=dev)
+    if isinstance(bases, torch.Tensor):
+        lin = _band_index(C, B, dev) + bases[:, None] * (6 * C + 1)
+        flat = S_sub.view(-1)
+        for g in range(G):
+            lo, hi = g * Pc, (g + 1) * Pc
+            band = _chunk_product(slot_cam[lo:hi] - bases[g], Wg[lo:hi], Hpp_inv[lo:hi], B)
+            flat.index_add_(0, lin[g], band.reshape(-1))
+    else:
+        for g, base in enumerate(np.asarray(bases).tolist()):
+            lo, hi = g * Pc, (g + 1) * Pc
+            band = _chunk_product(slot_cam[lo:hi] - base, Wg[lo:hi], Hpp_inv[lo:hi], B)
+            S_sub[:, base:base + B, :, base:base + B] += band
     return _finish_schur(S_sub, H_cc_safe, cam_mask)
 
 

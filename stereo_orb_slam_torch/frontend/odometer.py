@@ -48,6 +48,8 @@ frame's slots (descriptors included) are the device carry, so a switch to
 from __future__ import annotations
 
 import functools
+import gc
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -272,6 +274,50 @@ def empty_banks(capacity: int, n: int, device="cuda"):
     return (torch.zeros((capacity + 1, n, 8), dtype=torch.int32, device=device),
             torch.zeros((capacity + 1, n), dtype=torch.bool, device=device),
             torch.zeros((capacity + 1, n, 4), dtype=torch.float32, device=device))
+
+
+class Rings(programs.Program):
+    """A set of feature-bank rings (`empty_banks`) that the program cache
+    owns, as a program owns its static tensors: the fused front end is
+    captured on the rings it writes, so every live loop of one capacity,
+    feature count and device that writes the same set replays the programs
+    captured on it. `holder` (a weak reference) is the live loop writing
+    them; a set whose holder is gone is free."""
+
+    def __init__(self, capacity: int, n: int, device):
+        super().__init__(device)
+        self.banks = empty_banks(capacity, n, device)
+        self.holder = None
+
+    def held(self) -> bool:
+        return self.holder is not None and self.holder() is not None
+
+
+def take_rings(capacity: int, n: int, device, holder, cache=None):
+    """Rings for `holder` to write (`empty_banks`' tensors): a set of this
+    capacity, feature count and device in the program cache that no live
+    holder writes, else a new one. When every set is held, holders that
+    only a reference cycle keeps are collected first. A taken set keeps the
+    rows of its last holder: rows past the frames recorded so far are never
+    read."""
+    cache = programs.PROGRAMS if cache is None else cache
+    dev = torch.device(device)
+
+    def free_slot():
+        slot = 0
+        while (Rings, capacity, n, dev, slot) in cache:
+            if not cache.get((Rings, capacity, n, dev, slot), None).held():
+                return slot, True
+            slot += 1
+        return slot, False
+
+    slot, free = free_slot()
+    if not free and slot:
+        gc.collect()
+        slot, free = free_slot()
+    rings = cache.get((Rings, capacity, n, dev, slot), lambda: Rings(capacity, n, dev))
+    rings.holder = weakref.ref(holder)
+    return rings.banks
 
 
 def frontend_chain_bow(imgs_l, imgs_r, prev: FrameSlots, prev_initialized, samplers,

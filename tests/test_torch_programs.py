@@ -234,6 +234,70 @@ def test_lm_program_is_found_again_for_a_new_problem_of_its_shape(cache, ba_case
     assert (cache.builds, cache.hits) == (1, 1)
 
 
+def test_lm_program_serves_every_band_plan_of_its_shape(device, cache, ba_case):
+    """A banded solve's chunk bases are data: another plan of the same
+    chunk count, width and chunk size (here each chunk's band moved as far
+    down as its last camera allows) reuses the program, and each solve
+    equals the eager one with its own plan."""
+    prob, K, (bases, B, Pc) = ba_case
+    prob = prob.to(device)
+    cam, pt = prob.obs_cam.cpu().numpy(), prob.obs_point.cpu().numpy()
+    last = np.zeros(len(bases), np.int64)
+    np.maximum.at(last, pt // Pc, cam)
+    lowered = np.maximum(last - B + 1, 0).astype(np.int32)
+    assert not np.array_equal(lowered, bases)
+    cfg = BAConfig()
+    for plan in (bases, lowered):
+        kw = dict(dense_K=K, band_bases=plan, band_B=B, band_Pc=Pc)
+        assert _equal(ba.ba_solve_program(prob, 3, cfg, cache=cache, **kw),
+                      ba.ba_solve(prob, 3, cfg, **kw))
+    assert (cache.builds, cache.hits) == (1, 1)
+
+
+
+def test_banded_schur_adds_device_bases_as_slices():
+    """The captured path's chunk bases (a device tensor: one index_add_ a
+    chunk) give the Schur complement bit for bit as the eager path's host
+    bases (slices), overlapping bands included."""
+    from stereo_orb_slam_torch.backend import schur_dense
+
+    prob, (_sto, scam, smask), (bases, B, Pc) = banded_problem(np.random.default_rng(1), C=32,
+                                                               P=1024)
+    assert len(set(bases.tolist())) < len(bases) and bases.max() > 0
+    gen = torch.Generator().manual_seed(1)
+    C, (P, K) = 32, scam.shape
+    H = torch.randn((C, 6, 6), generator=gen)
+    Hpp_inv = torch.randn((P, 3, 3), generator=gen)
+    Wg = torch.randn((P, K, 6, 3), generator=gen) * smask[..., None, None]
+    args = (H @ H.transpose(1, 2), Hpp_inv, scam, smask, prob.cam_mask, Wg)
+    host = schur_dense.assemble_schur_banded(*args, bases, B, Pc)
+    dev = schur_dense.assemble_schur_banded(*args, torch.as_tensor(bases, dtype=torch.int64),
+                                            B, Pc)
+    assert _equal(dev, host)
+
+
+def test_rings_are_handed_to_one_live_holder_at_a_time(cache):
+    """The live loop's feature rings belong to the program cache: a holder
+    takes a set no live holder writes, and a dropped holder's set goes to
+    the next one (so its captured front end replays); another capacity or
+    feature count is another set."""
+    class Holder:
+        pass
+
+    a, b = Holder(), Holder()
+    rings_a = odo.take_rings(8, 4, "cpu", a, cache)
+    assert [r.shape for r in rings_a] == [(9, 4, 8), (9, 4), (9, 4, 4)]
+    rings_b = odo.take_rings(8, 4, "cpu", b, cache)
+    assert rings_b[0] is not rings_a[0]
+    del a
+    rings_c = odo.take_rings(8, 4, "cpu", Holder(), cache)
+    assert all(x is y for x, y in zip(rings_c, rings_a))
+    assert cache.builds == 2
+    other = (odo.take_rings(16, 4, "cpu", b, cache), odo.take_rings(8, 2, "cpu", b, cache))
+    assert all(o[0] is not r for o in other for r in (rings_a[0], rings_b[0]))
+    assert cache.builds == 4
+
+
 # -- the front end, rectified and general ----------------------------------
 
 def _rig(scene, device):

@@ -14,6 +14,12 @@ and the spans the program opens.
   poses and world map, bit for bit, with tracing on and off, and its
   children (`vo.upload`, `vo.launch`, `vo.readback`, `vo.map`) cover each
   `vo.track`; the batch path (`track_batch`) opens no span.
+- `SlamSystem.process_batch` over a tiny canyon drive that closes a loop
+  live: one `slam.batch` root a call, its frame id the batch's first frame;
+  the stages' spans under it (or in the flush after the last batch); a
+  closure's `pg.optimize` under the batch's `loop.query`, with `pg.edges`
+  and `pg.solve` its children, and `pg.polish` where the polish is applied.
+  With the tracer off, no span, and the same poses.
 
 This file imports neither JAX nor the JAX package.
 """
@@ -303,3 +309,77 @@ def test_the_batch_path_opens_no_span(monkeypatch, scene_frames):
     poses = vo.track_batch(np.stack([l for l, _ in frames]), np.stack([r for _, r in frames]))
     assert len(poses) == FRAMES
     assert tracer.spans() == []
+
+
+# -- the SLAM live loop -------------------------------------------------------
+
+STAGES = ("vo.dispatch", "vo.collect", "ba.window", "ba.finish", "loop.query")
+
+
+@pytest.fixture(scope="module")
+def shuttle():
+    """The SLAM cell's tiny drive (tests/test_portbench_slam.py): 160 canyon
+    frames whose revisit ends inside a batch, so a loop closes live."""
+    from portbench.entries import slam as entry
+    from test_portbench_slam import tiny_cell
+
+    cell, cfg = tiny_cell()
+    pairs, _ = entry.render(cfg, cell["traffic"], 7, "cpu")
+    return pairs, entry._rig(cfg, "cpu"), entry.slam_config(cfg)
+
+
+def _slam_drive(shuttle, on: bool):
+    """The drive through `SlamSystem.process_batch`, 32 frames a call, then
+    `flush`, with the process's tracer on or off; (system, spans)."""
+    from stereo_orb_slam_torch.apps.slam import SlamSystem
+
+    pairs, rig, cfg = shuttle
+    tracer, k = profiling.TRACER, cfg.batch_frames
+    tracer.reset()
+    tracer.enable(on)
+    try:
+        system = SlamSystem(rig, cfg, seed=7)
+        for lo in range(0, len(pairs), k):
+            batch = torch.from_numpy(pairs[lo:lo + k])
+            system.process_batch(batch[:, 0], batch[:, 1])
+        system.flush()
+    finally:
+        tracer.enable(False)
+    spans = tracer.spans()
+    tracer.reset()
+    return system, spans
+
+
+def test_slam_spans_nest_under_the_batch_and_the_closure(shuttle):
+    off, none = _slam_drive(shuttle, False)
+    assert none == []
+    assert off.pgo.live_stall_log, "the drive closed no loop live"
+    system, spans = _slam_drive(shuttle, True)
+    assert np.array_equal(system.world.pose_global, off.world.pose_global)
+
+    def ancestors(i):
+        while spans[i].parent >= 0:
+            i = spans[i].parent
+            yield i
+
+    batches = [i for i, s in enumerate(spans) if s.name == "slam.batch"]
+    assert [spans[i].frame for i in batches] == [0, 32, 64, 96, 128]
+    assert all(spans[i].parent == -1 for i in batches)
+    flush_start = spans[batches[-1]].end_ns
+    for i, s in enumerate(spans):
+        root = ([i] + list(ancestors(i)))[-1]
+        assert s.frame == spans[root].frame
+        if s.name in STAGES:
+            # Under the batch's root, or in the flush after the last batch.
+            assert spans[root].name == "slam.batch" or (s.parent == -1
+                                                        and s.start_ns >= flush_start)
+    closures = [i for i, s in enumerate(spans) if s.name == "pg.optimize"]
+    assert len(closures) == len(system.pgo.live_stall_log) >= 1
+    for i in closures:
+        up = [spans[a].name for a in ancestors(i)]
+        assert up[0] == "loop.query" and up[-1] == "slam.batch"
+        assert [s.name for s in spans if s.parent == i and s.name.startswith("pg.")] == [
+            "pg.edges", "pg.solve"]
+    polish = [i for i, s in enumerate(spans) if s.name == "pg.polish"]
+    assert polish and all(spans[spans[i].parent].name in ("ba.finish", "pg.optimize")
+                          for i in polish)
