@@ -519,10 +519,21 @@ class SlamSystem:
         Per call: (1) apply the in-flight BA writeback (K > 1), (2) launch
         this batch's chain (K frame steps + BoW scoring and database append,
         with the tracker state, the database and the feature rings threading
-        on the device), then (3) collect the previous batch: readback, map
-        bookkeeping and Bayes filter on the host, and launch its windowed BA
-        without waiting for it. The host replays everything in dispatch
-        order, so the world and the filter are those of the unpipelined run.
+        on the device) and its readback, then (3) collect the previous
+        batch: readback, map bookkeeping and Bayes filter on the host, and
+        launch its windowed BA without waiting for it. The host replays
+        everything in dispatch order, so the world and the filter are those
+        of the unpipelined run.
+
+        The previous batch was read back right after its own chain (its
+        copy was launched in the previous call, behind that chain alone), so
+        (3) runs on the host while the device runs this batch's chain:
+        between the dispatch in (2) and the BA launch in (3) nothing waits
+        on the stream (the BA's build uploads through pinned memory without
+        blocking), and the BA queues behind the chain. Only a closure's
+        pose-graph solve, inside the Bayes filter's replay, reads the device
+        there. `vo.readback_stats` counts the collects whose readback had
+        arrived when they began.
 
         Returns the transforms of the PREVIOUS batch ([] on the first call);
         flush()/finish() drain the last one.
@@ -603,7 +614,11 @@ class SlamSystem:
 
     def _collect_pending_batch(self) -> list:
         """Collect the in-flight batch: readback, map update, BA launch,
-        Bayes-filter replay, pose chaining."""
+        Bayes-filter replay, pose chaining. Called from process_batch at
+        K > 1, it syncs nothing unless the batch closes a loop or trains
+        the vocabulary: the readback waits on its own event, and the BA is
+        built and launched without a host read. (A drain, `flush`, first
+        finishes the BA in flight, which reads the device.)"""
         if self._pending_batch is None:
             return []
         handle, self._pending_batch = self._pending_batch, None

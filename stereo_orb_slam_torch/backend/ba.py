@@ -727,6 +727,20 @@ def _solve_plans(prob: BAProblem, dense_K, cam_K, chunked: bool, distributed: bo
         prob.obs_cam, prob.obs_weight, prob.pose6.shape[0], cam_K))
 
 
+def upload(a: np.ndarray, device, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`torch.as_tensor(a, device=device)` (into `out` when given) with no
+    stream sync: on the card the array is staged in pinned memory
+    (PyTorch's caching host allocator, which keeps the block until the copy
+    has run) and copied without blocking, so a solve's build queues behind
+    the device's work instead of waiting for it. The same bytes arrive."""
+    host = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        host = host.pin_memory()
+    if out is not None:
+        return out.copy_(host, non_blocking=True)
+    return host.to(device, non_blocking=True)
+
+
 class LMProgram(programs.Program):
     """The LM solve (`lm_init`, then `_lm_loop`'s masked iterations) as a
     captured program for one padded problem shape and path: the problem,
@@ -780,7 +794,7 @@ class LMProgram(programs.Program):
     def set_band(self, band):
         """The banded path's chunk bases of the next solve (band_plan's)."""
         if band is not None:
-            self.band[0].copy_(torch.as_tensor(np.asarray(band[0], np.int64)))
+            upload(np.asarray(band[0], np.int64), self.device, out=self.band[0])
 
     def start(self):
         programs.copy_into(self.plans, _solve_plans(self.prob, self.dense_K, self.cam_K,
@@ -1053,9 +1067,8 @@ class BundleAdjuster:
         point_mask = np.zeros(P_pad, np.float32)
         point_mask[:P_real] = 1.0
 
-        dev = self.device
         prob = BAProblem(
-            *(torch.as_tensor(a, device=dev) for a in (
+            *(upload(a, self.device) for a in (
                 pose6, points, obs_cam, obs_point, obs_uv, obs_w, cam_mask, point_mask)),
             P_l=self.P_l, P_r=self.P_r,
         )

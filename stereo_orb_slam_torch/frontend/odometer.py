@@ -38,9 +38,11 @@ drawn outside the graph (`ransac.KeyedSampler`).
 
 The live loop (apps/slam.py) runs K-frame batches as a two-deep pipeline:
 `dispatch_batch` launches a batch's chain (with the BoW scoring and the
-feature-bank rings of `frontend_chain_bow` once a vocabulary exists) while
-the tracker state threads on the device, and `collect_batch` reads it back
-and replays the host bookkeeping. After a collected batch the previous
+feature-bank rings of `frontend_chain_bow` once a vocabulary exists) and,
+right behind it, the copy of its results to pinned host memory, while the
+tracker state threads on the device; `collect_batch` waits for that copy
+alone and replays the host bookkeeping, while the device runs what was
+launched after it. After a collected batch the previous
 frame's slots (descriptors included) are the device carry, so a switch to
 `track` finds them even when the host mirror kept no descriptors.
 """
@@ -589,30 +591,87 @@ def frontend_chain_bow_program(imgs_l, imgs_r, prev: FrameSlots, prev_initialize
             prog.top_scores.clone(), prog.database.clone(), prog.db_size.clone(), banks)
 
 
+def _step_fields(res: StepResult, with_desc: bool) -> list:
+    """A StepResult's tensors in field order, the descriptors left out when
+    `with_desc` is False."""
+    return [t for name, t in zip(FrameSlots._fields, res.slots)
+            if name != "desc" or with_desc] + list(res[1:])
+
+
+def _packed(tensors: list):
+    """The tensors' bytes in one uint8 tensor on their device, widest
+    elements first, so every field starts aligned; and the order."""
+    order = sorted(range(len(tensors)), key=lambda i: -tensors[i].element_size())
+    return torch.cat([tensors[i].reshape(-1).view(torch.uint8) for i in order]), order
+
+
+def _unpacked(buf: np.ndarray, tensors: list, order: list) -> list:
+    """NumPy views into `buf` (as `_packed` laid it out) shaped and typed as
+    `tensors`, in their order."""
+    out, off = [None] * len(tensors), 0
+    for i in order:
+        t = tensors[i]
+        nbytes = t.numel() * t.element_size()
+        dtype = np.dtype(str(t.dtype).replace("torch.", ""))
+        out[i] = buf[off:off + nbytes].view(dtype).reshape(tuple(t.shape))
+        off += nbytes
+    return out
+
+
+def _host_result(arrays: list, res: StepResult, with_desc: bool) -> StepResult:
+    """A StepResult of the host arrays of `_step_fields(res, with_desc)`:
+    descriptor words as uint32, or desc None without them."""
+    n_slots = len(arrays) - (len(res) - 1)
+    slots = arrays[:n_slots]
+    if with_desc:
+        slots[2] = slots[2].view(np.uint32)
+    else:
+        slots.insert(2, None)
+    return StepResult(FrameSlots(*slots), *arrays[n_slots:])
+
+
 def _to_host(res: StepResult, with_desc: bool = True) -> StepResult:
     """NumPy copy of a (possibly stacked or batched) StepResult in one
     device-to-host copy: the fields' bytes are packed into one buffer,
     widest elements first, so every field starts aligned. Descriptor
     words come back as uint32, or not at all (desc None) when `with_desc` is
     False."""
-    fields = [t for name, t in zip(FrameSlots._fields, res.slots)
-              if name != "desc" or with_desc] + list(res[1:])
-    order = sorted(range(len(fields)), key=lambda i: -fields[i].element_size())
-    buf = torch.cat([fields[i].reshape(-1).view(torch.uint8) for i in order]).cpu().numpy()
-    out, off = [None] * len(fields), 0
-    for i in order:
-        t = fields[i]
-        nbytes = t.numel() * t.element_size()
-        dtype = np.dtype(str(t.dtype).replace("torch.", ""))
-        out[i] = buf[off:off + nbytes].view(dtype).reshape(tuple(t.shape))
-        off += nbytes
-    n_slots = len(fields) - (len(res) - 1)
-    slots = out[:n_slots]
-    if with_desc:
-        slots[2] = slots[2].view(np.uint32)
-    else:
-        slots.insert(2, None)
-    return StepResult(FrameSlots(*slots), *out[n_slots:])
+    fields = _step_fields(res, with_desc)
+    packed, order = _packed(fields)
+    return _host_result(_unpacked(packed.cpu().numpy(), fields, order), res, with_desc)
+
+
+class Readback:
+    """Device tensors on their way to the host in one copy, started when
+    made: their bytes packed as `_to_host` packs them, then, on the card,
+    copied without blocking into pinned host memory (PyTorch's caching host
+    allocator) on the current stream, with an event recorded behind the
+    copy. Launched right after the work that makes the tensors, the copy
+    is ordered behind that work alone, not behind what the stream takes
+    after it. Off the card the bytes are packed at once.
+
+    `ready()` says whether the bytes have arrived; `arrays()` waits on the
+    event alone (no stream sync) and returns NumPy views, one a tensor."""
+
+    def __init__(self, tensors: list):
+        self.tensors = tensors
+        packed, self.order = _packed(tensors)
+        self.event = None
+        if packed.is_cuda:
+            self.buf = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+            self.buf.copy_(packed, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.buf = packed
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def arrays(self) -> list:
+        if self.event is not None:
+            self.event.synchronize()
+        return _unpacked(self.buf.numpy(), self.tensors, self.order)
 
 
 def _frame_seed(seed: int, frame: int) -> int:
@@ -674,6 +733,9 @@ class VisualOdometer:
         self._carry_dev = None
         # (desc, uv4, point_ids, valid) of the latest recorded frame.
         self._current_features = None
+        # Batch collects whose readback had arrived when they began, and
+        # those that waited for it (collect_batch).
+        self.readback_stats = {"ready": 0, "waited": 0}
 
     def _gumbel_for_frame(self, frame: int) -> ransac.Sampler:
         gen = torch.Generator(device=self.device)
@@ -721,11 +783,17 @@ class VisualOdometer:
         return self.collect_batch(self.dispatch_batch(imgs_l, imgs_r, bow))
 
     def dispatch_batch(self, imgs_l, imgs_r, bow=None, banks=None) -> dict:
-        """Launch the K-frame chain; returns a handle for collect_batch. Does
-        not wait for the device: the tracker state threads on the device, so
-        the next batch can be launched before this one is collected (the
-        live loop's two-deep pipeline). Handles are collected in dispatch
-        order.
+        """Launch the K-frame chain and its readback; returns a handle for
+        collect_batch. Does not wait for the device: the tracker state
+        threads on the device, so the next batch can be launched before this
+        one is collected (the live loop's two-deep pipeline). Handles are
+        collected in dispatch order.
+
+        Right behind the chain (and the scoring body, with `bow`) the batch's
+        results start for the host in one packed copy (`Readback`: on the
+        card into pinned memory, an event behind it), so the batch is read
+        back right after its own chain, whatever the stream takes after it:
+        the next batch's chain, the window BA.
 
         `bow` = (centroids, idf, database, db_size, query_size) adds the
         frames' BoW scoring and database append (frontend_chain_bow), with
@@ -742,6 +810,7 @@ class VisualOdometer:
         # samplers, see `keyed`).
         captured = keyed(samplers)
         handle = {"k": k, "bow": None, "banks": None}
+        topk = []
         if bow is None:
             if captured:
                 carry, stacked = frontend_chain_program(*args, self.steer)
@@ -760,24 +829,34 @@ class VisualOdometer:
             carry, stacked, top_ids, top_scores, new_db, new_db_size, banks = out
             handle["bow"] = (new_db, new_db_size, query_size)
             handle["banks"] = banks
-            handle["topk"] = (top_ids, top_scores)
+            topk = [top_ids, top_scores]
         self._carry_dev = carry
         handle["carry"] = carry
         handle["stacked"] = stacked
+        # With the rings the descriptors stay on the device.
+        handle["readback"] = Readback(_step_fields(stacked, bow is None) + topk)
         return handle
 
     def collect_batch(self, handle: dict) -> list:
         """Read a dispatch_batch handle's results back and replay the host
-        bookkeeping (map update, swap/record mirrors, loop top-k). On the
-        fused-BoW path the descriptors stay on the device (in the rings) and
-        the world's host descriptor mirror is marked stale."""
+        bookkeeping (map update, swap/record mirrors, loop top-k). The read
+        waits on the handle's readback alone, which dispatch_batch ordered
+        right behind the batch's own chain, so it never waits for work
+        launched after it; `readback_stats` counts whether the bytes had
+        arrived when the collect began ("ready") or it had to wait
+        ("waited"; off the card nothing waits). On the fused-BoW path the
+        descriptors stay on the device (in the rings) and the world's host
+        descriptor mirror is marked stale."""
         with_bow = handle["bow"] is not None
+        readback = handle["readback"]
+        self.readback_stats["ready" if readback.ready() else "waited"] += 1
+        arrays = readback.arrays()
         if with_bow:
             self.last_new_database = handle["bow"][0]
             self.last_banks = handle["banks"]
-            self.last_topk_ids = handle["topk"][0].cpu().numpy()
-            self.last_topk_scores = handle["topk"][1].cpu().numpy()
-        batch = _to_host(handle["stacked"], with_desc=not with_bow)
+            self.last_topk_ids, self.last_topk_scores = arrays[-2:]
+            arrays = arrays[:-2]
+        batch = _host_result(arrays, handle["stacked"], not with_bow)
         self.last_batch = batch
         out = self._ingest_batch(batch, handle["k"])
         # The device carry after this batch is the state the host replay
