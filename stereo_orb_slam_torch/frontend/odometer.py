@@ -42,7 +42,9 @@ feature-bank rings of `frontend_chain_bow` once a vocabulary exists) and,
 right behind it, the copy of its results to pinned host memory, while the
 tracker state threads on the device; `collect_batch` waits for that copy
 alone and replays the host bookkeeping, while the device runs what was
-launched after it. After a collected batch the previous
+launched after it. The host replay is one per frame (`_record`, what
+`track` runs), so a K-frame batch writes the map as K `track` calls do, a
+frame at a time. After a collected batch the previous
 frame's slots (descriptors included) are the device carry, so a switch to
 `track` finds them even when the host mirror kept no descriptors.
 """
@@ -386,10 +388,11 @@ def _leaves(res: StepResult):
 
 
 def _select(res, index):
-    """A StepResult or FrameSlots with `index` applied to every field's
-    leading dims."""
+    """A StepResult or FrameSlots (tensors or NumPy arrays) with `index`
+    applied to every field's leading dims; a None field (host descriptors
+    left on the device) stays None."""
     if isinstance(res, FrameSlots):
-        return FrameSlots(*(x[index] for x in res))
+        return FrameSlots(*(None if x is None else x[index] for x in res))
     return StepResult(_select(res.slots, index), *(x[index] for x in res[1:]))
 
 
@@ -778,8 +781,9 @@ class VisualOdometer:
     def track_batch(self, imgs_l, imgs_r, bow=None) -> list:
         """Process K stereo pairs: the K frame steps run back to back on the
         device with the swap/record state kept there, then one readback,
-        then the host replays the map bookkeeping of K `track` calls. With
-        `bow` (see dispatch_batch) the K frames' BoW scoring runs with them."""
+        then the host runs `track`'s own replay (`_record`) on each of the
+        K frames in turn. With `bow` (see dispatch_batch) the K frames' BoW
+        scoring runs with them."""
         return self.collect_batch(self.dispatch_batch(imgs_l, imgs_r, bow))
 
     def dispatch_batch(self, imgs_l, imgs_r, bow=None, banks=None) -> dict:
@@ -839,7 +843,8 @@ class VisualOdometer:
 
     def collect_batch(self, handle: dict) -> list:
         """Read a dispatch_batch handle's results back and replay the host
-        bookkeeping (map update, swap/record mirrors, loop top-k). The read
+        bookkeeping: `_record` on each frame's row in turn, as `track` runs
+        it (map update, swap/record mirrors), then the loop top-k. The read
         waits on the handle's readback alone, which dispatch_batch ordered
         right behind the batch's own chain, so it never waits for work
         launched after it; `readback_stats` counts whether the bytes had
@@ -858,7 +863,10 @@ class VisualOdometer:
             arrays = arrays[:-2]
         batch = _host_result(arrays, handle["stacked"], not with_bow)
         self.last_batch = batch
-        out = self._ingest_batch(batch, handle["k"])
+        out, self.last_batch_recorded = [], []
+        for j in range(handle["k"]):
+            out.append(self._record(_select(batch, j)))
+            self.last_batch_recorded.append(self.frame_recorded)
         # The device carry after this batch is the state the host replay
         # reached (the same swap rule), and it keeps the descriptors.
         self.prev = handle["carry"][0]
@@ -872,171 +880,51 @@ class VisualOdometer:
         return self._current_features
 
     def _host_points(self, slots: FrameSlots) -> np.ndarray:
-        """Camera-frame points of host slots ([..., N] leading dims)."""
+        """Camera-frame points of one frame's host slots."""
         if not self.rectified:
             return slots.pts
         pts = cam_mod.triangulate_rectified_np(*self._tri_np, slots.kp_l, slots.kp_r)
         pts[~slots.valid] = 0.0
         return pts
 
-    def _ingest_batch(self, b: StepResult, k: int) -> list:
-        """Replay of K sequential `_ingest` calls on host results with a
-        leading K axis: the scalar state machine runs per frame, the slot
-        work as NumPy batch operations. World state is bitwise that of the
-        per-frame path."""
-        fe = self.fe
-        world = self.world
-        n = fe.num_features
-        valid_b = b.slots.valid
-        tracked_b = b.tracked
-        prev_idx_b = b.prev_idx
-        pts_b = self._host_points(b.slots)
-        desc_b = b.slots.desc
-        uv4_b = np.concatenate([b.slots.kp_l, b.slots.kp_r], axis=2).astype(np.float32)
-
-        recorded = b.num_stereo >= fe.min_stereo_matches
-        # Pass 1: the scalar state machine and the output transforms.
-        out, rec_flags, succ_all, rec_info, rels = [], [], [], [], []
-        init = self.initialized
-        for j in range(k):
-            if not recorded[j]:
-                out.append(np.eye(4, dtype=np.float32))
-                rec_flags.append(False)
-                succ_all.append(False)
-                init = True
-                continue
-            first = not init
-            succ = True if first else bool(b.ransac_success[j])
-            trans = np.eye(4, dtype=np.float32) if first else b.transform[j]
-            out.append(trans)
-            rec_flags.append(True)
-            succ_all.append(succ)
-            rec_info.append((j, first, succ))
-            rels.append(trans)
-            init = True
-        self.initialized = init
-        self.last_batch_recorded = rec_flags
-        self.frame_recorded = rec_flags[-1]
-        self.success = succ_all[-1]
-        if not rec_info:
-            return out
-
-        fids = world.add_frames(np.stack(rels))
-        Gs = world.pose_global[fids]
-
-        # Pass 2: landmark ids per recorded frame; sequential only through
-        # the chain of previous-frame ids.
-        prev_gids = self.prev_global_idx
-        base = world.num_points
-        gids_rows, newmask_rows, pw_chunks, ff_chunks = [], [], [], []
-        for r, (j, first, succ) in enumerate(rec_info):
-            valid = valid_b[j]
-            tracked = (np.zeros_like(valid) if first or not succ
-                       else tracked_b[j] & valid)
-            gids = np.full(n, -1, np.int64)
-            if tracked.any():
-                inherited = prev_gids[prev_idx_b[j][tracked]]
-                ok = inherited >= 0
-                t_idx = np.where(tracked)[0]
-                gids[t_idx[ok]] = inherited[ok]
-                tracked = np.zeros_like(tracked)
-                tracked[t_idx[ok]] = True
-            new_mask = valid & ~tracked
-            n_new = int(np.count_nonzero(new_mask))
-            if n_new:
-                pl = pts_b[j][new_mask]
-                ph = np.concatenate([pl, np.ones((len(pl), 1), np.float32)], 1)
-                pw_chunks.append((Gs[r] @ ph.T).T[:, :3])
-                ff_chunks.append(np.full(n_new, fids[r], np.int32))
-                gids[new_mask] = np.arange(base, base + n_new, dtype=np.int64)
-                base += n_new
-            gids_rows.append(gids)
-            newmask_rows.append(new_mask)
-            if first or succ:
-                prev_gids = gids
-        self.prev_global_idx = prev_gids
-
-        # Pass 3: bulk world writes.
-        if pw_chunks:
-            world.add_points_multi(np.concatenate(pw_chunks), np.concatenate(ff_chunks))
-        jsel = [j for j, _, _ in rec_info]
-        gids_mat = np.stack(gids_rows)
-        newmask_mat = np.stack(newmask_rows)
-        obs_mask_mat = valid_b[jsel] & (gids_mat >= 0)
-        uv4_mat = uv4_b[jsel]
-        world.add_observations_multi(
-            np.repeat(fids, obs_mask_mat.sum(axis=1)),
-            gids_mat[obs_mask_mat].astype(np.int32),
-            uv4_mat[obs_mask_mat],
-        )
-        # New points net one observation: created at 1, bumped by their own
-        # creation observation, compensated here as in the per-frame path.
-        world.point_obs_count[gids_mat[newmask_mat].astype(np.int64)] -= 1
-        world.set_frame_features_batch(
-            int(fids[0]), desc_b[jsel] if desc_b is not None else None, uv4_mat,
-            gids_mat.astype(np.int32), obs_mask_mat,
-        )
-        j_last = rec_info[-1][0]
-        self._current_features = (
-            desc_b[j_last] if desc_b is not None else None,
-            uv4_mat[-1], gids_mat[-1].astype(np.int32), obs_mask_mat[-1],
-        )
-        return out
-
-    def _ingest(self, res: StepResult, host: Optional[StepResult] = None) -> np.ndarray:
-        """Host bookkeeping for one device StepResult; `host` is its NumPy
-        copy when the caller has read it back already (the multi-sequence
-        step reads all its sequences at once)."""
+    def _ingest(self, res: StepResult, host: StepResult) -> np.ndarray:
+        """One device StepResult and its NumPy copy `host`: the host replay
+        (`_record`), then the previous-frame swap on the device slots."""
         self.last_result = res
-        if host is None:
-            host = _to_host(res)
+        trans = self._record(host)
+        if self.success:  # recorded, and the first frame or RANSAC held
+            self.prev = res.slots
+        return trans
+
+    def _record(self, host: StepResult) -> np.ndarray:
+        """One frame's host bookkeeping on its NumPy results, mirroring
+        Update() (ref :105-221, :335-444): the record / first / RANSAC
+        state machine, the map update and the landmark-id carry. Touches no
+        device tensor; returns the frame's relative transform."""
         if int(host.num_stereo) < self.fe.min_stereo_matches:
             # Reference early return: the frame is not recorded (:117-121).
             self.success = False
             self.frame_recorded = False
             self.initialized = True
             return np.eye(4, dtype=np.float32)
-        self.frame_recorded = True
+        first = not self.initialized
+        self.frame_recorded = self.initialized = True
+        self.success = first or bool(host.ransac_success)
+        trans = np.eye(4, dtype=np.float32) if first else host.transform
 
-        if not self.initialized:
-            trans = np.eye(4, dtype=np.float32)
-            self.success = True
-            self._update_map(trans, host, first=True)
-            self._swap(res)
-            self.initialized = True
-            return trans
-
-        self.success = bool(host.ransac_success)
-        trans = host.transform
-        self._update_map(trans, host, first=False)
-        if self.success:
-            self._swap(res)
-        # else: keep the previous frame (ref :214-217)
-        return trans
-
-    def _swap(self, res: StepResult):
-        self.prev = res.slots
-        self.prev_global_idx = self._curr_global_idx
-
-    def _update_map(self, trans: np.ndarray, res: StepResult, first: bool):
-        """Map bookkeeping on host results, mirroring Update() (ref :335-444)."""
         world = self.world
-        slots = res.slots
+        slots = host.slots
         valid = slots.valid
-        pts_local = self._host_points(slots)
-
         fid = world.add_frame(trans)
-        G = world.pose_global[fid]
-
         gids = np.full(len(valid), -1, np.int64)
         # New landmarks: valid slots not tracked (every slot on the first
         # frame or after a failed RANSAC).
         new_mask = valid.copy()
         if not first and self.success:
             # Tracked slots inherit the matched prev slot's landmark id.
-            t_idx = np.flatnonzero(res.tracked & valid)
+            t_idx = np.flatnonzero(host.tracked & valid)
             if len(t_idx):
-                inherited = self.prev_global_idx[res.prev_idx[t_idx]]
+                inherited = self.prev_global_idx[host.prev_idx[t_idx]]
                 ok = inherited >= 0
                 t_idx = t_idx[ok]
                 gids[t_idx] = inherited[ok]
@@ -1046,9 +934,9 @@ class VisualOdometer:
         # pose (ref :386-388).
         n0 = world.num_points
         if new_mask.any():
-            pl = pts_local[new_mask]
+            pl = self._host_points(slots)[new_mask]
             ph = np.concatenate([pl, np.ones((len(pl), 1), np.float32)], 1)
-            pw = (G @ ph.T).T[:, :3]
+            pw = (world.pose_global[fid] @ ph.T).T[:, :3]
             gids[new_mask] = world.add_points(pw, fid)
 
         uv4 = np.concatenate([slots.kp_l, slots.kp_r], axis=1, dtype=np.float32)
@@ -1060,4 +948,7 @@ class VisualOdometer:
         world.point_obs_count[n0 : world.num_points] -= 1
         world.set_frame_features(fid, slots.desc, uv4, gids32, obs_mask)
         self._current_features = (slots.desc, uv4, gids32, obs_mask)
-        self._curr_global_idx = gids
+        if self.success:
+            self.prev_global_idx = gids
+        # else: keep the previous frame (ref :214-217)
+        return trans

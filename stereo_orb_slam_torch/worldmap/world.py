@@ -37,9 +37,9 @@ def _np_normalize_rot_batch(T: np.ndarray) -> np.ndarray:
     """Vectorized quaternion-roundtrip renormalization over [N,4,4]
     (ref src/math_utils.h:6-10; Shepperd best-conditioned construction per
     matrix). PURE NumPy mirror of geometry/se3.py normalize_pose: the world
-    map is host state and this runs on every add_frame / pose writeback,
-    so it stays on the host. The batch form serves the global writebacks
-    (pose graph / global BA over thousands of frames)."""
+    map is host state, so it stays on the host. It serves the global
+    writebacks (pose graph / global BA over thousands of frames); a frame
+    append renormalises one matrix (`_np_normalize_rot`)."""
     T = np.asarray(T, np.float32)
     Ts = T.reshape(-1, 4, 4)
     R = Ts[:, :3, :3]
@@ -131,11 +131,12 @@ def _np_normalize_rot(T: np.ndarray) -> np.ndarray:
 
 
 def _bump_counts(counts: np.ndarray, ids: np.ndarray):
-    """`np.add.at(counts, ids, 1)` in O(n log n) of the frame's ids, not of
-    the map (a bincount over the map was real milliseconds per frame on a
-    long drive). A fancy-index add counts each distinct id once, so each
-    pass adds one and keeps the repeats for the next: ids repeat where two
-    slots inherit one landmark. Sorts `ids` in place."""
+    """One added to `counts` at every id, repeats included, in O(n log n)
+    of the frame's ids, not of the map (a bincount over the map was real
+    milliseconds per frame on a long drive). A fancy-index add counts each
+    distinct id once, so each pass adds one and keeps the repeats for the
+    next: ids repeat where two slots inherit one landmark. Sorts `ids` in
+    place."""
     ids.sort()
     while len(ids):
         counts[ids] += 1
@@ -228,50 +229,9 @@ class WorldMap:
         self.num_frames += 1
         return fid
 
-    def add_frames(self, rel_poses: np.ndarray) -> np.ndarray:
-        """Append K frames (batched add_frame); returns their ids.
-
-        Bitwise-identical to K add_frame calls: the rel poses batch-
-        normalize in one pass (per-row elementwise math — identical floats
-        to the one-at-a-time calls), while the global chain keeps the
-        per-step matmul + renormalize of the Frame constructor
-        (ref camera_frame.h:20-27) because each global feeds the next."""
-        rel_poses = np.asarray(rel_poses, np.float32)
-        k = len(rel_poses)
-        fid0 = self.num_frames
-        self._ensure_frames(fid0 + k)
-        rels = _np_normalize_rot_batch(rel_poses)
-        self.pose_rel[fid0 : fid0 + k] = rels
-        for j in range(k):
-            fid = fid0 + j
-            if fid == 0:
-                self.pose_global[fid] = rels[j]
-            else:
-                self.pose_global[fid] = _np_normalize_rot(
-                    self.pose_global[fid - 1] @ rels[j]
-                )
-        self.num_frames += k
-        return np.arange(fid0, fid0 + k, dtype=np.int32)
-
-    def set_frame_features_batch(self, fid0: int, desc, uv4, point_ids,
-                                 valid):
-        """Batched set_frame_features for K CONSECUTIVE frames starting at
-        fid0 (the batched-ingest layout: every recorded frame of a batch
-        gets a consecutive id). desc None marks the host mirror stale, as
-        in the per-frame setter."""
-        k = len(uv4)
-        n = min(uv4.shape[1], self.feat_slots)
-        if desc is None:
-            self.frame_desc_stale = True
-        else:
-            self.frame_desc[fid0 : fid0 + k, :n] = desc[:, :n]
-        self.frame_feat_uv[fid0 : fid0 + k, :n] = uv4[:, :n]
-        self.frame_feat_point[fid0 : fid0 + k, :n] = point_ids[:, :n]
-        self.frame_feat_valid[fid0 : fid0 + k, :n] = valid[:, :n]
-
     def set_frame_features(self, fid, desc, uv4, point_ids, valid):
         """desc may be None (the fused-BoW batched path keeps descriptor
-        banks device-resident; see odometer.frontend_chain_packed_bow).
+        banks device-resident; see odometer.frontend_chain_bow).
         The host mirror is then marked stale — consumers that genuinely
         need host descriptors (checkpoint save, vocabulary training)
         must sync via SlamSystem.sync_feature_banks() first."""
@@ -295,37 +255,6 @@ class WorldMap:
         self.point_obs_count[n0 : n0 + n] = 1
         self.num_points += n
         return np.arange(n0, n0 + n, dtype=np.int32)
-
-    def add_points_multi(self, xyz_world: np.ndarray,
-                         first_frames: np.ndarray) -> np.ndarray:
-        """Batched add_points with a PER-POINT first-observed frame id
-        (the batched ingest concatenates every frame's new landmarks into
-        one append). Identical writes to per-frame add_points calls."""
-        n = len(xyz_world)
-        ids = np.arange(self.num_points, self.num_points + n, dtype=np.int32)
-        self._ensure_points(self.num_points + n)
-        self.points[ids] = xyz_world
-        self.point_first_frame[ids] = first_frames
-        self.point_obs_count[ids] = 1
-        self.num_points += n
-        return ids
-
-    def add_observations_multi(self, frame_ids, point_ids, uv4, sigma=None):
-        """Batched add_observations with a PER-OBSERVATION frame id.
-        frame_ids must be nondecreasing (the batched ingest emits frames in
-        order) — ba_problem's searchsorted window slicing relies on it."""
-        n = len(point_ids)
-        self._ensure_obs(self.num_obs + n)
-        sl = slice(self.num_obs, self.num_obs + n)
-        self.obs_frame[sl] = frame_ids
-        self.obs_point[sl] = point_ids
-        self.obs_uv[sl] = uv4
-        if sigma is not None:
-            self.obs_sigma[sl] = sigma
-        self.num_obs += n
-        ids = np.asarray(point_ids, np.int64)
-        np.add.at(self.point_obs_count,
-                  ids[(ids >= 0) & (ids < self.num_points)], 1)
 
     def canonical(self, ids: np.ndarray) -> np.ndarray:
         """Union-find root of point ids (path-compressing), vectorized."""

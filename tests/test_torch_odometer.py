@@ -166,18 +166,33 @@ def test_frontend_step_from_the_same_previous_state(sequence):
     np.testing.assert_allclose(port.transform.numpy(), np.asarray(ref.transform), atol=1e-4)
 
 
-def test_port_track_batch_equals_track(sequence):
+@pytest.mark.parametrize("batch, lost", [(1, None), (3, None), (6, None), (3, 1)],
+                         ids=["K1", "K3", "K6", "K3-ransac-fails-in-batch"])
+def test_port_track_batch_equals_track(sequence, batch, lost):
     """The port's own property with its default Gumbel sampler: K-frame
     batches replay K single-frame calls bitwise, including a frame with no
-    texture (not recorded) inside a batch."""
+    texture (not recorded) inside a batch; K = 1 is dispatch/collect a
+    frame at a time, K = 6 the whole drive as one batch. With `lost`, that
+    frame views another part of the plane: it is recorded, its RANSAC
+    fails (identity pose, every point a new landmark) and the next frame
+    matches the one before it, all inside the first batch."""
     scene, frames = sequence
     frames = list(frames)
     frames[4] = (np.full_like(frames[4][0], 96.0), np.full_like(frames[4][1], 96.0))
+    if lost is not None:
+        frames[lost] = (scene.render(30.0), scene.render(30.0, right=True))
     w1, c1, t1 = _run_port(scene, frames, 0, sampler_for_frame=None)
-    w2, c2, t2 = _run_port(scene, frames, 3, sampler_for_frame=None)
+    w2, c2, t2 = _run_port(scene, frames, batch, sampler_for_frame=None)
     assert c1 == c2 and c1[4][0] == 0
     assert w1.num_frames == w2.num_frames == N_FRAMES - 1
     np.testing.assert_array_equal(np.stack(t1), np.stack(t2))
     for name in ("pose_global", "points", "obs_point", "obs_uv", "point_obs_count",
                  "frame_desc", "frame_feat_point"):
         np.testing.assert_array_equal(getattr(w1, name), getattr(w2, name))
+    if lost is not None:
+        assert c1[lost][0] >= FrontendConfig().min_stereo_matches
+        np.testing.assert_array_equal(t1[lost], np.eye(4, dtype=np.float32))
+        obs = w1.obs_frame[:w1.num_obs] == lost
+        assert obs.any()
+        assert (w1.point_first_frame[w1.obs_point[:w1.num_obs][obs]] == lost).all()
+        assert c1[lost + 1][2] > 20  # the next frame tracks against the one before

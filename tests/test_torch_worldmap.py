@@ -4,12 +4,12 @@ same calls, and every piece of map state compared after them (all arrays
 bit for bit, the counters and flags equal), besides the reference test's
 own checks on the port's map.
 
-Cases: pose chaining (and `add_frames` equal to `add_frame` calls),
+Cases: pose chaining (the ids and the global chain of `add_frame` calls),
 `set_global_poses` dragging first-observed points, `propagate_tail`,
 `merge_points` union-find, the BA problem's dedup and its write-back, the
 vectorised global write-back at 4,096 frames (within the reference's 0.25 s
-budget), capacity growth, and the frame feature banks (per frame and
-batched, with the stale mark).
+budget), capacity growth, the frame feature banks (with and without
+descriptors, the stale mark), and a chain of 500 random poses.
 """
 
 import time
@@ -55,18 +55,14 @@ def test_pose_chaining():
     T1, T2 = rt([0, 0, 0.1], [1, 0, 0]), rt([0, 0.05, 0], [0, 0, 2])
 
     def drive(wm):
-        for T in (np.eye(4, dtype=np.float32), T1, T2):
-            wm.add_frame(T)
+        return [wm.add_frame(T) for T in (np.eye(4, dtype=np.float32), T1, T2)]
 
-    wm, _ = _both(drive)
-    np.testing.assert_allclose(wm.pose_global[2], T1 @ T2, atol=1e-5)
-
-    def drive_batch(wm):
-        return wm.add_frames(np.stack([np.eye(4, dtype=np.float32), T1, T2]))
-
-    batch, ids = _both(drive_batch)
+    wm, ids = _both(drive)
     np.testing.assert_array_equal(ids, [0, 1, 2])
-    np.testing.assert_array_equal(batch.pose_global, wm.pose_global)
+    assert wm.num_frames == 3
+    np.testing.assert_allclose(wm.pose_global[1], T1, atol=1e-5)
+    np.testing.assert_allclose(wm.pose_global[2], T1 @ T2, atol=1e-5)
+    np.testing.assert_allclose(wm.pose_rel[2], T2, atol=1e-5)
 
 
 def test_set_global_drags_first_observed_points():
@@ -188,17 +184,23 @@ def test_frame_feature_banks(with_desc):
     valid = rng.random((3, n)) > 0.3
 
     def drive(wm):
-        wm.add_frames(np.stack([np.eye(4, dtype=np.float32)] * 4))
+        for _ in range(4):
+            wm.add_frame(np.eye(4, dtype=np.float32))
         wm.set_frame_features(0, desc[0] if with_desc else None, uv4[0], pid[0], valid[0])
-        wm.set_frame_features_batch(1, desc if with_desc else None, uv4, pid, valid)
+        for j in range(3):
+            wm.set_frame_features(1 + j, desc[j] if with_desc else None, uv4[j], pid[j],
+                                  valid[j])
 
     wm, _ = _both(drive, feat_slots=n)
     assert wm.frame_desc_stale is not with_desc
     np.testing.assert_array_equal(wm.frame_feat_uv[1:4], uv4)
+    np.testing.assert_array_equal(wm.frame_feat_point[1:4], pid)
+    np.testing.assert_array_equal(wm.frame_feat_valid[1:4], valid)
+    if with_desc:
+        np.testing.assert_array_equal(wm.frame_desc[1:4], desc)
 
 
-@pytest.mark.parametrize("batched", [False, True], ids=["add_frame", "add_frames"])
-def test_random_pose_chain_500(batched):
+def test_random_pose_chain_500():
     """500 random relative poses (any rotation, noise off orthogonality,
     translations to 5 m) chained into the global poses: the port's
     single-matrix renormalisation, twice a frame, keeps the map bit for bit
@@ -208,8 +210,6 @@ def test_random_pose_chain_500(batched):
     rels[:, :3, :3] += rng.normal(scale=1e-3, size=(500, 3, 3)).astype(np.float32)
 
     def drive(wm):
-        if batched:
-            return wm.add_frames(rels)
         return np.asarray([wm.add_frame(T) for T in rels], np.int32)
 
     wm, ids = _both(drive)
