@@ -5,8 +5,8 @@
 Phases, each of which fails the run when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
      no CUDA device means exit 1 with no result;
-  2. build: the four CUDA kernels of stereo_orb_slam_torch/csrc, compiled
-     by nvcc for sm_90a in parallel;
+  2. build: the CUDA kernels of stereo_orb_slam_torch/csrc, compiled by
+     nvcc for sm_90a in parallel;
   3. the launch floor (a one-element in-place add), then each kernel
      against its plain PyTorch version at the main path's shapes, with
      CUDA-event timings: hamming_top2 with one query set against two train
@@ -30,7 +30,12 @@ Phases, each of which fails the run when it fails:
      of its plain version (the near points), within DLT_F64_RTOL of a
      float64 DLT relative to the depth, finite everywhere, timed beside
      torch.linalg.svd, with its bound from a fixed reference Jacobi's
-     sweeps on the run's systems;
+     sweeps on the run's systems; the Shi-Tomasi detector (detect_corners,
+     three hand kernels around torch.sort, no Pallas counterpart) at 480 x
+     752 and 376 x 1241, 1,024 features, every output and intermediate bit
+     for bit against its plain version at S = 1 and 3, 3 launches a call,
+     timed beside its bound and the plain version, per kernel by
+     torch.profiler;
      then the CUDA path against the CPU path on one full-size frame
      (corners and descriptors);
   4. the main path at full width: 60 synthetic KITTI-sized stereo frames
@@ -38,8 +43,10 @@ Phases, each of which fails the run when it fails:
      `stereo_orb_slam_torch.apps.visual_odometry.main` on the card with the
      default configs (1024 features, upright descriptors, 128 RANSAC
      hypotheses). It needs ATE < 0.01 m and exactly 1 hamming_top2, 2
-     orb_describe and 0 orb_describe_oriented and extract_patches launches
-     per frame (UPRIGHT_PER_FRAME);
+     orb_describe, 6 detect_corners (3 an image) and 0 orb_describe_oriented
+     and extract_patches launches per frame (UPRIGHT_PER_FRAME; every path's
+     check, the SLAM app's K = 4 chains and the canyon's among them, holds 6
+     detect_corners launches a frame);
   5. the oriented describe: frame 0 on the card against the CPU path (bits,
      angles), then 10 of those frames through `VisualOdometer` with
      `FrontendConfig(oriented=True)`; finite poses and exactly 1
@@ -257,10 +264,11 @@ F64_OPS_PER_S = F32_OPS_PER_S / 2   # float64 outside the tensor cores (data she
 N_FRAMES = 60
 ORIENTED_FRAMES = 10
 # Kernel launches per frame (per step of the multi-sequence phase).
+# detect_corners: 3 kernel launches a call, one call per image.
 UPRIGHT_PER_FRAME = {"hamming_top2": 1, "orb_describe": 2, "orb_describe_oriented": 0,
-                     "extract_patches": 0, "triangulate_dlt": 0}
+                     "extract_patches": 0, "triangulate_dlt": 0, "detect_corners": 6}
 ORIENTED_PER_FRAME = {"hamming_top2": 1, "orb_describe": 0, "orb_describe_oriented": 2,
-                      "extract_patches": 0, "triangulate_dlt": 0}
+                      "extract_patches": 0, "triangulate_dlt": 0, "detect_corners": 6}
 # The general (non-rectified) rig: the upright path and one DLT launch.
 GENERAL_PER_FRAME = {**UPRIGHT_PER_FRAME, "triangulate_dlt": 1}
 EXTRACT_PATCHES_NOTE = ("launched by no path: both describes fuse the cut; kept as the direct "
@@ -511,7 +519,67 @@ def phase_kernels(rng):
         "triangulate_dlt", "general", *(torch.from_numpy(x).to(dev) for x in (P1, P2, uv1, uv2)),
         valid, "N=1024 (a quarter invalid), EuRoC cam0 rig, depth 1.5-5 m and 45-100 m, S = 1",
         plain_valid=valid & near))
+
+    # The Shi-Tomasi detector's three kernels and their sort at the two
+    # benchmarked shapes, one image, 1,024 features.
+    records.append(_detect_record(rng, "general", "EuRoC cam0", 480, 752))
+    records.append(_detect_record(rng, "main", "KITTI 00", KITTI["h"], KITTI["w"]))
     return records, floor_ms
+
+
+def _detect_record(rng, path, label, h, w, n=1024):
+    """`detect_corners` on the card against its plain version at one shape:
+    every output and intermediate bit for bit on a noise image with flat
+    patches, then on a batch of it, the lattice (NMS ties) and a constant
+    image (every slot invalid); the call's device time beside its bound
+    (the image read once, the slots written once), the plain version's
+    time, and each kernel's mean device time (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_orb_slam_torch.ops import detect
+    from stereo_orb_slam_torch.ops.kernels import detect as kernel
+    from synth_detect import detect_images
+
+    args = (n, 0.01, 5, 10, 16, True)
+    batch = torch.from_numpy(detect_images(rng, ["flat", "lattice", "constant"], h, w)).cuda()
+    for imgs in (batch[:1], batch):
+        before = kernel.LAUNCHES
+        got = kernel.detect_corners(imgs, *args)
+        torch.cuda.synchronize()
+        if kernel.LAUNCHES != before + 3:
+            raise AssertionError(f"detect_corners launched {kernel.LAUNCHES - before} kernels, "
+                                 "not 3")
+        want = detect.detect_corners_plain(imgs, *args)
+        for name, g, v in zip(detect.Detection._fields, got, want):
+            same = (torch.equal(g.view(torch.int32), v.view(torch.int32))
+                    if g.dtype == torch.float32 else torch.equal(g.long(), v.long()))
+            if g.shape != v.shape or not same:
+                raise AssertionError(f"detect_corners {name} at {h}x{w}, S = {imgs.shape[0]}, "
+                                     "differs from its plain version")
+    one = batch[:1]
+    ms = time_device(lambda: kernel.detect_corners(one, *args))
+    call_ms = time_call(lambda: kernel.detect_corners(one, *args))
+    plain_ms = time_device(lambda: detect.detect_corners_plain(one, *args))
+    reps = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel.detect_corners(one, *args)
+        torch.cuda.synchronize()
+    per_kernel = {e.key[:60]: e.self_device_time_total / reps for e in prof.key_averages()
+                  if e.self_device_time_total > 0
+                  and e.device_type == torch.autograd.DeviceType.CUDA}
+    bytes_ = h * w * 4 + n * (8 + 4 + 1)
+    log(f"kernel detect_corners ({label} {h}x{w}): match True (S = 1 and 3), device "
+        f"{ms * 1e3:.2f} us a call (bound {bytes_ / HBM_BYTES_PER_S * 1e6:.3f} us by bytes), "
+        f"per call {call_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; device us a call "
+        f"by kernel {json.dumps({k: round(v, 3) for k, v in per_kernel.items()})}")
+    return _record(
+        f"detect_corners ({label})", "stereo_orb_slam_torch/csrc/detect_corners.cu",
+        "stereo_orb_slam_tpu/ops/detect.py::detect_corners (XLA ops, no Pallas kernel)", path,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None, match=True, call_ms=call_ms,
+        shape=f"S=1 {h}x{w}, N={n}, block 5, min_distance 10", kernel_us=per_kernel)
 
 
 def _dlt_case(rng, n):
@@ -781,20 +849,20 @@ def phase_cuda_vs_cpu(seq, oriented=False, frame=3):
 
 
 def _reset_launches():
-    from stereo_orb_slam_torch.ops.kernels import describe, dlt, hamming, patches
+    from stereo_orb_slam_torch.ops.kernels import describe, detect, dlt, hamming, patches
 
-    for mod in (hamming, patches, describe, dlt):
+    for mod in (hamming, patches, describe, dlt, detect):
         mod.LAUNCHES = 0
     describe.ORIENTED_LAUNCHES = 0
 
 
 def _read_launches():
-    from stereo_orb_slam_torch.ops.kernels import describe, dlt, hamming, patches
+    from stereo_orb_slam_torch.ops.kernels import describe, detect, dlt, hamming, patches
 
     return {"hamming_top2": hamming.LAUNCHES, "extract_patches": patches.LAUNCHES,
             "orb_describe": describe.LAUNCHES,
             "orb_describe_oriented": describe.ORIENTED_LAUNCHES,
-            "triangulate_dlt": dlt.LAUNCHES}
+            "triangulate_dlt": dlt.LAUNCHES, "detect_corners": detect.LAUNCHES}
 
 
 def _check_launches(path, launches, per_frame, frames):
@@ -1554,7 +1622,7 @@ def phase_general_slam(g, out_dir, device="cuda", kernel_records=None):
            "closures": [{k: h[k] for k in ("live", "loop_edges_measured", "num_loop_edges")}
                         for h in system.pgo.history],
            "edges_measured": edges, "loop_edge_batches": edge_batches, "launches": launches,
-           "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
+           "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n, "detect_corners": 6 * n,
                                  "orb_describe_oriented": 0, "extract_patches": 0,
                                  "triangulate_dlt": n + 2 * edge_batches}}
     log(f"general SLAM (--dataset EuRoc, K = 1): {n} frames, {world.num_frames} tracked, live "
@@ -1691,7 +1759,7 @@ def phase_canyon_slam(c, out_dir, device="cuda"):
         "edges_measured": edges, "loop_edge_batches": edge_batches,
         "points": world.num_points, "timers": system.timers.summary(),
         "launches": launches,
-        "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
+        "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n, "detect_corners": 6 * n,
                               "orb_describe_oriented": 0, "extract_patches": 0,
                               "triangulate_dlt": 0},
         "bow_batches": system.fused_score_batches + system.loop.score_batches,
@@ -2010,7 +2078,7 @@ def phase_canyon_long(c, out_dir, device="cuda"):
                      "used": len(keys), "capacity": cache.capacity, "bodies": programs_drive},
         "pg_solves": pg_solves, "pg_buckets": pg_buckets, "gn_captures": gn_captures,
         "pose_graphs": len(graphs), "timers": timers, "launches": launches,
-        "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
+        "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n, "detect_corners": 6 * n,
                               "orb_describe_oriented": 0, "extract_patches": 0,
                               "triangulate_dlt": 0},
         "bow_batches": system.fused_score_batches + system.loop.score_batches,
@@ -3247,7 +3315,7 @@ def phase_slam(seq, gt, out_dir, batch_frames):
         "live_stall_splits": splits, "ba_log": system.ba_log[-3:],
         "pg_solves": _pg_solves(hist),
         "timers": system.timers.summary(), "launches": launches,
-        "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n,
+        "launches_expected": {"hamming_top2": expected, "orb_describe": 2 * n, "detect_corners": 6 * n,
                               "orb_describe_oriented": 0, "extract_patches": 0,
                               "triangulate_dlt": 0},
         "bow_batches": system.fused_score_batches + system.loop.score_batches,

@@ -13,11 +13,33 @@ stable descending sort gives exactly that; `torch.topk` does not promise it.
 Every function takes one image [H, W] or a batch [S, H, W] of images of
 one shape (the sequences of a multi-sequence step, where the JAX package
 vmaps); each image's values are those it gets alone.
+
+`detect_corners` runs `detect_corners_plain`, the shift-and-add passes
+here, for tensors on the CPU, and three hand kernels around the same sort
+for tensors on the card (`ops/kernels/detect.py`), with the same values bit
+for bit.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from stereo_orb_slam_torch.ops.kernels import detect as detect_kernel
+
+
+class Detection(NamedTuple):
+    """A batch's corners [S, ...] and the intermediates the card's kernels
+    hand from one to the next."""
+    xy: torch.Tensor        # [S, N, 2] float32 (x, y), 0 where invalid
+    scores: torch.Tensor    # [S, N] raw response, 0 where invalid
+    valid: torch.Tensor     # [S, N] bool
+    response: torch.Tensor  # [S, H, W] raw response
+    peak: torch.Tensor      # [S] its maximum
+    tile_max: torch.Tensor  # [S, n_tiles] each tile's masked maximum, -inf where none
+    tile_arg: torch.Tensor  # [S, n_tiles] its first argmax, row-major in the tile
+    max_resp: torch.Tensor  # [S] largest kept raw response, at least 0
 
 
 def _shift_y(img, d):
@@ -139,6 +161,13 @@ def top_k_stable(values, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def nms_settings(min_distance: int):
+    """(NMS radius, tile side) of `min_distance`: a tile narrower than the
+    radius holds at most one NMS survivor."""
+    nms_radius = max(1, min_distance // 2)
+    return nms_radius, min(4, nms_radius)
+
+
 def detect_corners(
     img,
     num_features: int = 1024,
@@ -160,10 +189,20 @@ def detect_corners(
       valid: [num_features] bool mask (score above quality gate).
     """
     batched = img.dim() == 3
-    imgs = img if batched else img[None]
+    det = detect_kernel.detect_corners(img if batched else img[None], num_features,
+                                       quality_level, block_size, min_distance, border, subpix)
+    out = det.xy, det.scores, det.valid
+    return out if batched else tuple(x[0] for x in out)
+
+
+def detect_corners_plain(imgs, num_features: int, quality_level: float, block_size: int,
+                         min_distance: int, border: int, subpix: bool) -> Detection:
+    """`detect_corners` of [S, H, W] images in PyTorch ops, with its
+    intermediates (a tile of 1 has the masked response as its maxima, at
+    argmax 0)."""
     resp_raw = shi_tomasi_response(imgs, block_size)
     S, H, W = resp_raw.shape
-    dev = img.device
+    dev = imgs.device
 
     # Deterministic tie-breaking jitter for NMS and ordering only; the
     # scores and the quality gate use the raw response.
@@ -173,14 +212,13 @@ def detect_corners(
     peak = torch.amax(resp_raw, dim=(-2, -1), keepdim=True)
     resp = resp_raw + hash_pat * (1e-5 * torch.clamp(peak, min=1e-12))
 
-    nms_radius = max(1, min_distance // 2)
+    nms_radius, tile = nms_settings(min_distance)
     keep = nms(resp, nms_radius)
     in_border = (yy >= border) & (yy < H - border) & (xx >= border) & (xx < W - border)
     masked = torch.where(keep & in_border, resp, -torch.inf)
 
     # Hierarchical top-k: NMS survivors are more than nms_radius apart, so a
     # tile narrower than the radius holds at most one; sort the tile maxima.
-    tile = min(4, nms_radius)
     if tile > 1:
         Hp = -(-H // tile) * tile
         Wp = -(-W // tile) * tile
@@ -200,7 +238,9 @@ def detect_corners(
         ys = ty * tile + within // tile
         xs = tx * tile + within % tile
     else:
-        top_vals, idx = top_k_stable(masked.reshape(S, -1), num_features)
+        tile_max = masked.reshape(S, -1)
+        tile_arg = torch.zeros_like(tile_max, dtype=torch.int64)
+        top_vals, idx = top_k_stable(tile_max, num_features)
         ys = idx // W
         xs = idx % W
     scores = _gather2d(resp_raw, ys, xs)
@@ -220,5 +260,5 @@ def detect_corners(
 
     xy = torch.stack([xs.to(torch.float32) + dx, ys.to(torch.float32) + dy], dim=-1)
     xy = torch.where(valid[..., None], xy, 0.0)
-    out = xy, torch.where(valid, scores, 0.0), valid
-    return out if batched else tuple(x[0] for x in out)
+    return Detection(xy, torch.where(valid, scores, 0.0), valid, resp_raw, peak[:, 0, 0],
+                     tile_max, tile_arg, max_resp[:, 0])

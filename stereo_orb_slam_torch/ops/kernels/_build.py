@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("hamming_top2", "extract_patches", "orb_describe", "orb_describe_oriented",
-                  "triangulate_dlt")
+                  "triangulate_dlt", "detect_corners")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -65,6 +65,7 @@ COUNTERS = (
     ("stereo_orb_slam_torch.ops.kernels.describe", "ORIENTED_LAUNCHES"),
     ("stereo_orb_slam_torch.ops.kernels.patches", "LAUNCHES"),
     ("stereo_orb_slam_torch.ops.kernels.dlt", "LAUNCHES"),
+    ("stereo_orb_slam_torch.ops.kernels.detect", "LAUNCHES"),
     ("stereo_orb_slam_torch.parallel.mesh", "ALL_REDUCES"),
     ("stereo_orb_slam_torch.parallel.mesh", "ALL_REDUCE_BYTES"),
 )

@@ -19,7 +19,15 @@ Tolerances:
   sample's <= 4 exact bf16 products added in float32 in ascending pixel
   index, from 0): packed words identical to the plain chain (the dense
   float32 product) on these frames and on random images.
-The kernel-against-plain comparison is in test_torch_kernels.py.
+- the detector's three kernels (csrc/detect_corners.cu), modelled here in
+  their order in NumPy float32 (clamped coordinates in place of shifted
+  copies, clipped-window maxima in place of doubling shifts, the jitter
+  recomputed per pixel, the first argmax per tile, the refine per slot):
+  every output and intermediate bit for bit equal to the plain
+  shift-and-add version, on these frames and on random images with flat
+  patches and lattice textures (NMS ties, all -inf tiles and ties in the
+  sort all occur).
+The kernel-against-plain comparisons are in test_torch_kernels.py.
 """
 
 import jax
@@ -30,12 +38,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from synth import PlaneScene  # noqa: E402
+from synth_detect import detect_images  # noqa: E402
 
 from stereo_orb_slam_tpu.ops import detect as rdet, orb as rorb  # noqa: E402
 from stereo_orb_slam_tpu.ops.pallas.patches import extract_patches_pallas  # noqa: E402
 from stereo_orb_slam_torch import convert  # noqa: E402
 from stereo_orb_slam_torch.ops import detect as pdet, orb as porb  # noqa: E402
 from stereo_orb_slam_torch.ops.kernels import describe as dk, patches as pk  # noqa: E402
+from stereo_orb_slam_torch.ops.kernels import detect as detk  # noqa: E402
 
 torch.set_num_threads(1)
 N_FEAT = 256
@@ -205,3 +215,194 @@ def test_tap_sum_model_matches_plain_chain_on_random_images(seed):
     want = dk.orb_describe_plain(padded, xy, valid, porb.steer_table(False, "cpu"))
     assert torch.equal(_tap_sum_model(padded, xy, valid), want)
     assert torch.all(want[~valid] == 0) and torch.any(want[valid] != 0)
+
+
+F32 = np.float32
+
+
+def _clip(a, n):
+    return np.clip(a, 0, n - 1)
+
+
+def _detect_model(imgs, num_features, quality_level=0.01, block_size=5, min_distance=10,
+                  border=16, subpix=True):
+    """The detector's three kernels in their order, NumPy float32 (one
+    rounding an operation), around the stable descending sort. Returns the
+    fields of `detect.Detection` as arrays and (jittered response, keep)."""
+    imgs = np.asarray(imgs, F32)
+    S, H, W = imgs.shape
+    ys, xs = np.arange(H), np.arange(W)
+    # The response kernel: every neighbour read at the clamped coordinate.
+    up, dn, lf, rt = _clip(ys - 1, H), _clip(ys + 1, H), _clip(xs - 1, W), _clip(xs + 1, W)
+    sy = (imgs[:, up] + F32(2) * imgs) + imgs[:, dn]
+    sx = (imgs[:, :, lf] + F32(2) * imgs) + imgs[:, :, rt]
+    ix = (sy[:, :, rt] - sy[:, :, lf]) * F32(0.125)
+    iy = (sx[:, dn] - sx[:, up]) * F32(0.125)
+    r = block_size // 2
+    boxed = []
+    for p in (ix * ix, iy * iy, ix * iy):
+        col = p
+        for d in range(1, r + 1):
+            col = (col + p[:, _clip(ys + d, H)]) + p[:, _clip(ys - d, H)]
+        acc = col
+        for d in range(1, r + 1):
+            acc = (acc + col[:, :, _clip(xs + d, W)]) + col[:, :, _clip(xs - d, W)]
+        boxed.append(acc * F32(1.0 / (block_size * block_size)))
+    ixx, iyy, ixy = boxed
+    diff = ixx - iyy
+    # The square root is torch.sqrt's: PyTorch's vectorised CPU sqrt (Sleef's
+    # on AVX512) does not always round correctly (numpy's differs in 516 of a
+    # frame's 76,800 values); on the card torch.sqrt and the kernel's
+    # __fsqrt_rn both round correctly, which the card test holds.
+    disc = np.maximum(F32(0.25) * (diff * diff) + ixy * ixy, F32(0))
+    raw = F32(0.5) * (ixx + iyy) - torch.sqrt(torch.from_numpy(disc)).numpy()
+    peak = raw.max(axis=(1, 2))
+    scale = F32(1e-5) * np.maximum(peak, F32(1e-12))
+
+    def jittered(s, y, x):
+        h = ((y * 7919 + x * 104729) % 65521).astype(F32) * F32(1.0 / 65521.0)
+        return raw[s, y, x] + h * scale[s]
+
+    img_idx = np.arange(S)[:, None, None]
+    resp = jittered(img_idx, ys[None, :, None], xs[None, None, :])
+    # The NMS kernel: the window maximum clipped to the image.
+    nr, tile = max(1, min_distance // 2), min(4, max(1, min_distance // 2))
+    pooled = resp
+    for d in range(1, nr + 1):
+        pooled = np.maximum(pooled, np.maximum(resp[:, _clip(ys + d, H)],
+                                               resp[:, _clip(ys - d, H)]))
+    rows = pooled
+    for d in range(1, nr + 1):
+        pooled = np.maximum(pooled, np.maximum(rows[:, :, _clip(xs + d, W)],
+                                               rows[:, :, _clip(xs - d, W)]))
+    inb = ((ys[:, None] >= border) & (ys[:, None] < H - border)
+           & (xs[None, :] >= border) & (xs[None, :] < W - border))
+    kept = (resp >= pooled) & inb
+    masked = np.where(kept, resp, F32(-np.inf))
+    max_resp = np.array([max(F32(0), raw[s][kept[s]].max(initial=F32(0))) for s in range(S)],
+                        F32)
+    n_th, n_tw = -(-H // tile), -(-W // tile)
+    padded = np.full((S, n_th * tile, n_tw * tile), -np.inf, F32)
+    padded[:, :H, :W] = masked
+    blocks = padded.reshape(S, n_th, tile, n_tw, tile).transpose(0, 1, 3, 2, 4)
+    blocks = blocks.reshape(S, n_th * n_tw, tile * tile)
+    tile_max, tile_arg = blocks[..., 0], np.zeros(blocks.shape[:2], np.int64)
+    for k in range(1, tile * tile):  # first argmax: strictly greater replaces
+        more = blocks[..., k] > tile_max
+        tile_max, tile_arg = np.where(more, blocks[..., k], tile_max), np.where(more, k, tile_arg)
+    # The sort, then the refine kernel: one slot at a time, vectorised.
+    order = np.argsort(-tile_max, axis=1, kind="stable")[:, :num_features]
+    top = np.take_along_axis(tile_max, order, 1)
+    within = np.take_along_axis(tile_arg, order, 1)
+    ty, tx = (order // n_tw) * tile + within // tile, (order % n_tw) * tile + within % tile
+    s_idx = np.arange(S)[:, None]
+    score = raw[s_idx, ty, tx]
+    m = max_resp[:, None]
+    valid = (np.isfinite(top) & (score > F32(quality_level) * m) & (score > F32(1e-6))
+             & (m > 0))
+    dx = dy = np.zeros_like(score)
+    if subpix:
+        yc, xc = np.clip(ty, 1, H - 2), np.clip(tx, 1, W - 2)
+
+        def at(a, b):
+            return jittered(s_idx, yc + a, xc + b)
+
+        gx = F32(0.5) * (at(0, 1) - at(0, -1))
+        gy = F32(0.5) * (at(1, 0) - at(-1, 0))
+        gxx = (at(0, 1) - F32(2) * at(0, 0)) + at(0, -1)
+        gyy = (at(1, 0) - F32(2) * at(0, 0)) + at(-1, 0)
+        gxy = F32(0.25) * (((at(1, 1) - at(1, -1)) - at(-1, 1)) + at(-1, -1))
+        det = gxx * gyy - gxy * gxy
+        safe = np.where(np.abs(det) < F32(1e-12), F32(1e-12), det)
+        with np.errstate(over="ignore", invalid="ignore"):
+            ox = -(gyy * gx - gxy * gy) / safe
+            oy = -(gxx * gy - gxy * gx) / safe
+        ok = (np.abs(det) > F32(1e-12)) & (np.abs(ox) <= 1) & (np.abs(oy) <= 1)
+        dx = np.where(ok, np.clip(ox, F32(-0.5), F32(0.5)), F32(0))
+        dy = np.where(ok, np.clip(oy, F32(-0.5), F32(0.5)), F32(0))
+    xy = np.stack([tx.astype(F32) + dx, ty.astype(F32) + dy], -1)
+    fields = dict(xy=np.where(valid[..., None], xy, F32(0)), scores=np.where(valid, score, F32(0)),
+                  valid=valid, response=raw, peak=peak, tile_max=tile_max, tile_arg=tile_arg,
+                  max_resp=max_resp)
+    return fields, (resp, kept)
+
+
+def _assert_detection_bits(got, want):
+    for name in want:
+        g = getattr(got, name).numpy()
+        w = want[name]
+        assert g.shape == w.shape, name
+        if g.dtype == np.float32:
+            np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32), err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w.astype(g.dtype), err_msg=name)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_detect_kernel_model_matches_plain_on_frames(frames, k):
+    img = frames[k][None].astype(F32)
+    want, _ = _detect_model(img, N_FEAT)
+    got = pdet.detect_corners_plain(_t(img), N_FEAT, 0.01, 5, 10, 16, True)
+    _assert_detection_bits(got, want)
+    assert got.valid.sum() > 100
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("min_distance", [2, 6, 10])
+@pytest.mark.parametrize("block_size", [3, 5, 7])
+def test_detect_kernel_model_matches_plain_on_random_images(block_size, min_distance, S):
+    """61 x 83 images (no multiple of a tile of 2, 3 or 4); the batch
+    holds the three kinds, S = 1 the flat patches alone."""
+    rng = np.random.default_rng(100 * block_size + min_distance)
+    imgs = detect_images(rng, ["flat", "lattice", "constant"][:S], 61, 83)
+    want, _ = _detect_model(imgs, 128, block_size=block_size, min_distance=min_distance)
+    got = pdet.detect_corners_plain(_t(imgs), 128, 0.01, block_size, min_distance, 16, True)
+    _assert_detection_bits(got, want)
+    assert got.valid[0].any() and not (S == 3 and got.valid[2].any())
+    # Each image of a batch is the one it is alone.
+    alone = pdet.detect_corners(_t(imgs[-1]), num_features=128, block_size=block_size,
+                                min_distance=min_distance)
+    for g, a in zip((got.xy[-1], got.scores[-1], got.valid[-1]), alone):
+        assert torch.equal(g, a)
+
+
+def test_detect_kernel_model_without_subpix():
+    imgs = detect_images(np.random.default_rng(5), ["flat", "lattice"], 61, 83)
+    want, _ = _detect_model(imgs, 128, subpix=False)
+    got = pdet.detect_corners_plain(_t(imgs), 128, 0.01, 5, 10, 16, False)
+    _assert_detection_bits(got, want)
+    assert np.all(want["xy"][want["valid"]] == np.round(want["xy"][want["valid"]]))
+
+
+def test_detect_cases_meet_nms_and_sort_ties():
+    """The lattice image meets what the kernels must order as the plain
+    version does: kept pixels tied with a neighbour in their window, equal
+    finite tile maxima in the sorted slots, and all -inf tiles."""
+    imgs = detect_images(np.random.default_rng(1010), ["lattice"], 61, 83)
+    want, (resp, kept) = _detect_model(imgs, 128)
+    nr = 5
+    ties = 0
+    for y, x in zip(*np.nonzero(kept[0])):
+        win = resp[0, max(y - nr, 0):y + nr + 1, max(x - nr, 0):x + nr + 1]
+        ties += int((win == resp[0, y, x]).sum()) - 1
+    assert ties > 0
+    top = np.sort(want["tile_max"][0])[::-1][:128]
+    finite = top[np.isfinite(top)]
+    assert len(np.unique(finite)) < len(finite)
+    assert np.isneginf(want["tile_max"]).sum() > 0 and np.isneginf(top).any()
+
+
+def test_detect_wrapper_checks_settings():
+    detk.check_settings(480, 752, 5, 10)
+    detk.check_settings(376, 1241, 13, 59)
+    for h, w, bs, md in ((480, 752, 15, 10), (480, 752, 5, 60), (5, 752, 5, 10),
+                         (480, 30000, 5, 10)):
+        with pytest.raises(ValueError):
+            detk.check_settings(h, w, bs, md)
+    with pytest.raises(ValueError):
+        detk.detect_corners(torch.zeros(4, 4))
+    # The CPU takes the plain version, whatever the settings.
+    img = _t(detect_images(np.random.default_rng(2), ["flat"], 61, 83))
+    det = detk.detect_corners(img, 64, block_size=15)
+    want = pdet.detect_corners_plain(img, 64, 0.01, 15, 10, 16, True)
+    assert all(torch.equal(a, b) for a, b in zip(det, want))

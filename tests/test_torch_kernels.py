@@ -8,8 +8,10 @@ index, cuBLAS in its own order, so only a pair tied to the last bit could
 flip; the same for the fused oriented describe, whose angle is held
 within 1e-5 rad of the plain chain's on its real input, a smoothed image
 (see tests/test_torch_orb_oriented.py), and to the float64 moments'
-angle within the float32 error bound of the kernel's order. The
-comparisons need a CUDA device and skip without one; on the card, run
+angle within the float32 error bound of the kernel's order. The Shi-Tomasi
+detector's three kernels match their plain version bit for bit in every
+output and intermediate (the same float32 operations in the same order).
+The comparisons need a CUDA device and skip without one; on the card, run
 them with
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py
@@ -25,11 +27,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from stereo_orb_slam_torch import convert  # noqa: E402
-from stereo_orb_slam_torch.ops import orb  # noqa: E402
+from stereo_orb_slam_torch.ops import detect as pdet, orb  # noqa: E402
+from synth_detect import detect_images  # noqa: E402
 from synth_distorted import EUROC, dlt_float64  # noqa: E402
 
 from stereo_orb_slam_torch.ops.kernels import (  # noqa: E402
-    describe as dk, dlt as tk, hamming as hk, patches as pk,
+    describe as dk, detect as ck, dlt as tk, hamming as hk, patches as pk,
 )
 
 torch.set_num_threads(1)
@@ -441,7 +444,7 @@ def test_pair_and_describe_wrappers_reject_bad_input():
 def test_cpu_tensors_take_the_plain_version():
     d = torch.zeros((4, 8), dtype=torch.int32)
     v = torch.ones(4, dtype=torch.bool)
-    before = (hk.LAUNCHES, pk.LAUNCHES, dk.LAUNCHES, tk.LAUNCHES)
+    before = (hk.LAUNCHES, pk.LAUNCHES, dk.LAUNCHES, tk.LAUNCHES, ck.LAUNCHES)
     hk.hamming_top2(d, d, v)
     hk.hamming_top2_pair(d, d, v, d, v)
     pk.extract_patches(torch.zeros((40, 50)), torch.zeros(2, dtype=torch.int32),
@@ -449,4 +452,43 @@ def test_cpu_tensors_take_the_plain_version():
     dk.orb_describe(torch.zeros((40, 50)), torch.zeros((2, 2)), torch.ones(2, dtype=torch.bool),
                     orb.steer_table(False, "cpu"))
     tk.triangulate_dlt(torch.eye(3, 4), torch.eye(3, 4), torch.zeros(2, 2), torch.zeros(2, 2))
-    assert (hk.LAUNCHES, pk.LAUNCHES, dk.LAUNCHES, tk.LAUNCHES) == before
+    detected = ck.detect_corners(torch.zeros((1, 40, 50)), 16)
+    assert (hk.LAUNCHES, pk.LAUNCHES, dk.LAUNCHES, tk.LAUNCHES, ck.LAUNCHES) == before
+    assert not detected.valid.any()
+
+
+def assert_detection_equal(got, want):
+    """Every field of two `detect.Detection`s bit for bit (tile_arg by value:
+    int32 from the kernel, int64 from the plain version's argmax)."""
+    for name, g, w in zip(pdet.Detection._fields, got, want):
+        assert g.shape == w.shape, name
+        if g.dtype == torch.float32:
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+        else:
+            assert torch.equal(g.long(), w.long()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size,min_distance,subpix", [(5, 10, True), (3, 2, True),
+                                                           (7, 6, False)])
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("H,W", [(480, 752), (376, 1241)])
+def test_detect_kernels_match_plain(rng, cuda, H, W, S, block_size, min_distance, subpix):
+    """The three kernels and the sort against the plain version on the card,
+    at the EuRoC and KITTI shapes, 1,024 features; a batch of 3 adds the
+    lattice (NMS ties) and a constant image (every slot invalid)."""
+    kinds = ["flat", "lattice", "constant"][:S]
+    imgs = torch.from_numpy(detect_images(rng, kinds, H, W)).to(cuda)
+    args = (1024, 0.01, block_size, min_distance, 16, subpix)
+    before = ck.LAUNCHES
+    got = ck.detect_corners(imgs, *args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before + 3
+    want = pdet.detect_corners_plain(imgs, *args)
+    assert_detection_equal(got, want)
+    assert got.valid[0].sum() > 100 and not (S == 3 and got.valid[2].any())
+    # The public function goes through the kernels, one image or a batch.
+    out = pdet.detect_corners(imgs[0], *args)
+    assert ck.LAUNCHES == before + 6
+    for o, w in zip(out, (want.xy[0], want.scores[0], want.valid[0])):
+        assert torch.equal(o, w)
