@@ -15,6 +15,18 @@ tensor ops:
   (windowed: backend/schur_dense.py, dense or banded assembly) or solved
   MATRIX-FREE by block-Jacobi PCG (global problems past the dense gate).
 
+On a rig whose baseline is under FLOAT64_BELOW_BASELINE_M
+(`marginalize_in_float64`, which BundleAdjuster asks of its rig) the
+windowed path marginalizes, solves and back-substitutes in float64, from
+normal equations accumulated in float32. A landmark's depth is fixed z/b
+times more weakly than its bearing, so its point block's condition grows
+as (z/b)^2; at EuRoC's 0.110 m (landmarks at 1-6 px of disparity)
+float32's S = H_cc - W H_pp^-1 W^T cancels the weak modes of a window
+whose camera blocks few tracks join, and its LM can stop a metre from the
+float64 solve of the same iterations. At KITTI's 0.537 m no judged window
+strayed; the limit lies between the two, near their geometric mean. The
+matrix-free path stays in float32.
+
 Every reduction runs in a fixed order (no float atomics), so a solve on
 the card gives the same result on every run. Device syncs: none inside a
 solve. The LM loop and the PCG loop each run
@@ -79,6 +91,7 @@ from stereo_orb_slam_torch.config import BAConfig
 from stereo_orb_slam_torch.geometry import se3_np
 from stereo_orb_slam_torch.parallel.mesh import all_reduce, all_reduce_many
 from stereo_orb_slam_torch.utils import programs
+from stereo_orb_slam_torch.utils.profiling import TRACER
 
 
 class BAProblem(NamedTuple):
@@ -188,16 +201,17 @@ def _seg_sum_cams(x, obs_cam, num, cam_red=None, group=None):
 
     `cam_red` None or a SegmentPlan (matrix-free path): a segmented sum.
     Dense windowed path: `cam_red` is either the [C,O] f32 ONE-HOT of
-    obs_cam (one matrix product) or, past the one-hot's memory gate, a
-    ([C,Kc] slot map, mask) tuple from build_cam_slots_device (gather +
-    local sum). With `group`, the local sums are summed over its ranks.
+    obs_cam (one matrix product, in x's dtype) or, past the one-hot's
+    memory gate, a ([C,Kc] slot map, mask) tuple from
+    build_cam_slots_device (gather + local sum). With `group`, the local
+    sums are summed over its ranks.
     """
     if cam_red is None or isinstance(cam_red, SegmentPlan):
         return _seg_sum(x, obs_cam, num, _plan(cam_red).cams, group)
     if isinstance(cam_red, tuple):
         sto, mask = cam_red
         return all_reduce(schur_dense.slot_gather(x, sto, mask).sum(dim=1)[:num], group)
-    return all_reduce(cam_red @ x, group)
+    return all_reduce(cam_red.to(x.dtype) @ x, group)
 
 
 def _plan(cam_red) -> SegmentPlan:
@@ -417,9 +431,11 @@ def pcg(matvec, b, M_inv_blocks, iters: int, tol: float):
 
 def _solve_lm(prob: BAProblem, H_cc, H_pp, W, b_c, b_p, lam, cfg: BAConfig,
               dense_slots=None, cam_red=None, Wg=None, band=None, group=None,
-              point_sharded: bool = False):
+              point_sharded: bool = False, float64: bool = False):
     """Damp, marginalize points (Schur), solve the reduced camera system,
     back-substitute. Returns the PROPOSED (pose6, points) for this lambda.
+    With `float64` the dense path does so in float64 (see the module's
+    docstring).
 
     Two reduced-system solvers:
     - dense (windowed): IC-ordered S materialized (schur_dense, dense or
@@ -431,6 +447,9 @@ def _solve_lm(prob: BAProblem, H_cc, H_pp, W, b_c, b_p, lam, cfg: BAConfig,
     """
     if dense_slots is not None and group is not None and not point_sharded:
         raise ValueError("the distributed dense path needs the point-aligned layout")
+    if dense_slots is not None and float64:
+        H_cc, H_pp, W, b_c, b_p, lam = (x.double() for x in (H_cc, H_pp, W, b_c, b_p, lam))
+        Wg = None if Wg is None else Wg.double()
     H_cc_l = _damp_blocks(H_cc, lam)
     H_pp_l = _damp_blocks(H_pp, lam)
     # Guard padding points: identity blocks so the inverse stays finite.
@@ -486,7 +505,8 @@ def _solve_lm(prob: BAProblem, H_cc, H_pp, W, b_c, b_p, lam, cfg: BAConfig,
         z = _seg_sum_points(u, prob.obs_point, b_p.shape[0], dense_slots,
                             _plan(cam_red).points, None if point_sharded else group)
     dp = bmv(Hpp_inv, b_p - z)
-    dp = dp * prob.point_mask[:, None]
+    dp = (dp * prob.point_mask[:, None]).to(prob.points.dtype)
+    dc = dc.to(prob.pose6.dtype)
 
     pose6_new = prob.pose6 + dc
     points_new = torch.clamp(prob.points + dp, -cfg.point_bound, cfg.point_bound)
@@ -552,7 +572,8 @@ def lm_init(prob: BAProblem, cfg: BAConfig, dense_slots=None, cam_red=None, grou
 
 @full_f32
 def lm_iteration(carry: LMCarry, cfg: BAConfig, dense_slots=None, cam_red=None,
-                 band=None, active=None, group=None, point_sharded: bool = False):
+                 band=None, active=None, group=None, point_sharded: bool = False,
+                 float64: bool = False):
     """One evaluate-once LM iteration. Returns (new_carry, accepted,
     cost_before, cost_after). The accept decisions and damping schedule are
     lm_step's; the trial cost comes from the same whitened-residual pass
@@ -560,11 +581,11 @@ def lm_iteration(carry: LMCarry, cfg: BAConfig, dense_slots=None, cam_red=None,
 
     `active` (a bool device tensor, default True): where False, the
     iteration is masked, and the carry comes back as it went in. `group`
-    and `point_sharded` as in lm_step."""
+    and `point_sharded` as in lm_step, `float64` as in _solve_lm."""
     prob = carry.prob
     pose6_new, points_new = _solve_lm(
         prob, carry.H_cc, carry.H_pp, carry.W, carry.b_c, carry.b_p, carry.lam,
-        cfg, dense_slots, cam_red, carry.Wg, band, group, point_sharded,
+        cfg, dense_slots, cam_red, carry.Wg, band, group, point_sharded, float64,
     )
     prob_try = prob._replace(pose6=pose6_new, points=points_new)
     H_cc2, H_pp2, W2, b_c2, b_p2, cost_try, Wg2 = build_normal_equations(
@@ -752,12 +773,14 @@ class LMProgram(programs.Program):
 
     A distributed solve's program (parallel/dist_ba.py) holds this rank's
     shard and sums over `group` (see ba_solve; `point_sharded` for the
-    point-aligned layout); either takes ba_solve's distributed plan."""
+    point-aligned layout); either takes ba_solve's distributed plan.
+    `float64`: the iterations' dense solves in float64 (_solve_lm)."""
 
     def __init__(self, prob: BAProblem, cfg: BAConfig, dense_K, cam_K, band, chunked: bool,
-                 group=None, point_sharded: bool = False):
+                 group=None, point_sharded: bool = False, float64: bool = False):
         super().__init__(prob.pose6.device, group)
         self.cfg, self.dense_K, self.cam_K, self.chunked = cfg, dense_K, cam_K, chunked
+        self.float64 = float64
         # The banded path's chunk bases are data, in a static tensor that
         # `set_band` fills for each solve; its chunk count, B and Pc are shape.
         self.band = None if band is None else (
@@ -783,10 +806,10 @@ class LMProgram(programs.Program):
 
     @staticmethod
     def key(prob: BAProblem, cfg: BAConfig, dense_K, cam_K, band, chunked: bool, group=None,
-            point_sharded: bool = False):
+            point_sharded: bool = False, float64: bool = False):
         band_key = None if band is None else (len(band[0]), band[1], band[2])
         return (LMProgram, programs.tensor_key(*prob), cfg, dense_K, cam_K, band_key, chunked,
-                group, point_sharded)
+                group, point_sharded, float64)
 
     def load(self, prob: BAProblem):
         programs.copy_into(self.prob, prob)
@@ -808,7 +831,8 @@ class LMProgram(programs.Program):
     def iteration(self):
         active = ~self.done
         new, accepted, c0, c1 = lm_iteration(self.carry, self.cfg, *self.plans, self.band,
-                                             active, self.group, self.point_sharded)
+                                             active, self.group, self.point_sharded,
+                                             self.float64)
         # c0 is the carry's cost tensor: the exit test reads it before the
         # carry is overwritten.
         converged = accepted & (c0 > 0) & ((c0 - c1) < self.cfg.function_tolerance * c0)
@@ -832,14 +856,14 @@ class LMProgram(programs.Program):
 def lm_program(prob: BAProblem, cfg: BAConfig, dense_K=None, cam_K=None, band=None,
                chunked: bool = False,
                cache: Optional[programs.ProgramCache] = None, group=None,
-               point_sharded: bool = False) -> LMProgram:
-    """The cache's LMProgram for this problem's shapes, path and group, its
-    band's bases set to `band`'s."""
+               point_sharded: bool = False, float64: bool = False) -> LMProgram:
+    """The cache's LMProgram for this problem's shapes, path, group and
+    precision, its band's bases set to `band`'s."""
     cache = programs.PROGRAMS if cache is None else cache
     prog = cache.get(LMProgram.key(prob, cfg, dense_K, cam_K, band, chunked, group,
-                                   point_sharded),
+                                   point_sharded, float64),
                      lambda: LMProgram(prob, cfg, dense_K, cam_K, band, chunked, group,
-                                       point_sharded))
+                                       point_sharded, float64))
     prog.set_band(band)
     return prog
 
@@ -1002,6 +1026,18 @@ class BASetup(NamedTuple):
         return dict(dense_K=self.dense_K, cam_K=self.cam_K, **self.band_kwargs())
 
 
+# Baselines (metres) under which the windowed solves run in float64
+# (see the module's docstring): EuRoC's 0.110 m is under it, KITTI's
+# 0.537 m over it.
+FLOAT64_BELOW_BASELINE_M = 0.25
+
+
+def marginalize_in_float64(rig) -> bool:
+    """Whether BundleAdjuster's windowed solves on `rig` marginalize and
+    solve in float64 (its baseline under FLOAT64_BELOW_BASELINE_M)."""
+    return float(rig.baseline) < FLOAT64_BELOW_BASELINE_M
+
+
 class BundleAdjuster:
     """Host orchestration: pad, run LM to convergence, write back.
 
@@ -1016,6 +1052,7 @@ class BundleAdjuster:
         self.P_l = rig.left.projection
         self.P_r = rig.right.projection
         self.device = rig.device
+        self.float64 = marginalize_in_float64(rig)
         self.last_stats = {}
 
     def optimize(self, start_frame: int, end_frame: int,
@@ -1106,7 +1143,11 @@ class BundleAdjuster:
         host read. Nothing touches the world between the two calls, so a
         caller may do other work before finish(). Big solves (see below) run
         whole inside finish(), in chunks. Returns None when there is nothing
-        to solve. Both run the captured LM program (`lm_program`).
+        to solve. Both run the captured LM program (`lm_program`); while
+        tracing is on, a device timer (`utils/profiling`) brackets the
+        program of a solve that is not chunked, read in finish(): `dev.ba`
+        for a window's solve, which has no wall cap, and `dev.ba.capped`
+        for a capped one (a live closure's polish, the final BA).
         """
         setup = self.prepare(start_frame, end_frame)
         if setup is None:
@@ -1129,7 +1170,8 @@ class BundleAdjuster:
             @full_f32
             def finish_chunked() -> dict:
                 chunk_max = max(1, (1 << 22) // setup.O_pad)
-                prog = lm_program(prob, cfg, setup.dense_K, setup.cam_K, setup.band, True)
+                prog = lm_program(prob, cfg, setup.dense_K, setup.cam_K, setup.band, True,
+                                  float64=self.float64)
                 prog.load(prob)
                 prog.run("start", prog.start)
                 # The cap covers the LM chunks, as when lm_init was launched
@@ -1171,13 +1213,21 @@ class BundleAdjuster:
         # The captured LM program; one consolidated readback, in finish(),
         # of a result packed into its own tensor (the program's state
         # belongs to the next solve of its shapes).
-        prog = lm_program(prob, cfg, setup.dense_K, setup.cam_K, setup.band, False)
+        prog = lm_program(prob, cfg, setup.dense_K, setup.cam_K, setup.band, False,
+                          float64=self.float64)
+        timer = TRACER.device_timer("dev.ba" if max_seconds is None else "dev.ba.capped",
+                                    self.device)
         prog.solve(prob, iters)
         flat_dev = _pack_ba_result(prog.prob.pose6, prog.prob.points, prog.iters,
                                    prog.cost_init, prog.carry.cost)
+        if timer is not None:
+            timer.stop()
 
         def finish() -> dict:
-            return self._apply_result(setup, flat_dev.cpu().numpy(), chunked=False)
+            flat = flat_dev.cpu().numpy()
+            if timer is not None:
+                timer.read()   # the readback waited for the solve
+            return self._apply_result(setup, flat, chunked=False)
 
         return finish
 

@@ -24,8 +24,10 @@ block), and  S -= A^T (blockdiag(Hpp_inv) A)  accumulates over chunks as
 one [6C,3Pc]x[3Pc,6C] product. Memory peaks at O(P*K) + O((6C)^2), so
 this path is gated to windowed problems (C <= BAConfig.dense_schur_max_cams,
 P*K <= dense_schur_max_slots). The chunk loop runs on the host over chunk
-counts known there, so it adds no device sync. All products need full
-float32; the BA entry points turn TF32 off.
+counts known there, so it adds no device sync. S is assembled in the
+dtype of its inputs: float32 products need full float32 (the BA entry
+points turn TF32 off); on a short-baseline rig the BA hands float64
+blocks (backend/ba.py).
 
 Distributed (point-aligned layout, parallel/dist_ba.py): each rank
 assembles the share of S of its own points, and one [6C, 6C] all_reduce
@@ -105,7 +107,7 @@ def _chunk_product(cam_c, Wg_c, Minv_c, width: int):
     """One chunk's [6,width,6,width] contribution A^T (Hpp_inv A), with the
     chunk's slot cameras `cam_c` [Pc,K] already local to the band."""
     local = torch.arange(width, dtype=cam_c.dtype, device=cam_c.device)
-    oh = (cam_c[..., None] == local).float()                    # [Pc,K,w]
+    oh = (cam_c[..., None] == local).to(Wg_c.dtype)             # [Pc,K,w]
     A = torch.einsum("pkc,pkia->paic", oh, Wg_c)                # [Pc,3,6,w]
     T = torch.einsum("pab,pbic->paic", Minv_c, A)
     return torch.einsum("paic,pajd->icjd", A, T)                # [6,w,6,w]
@@ -153,7 +155,7 @@ def assemble_schur(H_cc_safe, W, Hpp_inv, slot_to_obs, slot_cam, slot_mask,
     Wg = Wg.reshape(P, K, 6, 3)
     Pc = _chunk_size(P, K, C)
     Wg, slot_cam, Hpp_inv = _pad_points(Wg, slot_cam, Hpp_inv, Pc)
-    S_sub = torch.zeros((6, C, 6, C), dtype=torch.float32, device=H_cc_safe.device)
+    S_sub = torch.zeros((6, C, 6, C), dtype=H_cc_safe.dtype, device=H_cc_safe.device)
     for lo in range(0, slot_cam.shape[0], Pc):
         hi = lo + Pc
         S_sub += _chunk_product(slot_cam[lo:hi], Wg[lo:hi], Hpp_inv[lo:hi], C)
@@ -269,7 +271,7 @@ def assemble_schur_banded(H_cc_safe, Hpp_inv, slot_cam, slot_mask, cam_mask,
         raise ValueError(f"band plan has {len(bases)} chunks, the problem {G}")
     Wg = Wg.reshape(P, K, 6, 3)
     Wg, slot_cam, Hpp_inv = _pad_points(Wg, slot_cam, Hpp_inv, Pc)
-    S_sub = torch.zeros((6, C, 6, C), dtype=torch.float32, device=dev)
+    S_sub = torch.zeros((6, C, 6, C), dtype=H_cc_safe.dtype, device=dev)
     if isinstance(bases, torch.Tensor):
         lin = _band_index(C, B, dev) + bases[:, None] * (6 * C + 1)
         flat = S_sub.view(-1)

@@ -802,7 +802,10 @@ class VisualOdometer:
         `bow` = (centroids, idf, database, db_size, query_size) adds the
         frames' BoW scoring and database append (frontend_chain_bow), with
         the feature-bank rings `banks` (throwaway rings at the database's
-        capacity when None)."""
+        capacity when None).
+
+        While tracing is on, a `dev.chain` device timer (`utils/profiling`)
+        brackets the chain (and the scoring body); collect_batch reads it."""
         k = len(imgs_l)
         samplers = [self.sampler_for_frame(self._frame_counter + j) for j in range(k)]
         self._frame_counter += k
@@ -815,6 +818,7 @@ class VisualOdometer:
         captured = keyed(samplers)
         handle = {"k": k, "bow": None, "banks": None}
         topk = []
+        timer = TRACER.device_timer("dev.chain", self.device)
         if bow is None:
             if captured:
                 carry, stacked = frontend_chain_program(*args, self.steer)
@@ -835,6 +839,9 @@ class VisualOdometer:
             handle["banks"] = banks
             topk = [top_ids, top_scores]
         self._carry_dev = carry
+        if timer is not None:
+            timer.stop()
+        handle["timer"] = timer
         handle["carry"] = carry
         handle["stacked"] = stacked
         # With the rings the descriptors stay on the device.
@@ -856,6 +863,8 @@ class VisualOdometer:
         readback = handle["readback"]
         self.readback_stats["ready" if readback.ready() else "waited"] += 1
         arrays = readback.arrays()
+        if handle["timer"] is not None:
+            handle["timer"].read()   # the chain ran before the readback's copy
         if with_bow:
             self.last_new_database = handle["bow"][0]
             self.last_banks = handle["banks"]

@@ -28,6 +28,21 @@ A timed span (`timed()`) reads the clock whether tracing is on or not,
 and records only when it is on: `StageTimers` and a program's capture
 time (`programs.Program._capture`) read their durations from one.
 
+A device timer (`device_timer()`) is a pair of CUDA timing events around
+work launched on the current stream, made only while tracing is on and the
+work's device is a CUDA device (otherwise it is None, after one flag
+check). `stop()` records its second event; `read()`, called once the host
+knows the work has finished (after a readback that waited on it), adds the
+milliseconds between the events to the tracer's device times under its
+name, with no sync of its own. That is the stream's interval between the
+two events: it counts any wait of the stream inside it, and is not the
+device's busy time. The batch path times its chain (`dev.chain`,
+`VisualOdometer.dispatch_batch` to `collect_batch`) and each captured
+window solve of the BA (`dev.ba`, the batch path's
+`BundleAdjuster.optimize_async` to its finish; a capped solve, such as
+a live closure's polish, is `dev.ba.capped`) so; `device_times()` reads
+them out.
+
 Spans are opened and closed by one thread, the one that runs the
 program; the host clock adds no device sync, so a span that ends in a
 readback (`vo.readback`, `vo.collect`, `ba.finish`) includes the device
@@ -97,6 +112,26 @@ class _Span:
 _OFF = contextlib.nullcontext()
 
 
+class DeviceTimer:
+    """A CUDA event pair on the current stream (see the module's
+    docstring): started when made."""
+
+    __slots__ = ("tracer", "name", "start", "end")
+
+    def __init__(self, tracer: "Tracer", name: str):
+        self.tracer, self.name = tracer, name
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+
+    def stop(self):
+        self.end.record()
+
+    def read(self):
+        """Add the device milliseconds between the events (both passed)."""
+        self.tracer._device[self.name].append(self.start.elapsed_time(self.end))
+
+
 class Tracer:
     """The spans of one process (see the module's docstring)."""
 
@@ -107,6 +142,7 @@ class Tracer:
         self._names: List[str] = []
         self._ids: Dict[str, int] = {}
         self._open: List[int] = []     # rows of the open recorded spans, innermost last
+        self._device: Dict[str, List[float]] = defaultdict(list)
 
     def enable(self, on: bool = True):
         self.enabled = bool(on)
@@ -122,6 +158,17 @@ class Tracer:
         """A span that reads the clock whether tracing is on or not: its
         `seconds` after it closes."""
         return _Span(self, name, None)
+
+    def device_timer(self, name: str, device) -> Optional[DeviceTimer]:
+        """A started `DeviceTimer` of `name` while tracing is on and
+        `device` is a CUDA device; None otherwise."""
+        if not self.enabled or torch.device(device).type != "cuda":
+            return None
+        return DeviceTimer(self, name)
+
+    def device_times(self) -> Dict[str, List[float]]:
+        """{name: [device milliseconds of each timer read]}."""
+        return {name: list(ms) for name, ms in self._device.items()}
 
     def _open_row(self, name: str, frame: Optional[int]) -> int:
         row = self._n
@@ -150,10 +197,11 @@ class Tracer:
                 for i in range(0, self._n * _FIELDS, _FIELDS)]
 
     def reset(self):
-        """Drop the recorded spans (with no span open)."""
+        """Drop the recorded spans and device times (with no span open)."""
         if self._open:
             raise RuntimeError("a tracer is reset only with no span open")
         self._n = 0
+        self._device.clear()
 
 
 def self_ns(spans: List[SpanRecord]) -> List[int]:

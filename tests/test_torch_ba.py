@@ -301,6 +301,39 @@ def test_ba_solve_matches_jax(noisy_problem, path):
     np.testing.assert_allclose(np_(tc.prob.points), np_(jc.prob.points), atol=1e-3)
 
 
+@pytest.mark.parametrize("path", ["matrix-free", "dense"])
+def test_schur_float64_solves_the_float32_normal_equations_in_float64(noisy_problem, path):
+    """With `float64` (a short-baseline rig's, `marginalize_in_float64`) a
+    windowed step is the float64 solve of the float32 normal equations (the
+    same step computed with every input cast to float64), handed back in
+    float32; the matrix-free path is as without it."""
+    _, tprob, K = noisy_problem
+    cfg = BAConfig()
+    slots = cam_red = None
+    if path == "dense":
+        slots = tba.build_slots_device(tprob.obs_point, tprob.obs_cam, tprob.obs_weight,
+                                       tprob.points.shape[0], K)
+        cam_red = tba._cam_reduction(tprob, slots, None, False)
+    H_cc, H_pp, W, b_c, b_p, _, Wg = tba.build_normal_equations(tprob, cfg.huber_delta, slots,
+                                                                cam_red)
+    lam = torch.tensor(1e-3)
+    eqs = (H_cc, H_pp, W, b_c, b_p, lam)
+    got = tba._solve_lm(tprob, *eqs, cfg, slots, cam_red, Wg, float64=True)
+    assert all(x.dtype == torch.float32 for x in got)
+    if path == "matrix-free":
+        for a, b in zip(got, tba._solve_lm(tprob, *eqs, cfg, slots, cam_red, Wg)):
+            assert torch.equal(a, b)
+        return
+    prob64 = tba.BAProblem(*(t.double() if t.is_floating_point() else t for t in tprob))
+    want = tba._solve_lm(prob64, *(x.double() for x in eqs), cfg, slots, cam_red,
+                         Wg.double())
+    for a, b, x0 in zip(got, want, (tprob.pose6, tprob.points)):
+        # The float64 step, added to the float32 start: within one float32
+        # rounding of the float64 sum.
+        np.testing.assert_allclose(np_(a - x0), np_(b - x0.double()), rtol=0,
+                                   atol=2 ** -23 * float(b.abs().max()))
+
+
 def test_ba_resume_chunks_match_single_solve(noisy_problem):
     _, tprob, _ = noisy_problem
     cfg = BAConfig(cg_iterations=30)
